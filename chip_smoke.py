@@ -6,27 +6,46 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 
 1. the card (nvidia-smi name and power limit) and the software versions;
    exits non-zero at once when CUDA is absent;
-2. builds kernel K1 (csrc/inv_chol.cu) with nvcc for sm_90a;
+2. builds the kernels with nvcc for sm_90a, one nvcc per source, started
+   together: K1 (csrc/inv_chol.cu) and K3/K4 (csrc/thin_level.cu); prints
+   each kernel's registers, shared memory and spills;
 3. holds K1 against its plain PyTorch version at the main path's shapes and
    more, f32 and f64, with and without L, each batch also with one non-SPD
    block that must come out ok=False; times both at the config-3 shapes;
 4. runs spamtree(device="cuda") on bench config 1 (n=625) at its full
-   keep=1000, burn=1000, thin=2;
+   keep=1000, burn=1000, thin=2 (the always-emit theta step);
 5. runs config 3 (n=1e5, bivariate AG10) with burn=200, keep=100, thin=2.
    Both runs must give finite draws, RMSPE < 0.5 sd(y) on the held-out rows,
    acceptance in (0.05, 0.8), and K1 launched twice per iteration on every
-   reference level with S <= 64.
+   reference level with S <= 64;
+6. holds K3 (thin_gibbs) and K4 (thin_decision) against their plain
+   versions, f32 and f64, at config 3's thin level (aligned), config 1's
+   (through lp_pos, repeated and shuffled parents, Bp != B), P=128 and
+   P=384 (the TPU's K5 layouts) and the gate's edge (S=512, P=1024), each
+   with a partly masked block, with and without a block forced to r <= 0
+   that both versions must flag ok=False; times both at config 3's shape;
+7. the accept-aware theta step (MCMCConfig(accept_aware=True)) with the
+   fused level kernels on (SPAMTREE_LEVEL_KERNELS=1): config 1 (keep=500,
+   burn=500, thin=2), config 3 with composed factor parts on (the default)
+   and off (burn=200, keep=100, thin=2), and config 1 on the limited tree
+   (keep=200, burn=200, thin=1).  Each must meet phase 5's checks, launch
+   K3 on every thin level of every iteration, and K4 on every thin level
+   whose parent hands it an assembled joint (none when every thin level's
+   parent composes).
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Imports no jax; ``bench`` only for its
-numpy data makers.
+Every kernel's launch count is set to 0 just before a run and read just
+after it.  The line before the last is the kernels' JSON record; the last
+line is {"ok": true, "device": {...}}.  Imports no jax; ``bench`` only for
+its numpy data makers.
 """
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -34,6 +53,10 @@ import numpy as np
 CONFIG3_SHAPES = [(1, 50), (4, 49), (16, 50), (64, 50), (256, 50), (1024, 47)]
 CHECK_SHAPES = CONFIG3_SHAPES + [(1024, 64), (3, 7), (130, 33)]
 TOL = {"float32": 1e-4, "float64": 1e-10}  # max|dLinv| <= TOL * max|Linv|
+# the published H100 SXM peaks that bound a kernel: device memory rate and
+# the FP32 rate outside the tensor cores (TF32 is barred by the package)
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
 
 
 def _phase(name):
@@ -43,6 +66,58 @@ def _phase(name):
 def _check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+@contextlib.contextmanager
+def _env(**kv):
+    """Set environment gates for a block and restore them after it."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _bound(nbytes, flops):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    FP32 operations over the FP32 rate."""
+    tb, tf = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_FP32_S
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _reset_counts(chol, level):
+    chol.LAUNCHES = 0
+    level.LAUNCHES_GIBBS = 0
+    level.LAUNCHES_DECISION = 0
+
+
+def _counts(chol, level):
+    return dict(k1_launches=chol.LAUNCHES, k3_launches=level.LAUNCHES_GIBBS,
+                k4_launches=level.LAUNCHES_DECISION)
+
+
+def _event_times(torch, fns, reps):
+    """CUDA-event ms per call of each of ``fns`` ({"kernel", "plain"}),
+    in turns plain, kernel, kernel, plain; the minimum of each."""
+    for f in fns.values():
+        for _ in range(3):
+            f()
+    times = {k: [] for k in fns}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fns[name]()
+        e1.record()
+        torch.cuda.synchronize()
+        times[name].append(e0.elapsed_time(e1) / reps)
+    return min(times["kernel"]), min(times["plain"])
 
 
 def card_info(torch):
@@ -55,15 +130,20 @@ def card_info(torch):
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
 
-def build_kernel(chol, _build, torch):
+def build_kernels(chol, level, _build, torch):
     t0 = time.time()
+    with ThreadPoolExecutor(2) as ex:  # one nvcc per source, together
+        list(ex.map(_build.load, ("inv_chol", "thin_level")))
     for dt in (torch.float32, torch.float64):
         chol._kernel(dt)
-    print(f"K1 built/loaded in {time.time() - t0:.2f} s")
+        level._kernel("thin_gibbs", dt)
+        level._kernel("thin_decision", dt)
+    print(f"K1, K3, K4 built/loaded in {time.time() - t0:.2f} s")
     for name, (secs, log) in _build.BUILD_LOG.items():
         print(f"nvcc {name}: {secs:.2f} s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill", "smem")):
                 print(f"  {line.strip()}")
 
 
@@ -117,46 +197,39 @@ def check_kernel(chol, torch):
 
 def time_kernel(chol, torch, reps=50):
     """CUDA-event ms per call, kernel and plain, at the config-3 shapes
-    (f32), alternating plain, kernel, kernel, plain."""
+    (f32), alternating plain, kernel, kernel, plain; with each shape's
+    bound (A read once, Linv written once; S^3/3 flops for the factor and
+    as many for its inverse)."""
     rows = []
     for B, S in CONFIG3_SHAPES:
         A = _spd_batch(torch, B, S, torch.float32, seed=7)
-        fns = {"kernel": lambda: chol.inv_chol(A),
-               "plain": lambda: chol.inv_chol_plain(A)}
-        times = {"kernel": [], "plain": []}
-        for f in fns.values():
-            for _ in range(3):
-                f()
-        for name in ("plain", "kernel", "kernel", "plain"):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            for _ in range(reps):
-                fns[name]()
-            e1.record()
-            torch.cuda.synchronize()
-            times[name].append(e0.elapsed_time(e1) / reps)
-        k, p = min(times["kernel"]), min(times["plain"])
-        rows.append((B, S, k, p))
-        print(f"K1 time B={B} S={S}: kernel {k:.4f} ms, plain {p:.4f} ms")
+        k, p = _event_times(torch, {"kernel": lambda: chol.inv_chol(A),
+                                    "plain": lambda: chol.inv_chol_plain(A)},
+                            reps)
+        bound = _bound(2 * B * S * S * 4, B * 2 * S ** 3 / 3)
+        rows.append((B, S, k, p, bound))
+        print(f"K1 time B={B} S={S}: kernel {k:.4f} ms, plain {p:.4f} ms, "
+              f"bound {bound[0]:.4f} ms ({bound[1]})")
     return rows
 
 
-def run_config(bench, chol, torch, cfg_id, keep, burn, thin):
+def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin):
+    """The always-emit theta step through spamtree()."""
     import spamtree_tpu_torch
 
     c = bench.CONFIGS[cfg_id]
     y, y_full, miss, X, coords, mv = c["maker"]()
     ybar = np.nanmean(y)
     torch.cuda.reset_peak_memory_stats()
-    chol.LAUNCHES = 0
+    _reset_counts(chol, level)
     t0 = time.time()
     out = spamtree_tpu_torch.spamtree(
         y - ybar, X, coords, mv_id=mv, cell_size=25,
         mcmc=dict(keep=keep, burn=burn, thin=thin),
         settings=dict(chunk=200), seed=1, device="cuda")
     wall = time.time() - t0
-    launches = chol.LAUNCHES
+    counts = _counts(chol, level)
+    launches = counts["k1_launches"]
     iters = out["burn_actual"] + keep * thin
     order = out["order"]
     y_post = out["yhat_mcmc"].mean(axis=0) + ybar
@@ -164,11 +237,10 @@ def run_config(bench, chol, torch, cfg_id, keep, burn, thin):
     rmspe = float(np.sqrt(np.mean((y_post[mo] - y_full[order][mo]) ** 2)))
     sd = float(np.nanstd(y_full))
     n_ref = sum(1 for p in out["schedule"].levels if p.is_ref and p.S <= 64)
-    res = dict(config=c["name"], n=len(y), iters=iters,
+    res = dict(config=c["name"], step="always_emit", n=len(y), iters=iters,
                ips=iters / out["mcmc_time"], mcmc_time=out["mcmc_time"],
                setup_time=wall - out["mcmc_time"], rmspe=rmspe, sd_y=sd,
-               accept=out["accept_ratio"], k1_launches=launches,
-               ref_levels_s64=n_ref,
+               accept=out["accept_ratio"], **counts, ref_levels_s64=n_ref,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                setup_breakdown=out["setup_breakdown"])
     print(json.dumps(res), flush=True)
@@ -180,7 +252,198 @@ def run_config(bench, chol, torch, cfg_id, keep, burn, thin):
            f"acceptance {out['accept_ratio']} outside (0.05, 0.8)")
     _check(n_ref > 0 and launches >= 2 * n_ref * iters,
            f"K1 launches {launches} < 2 x {n_ref} ref levels x {iters} its")
-    return res
+    thin_lvls = [(p.B, p.S, p.P) for p in out["schedule"].levels
+                 if not p.is_ref and p.P > 0]
+    return res, thin_lvls
+
+
+def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
+                     composed=True, limited=False):
+    """prepare_fit, then run_mcmc with the accept-aware theta step and the
+    fused level kernels on; returns the run's record."""
+    from spamtree_tpu_torch.api import prepare_fit
+    from spamtree_tpu_torch.model import core
+    from spamtree_tpu_torch.model.mcmc import run_mcmc
+
+    c = bench.CONFIGS[cfg_id]
+    y, y_full, miss, X, coords, mv = c["maker"]()
+    ybar = np.nanmean(y)
+    with _env(SPAMTREE_LEVEL_KERNELS="1",
+              SPAMTREE_COMPOSED_FACTORS="1" if composed else "0"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        fit = prepare_fit(y - ybar, X, coords, mv_id=mv, cell_size=25,
+                          mcmc=dict(keep=keep, burn=burn, thin=thin),
+                          settings=dict(chunk=200), seed=1, device="cuda",
+                          limited_tree=limited)
+        setup = time.time() - t0
+        ms = fit.ms
+        L = len(ms.levels)
+        # which reference levels hand their thin children factor parts
+        compose = {t: composed and core._compose_children(ms, t)
+                   for t in range(L) if ms.level_is_ref[t]}
+        for t, f in compose.items():
+            print(f"ref level {t} (B, S, P) = "
+                  f"{tuple(ms.levels[t].rows.shape)}+"
+                  f"{ms.levels[t].prows.shape[1]}: composes children {f}")
+        thin_lvls = [t for t in range(L) if not ms.level_is_ref[t]
+                     and ms.levels[t].prows.shape[1] > 0]
+        k3_lvls = [t for t in thin_lvls if ms.level_chunks[t] == 1
+                   and ms.levels[t].prows.shape[1] <= level.MAX_P
+                   and ms.levels[t].rows.shape[1] <= level.MAX_S]
+        k4_lvls = [t for t in k3_lvls if ms.level_group_c[t] <= 1
+                   and not compose[ms.level_lp[t]]]
+        all_compose = all(compose[ms.level_lp[t]] for t in thin_lvls)
+        _reset_counts(chol, level)
+        res = run_mcmc(ms, fit.bounds, fit.cfg._replace(accept_aware=True),
+                       fit.state, fit.gen, yhat_seed=1)
+        counts = _counts(chol, level)
+    iters = res["burn_actual"] + keep * thin
+    y_post = res["yhat"].mean(axis=0) + ybar
+    mo = miss[fit.order]
+    rmspe = float(np.sqrt(np.mean((y_post[mo] - y_full[fit.order][mo]) ** 2)))
+    sd = float(np.nanstd(y_full))
+    n_ref = sum(1 for t in range(L) if ms.level_is_ref[t]
+                and ms.levels[t].rows.shape[1] <= 64)
+    rec = dict(config=c["name"], step="accept_aware", level_kernels=True,
+               composed=composed, limited_tree=limited, n=len(y), iters=iters,
+               ips=iters / res["mcmc_time"], mcmc_time=res["mcmc_time"],
+               setup_time=setup, rmspe=rmspe, sd_y=sd,
+               accept=res["accept_ratio"], **counts, ref_levels_s64=n_ref,
+               thin_levels=[tuple(ms.levels[t].rows.shape)
+                            + (ms.levels[t].prows.shape[1],)
+                            for t in thin_lvls],
+               k3_levels=len(k3_lvls), k4_levels=len(k4_lvls),
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               setup_breakdown=fit.setup_breakdown)
+    print(json.dumps(rec), flush=True)
+    for k in ("w", "yhat", "beta", "tausq", "theta"):
+        _check(res[k].size and np.isfinite(res[k]).all(), f"finite {k}")
+    _check(res["w"].shape == (keep, len(y)), "w shape")
+    _check(rmspe < 0.5 * sd, f"RMSPE {rmspe} >= 0.5 sd(y) {sd}")
+    _check(0.05 < res["accept_ratio"] < 0.8,
+           f"acceptance {res['accept_ratio']} outside (0.05, 0.8)")
+    k1, k3, k4 = (counts[k] for k in ("k1_launches", "k3_launches",
+                                      "k4_launches"))
+    _check(n_ref > 0 and k1 >= 2 * n_ref * iters,
+           f"K1 launches {k1} < 2 x {n_ref} ref levels x {iters} its")
+    _check(k3_lvls and k3 >= len(k3_lvls) * iters,
+           f"K3 launches {k3} < {len(k3_lvls)} thin levels x {iters} its")
+    _check(k4 >= len(k4_lvls) * iters,
+           f"K4 launches {k4} < {len(k4_lvls)} thin levels x {iters} its")
+    _check((k4 == 0) == all_compose,
+           f"K4 launches {k4} but every thin parent composes: {all_compose}")
+    return rec
+
+
+def _level_inputs(torch, dtype, B, S, P, Bp, seed, bad):
+    """K3 and K4 inputs at realistic magnitudes (M = LAi Kxc ~ N(0, 1),
+    hk ~ P, kdiag in (2.5 P, 4 P)): block 1 partly masked; with ``bad``
+    block B-1 gets kdiag < 0, so r <= 0 there and its ok flag must be 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(generator=g, device="cuda", dtype=dtype)
+
+    def unif(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, **kw)
+
+    rmask = torch.ones(B, S, device="cuda", dtype=dtype)
+    rmask[1, S // 2:] = 0.0
+    lp_pos = (torch.arange(B, device="cuda") if Bp is None else
+              torch.randint(0, Bp, (B,), generator=g, device="cuda"))
+    dec = dict(Kxc=torch.randn(B, P, S, **kw),
+               joint=torch.randn(B if Bp is None else Bp, P, P, **kw) / P ** 0.5,
+               lp_pos=lp_pos, wpar=torch.randn(B, P, **kw),
+               w_r=torch.randn(B, S, **kw),
+               prevH=torch.randn(B, S, P, **kw) / P ** 0.5,
+               prevprec=unif(0.5, 2.0, B, S), kdiag=unif(2.5, 4.0, B, S) * P,
+               rmask_f=rmask)
+    if bad:
+        dec["kdiag"][B - 1] = -1.0
+    gib = dict(H=torch.randn(B, S, P, **kw) / P ** 0.5,
+               prec=unif(0.5, 2.0, B, S), wpar=dec["wpar"],
+               z=torch.randn(B, S, **kw), ti=unif(2.0, 5.0, B, S),
+               resid=torch.randn(B, S, **kw), rmask_f=rmask)
+    return dec, gib
+
+
+def _close(k, p, tol):
+    return bool(((k - p).abs() <= tol * p.abs().clamp(min=1.0)).all())
+
+
+def check_level_kernels(level, torch, thin3):
+    """K3 and K4 against their plain versions; returns the largest f32
+    |d| at config 3's shape of each (wu/msg; the per-block partials)."""
+    B3, S3, P3 = thin3
+    cases = [("config3", B3, S3, P3, None), ("config1", 16, 18, 69, 12),
+             ("p128", 64, 68, 128, None), ("p384", 64, 68, 384, None),
+             ("edge", 8, 512, 1024, None)]
+    err = {"k3": 0.0, "k4": 0.0}
+    for dname in ("float32", "float64"):
+        dtype, tol = getattr(torch, dname), TOL[dname]
+        for name, B, S, P, Bp in cases:
+            for bad in (False, True):
+                dec, gib = _level_inputs(torch, dtype, B, S, P, Bp,
+                                         seed=B + S + P, bad=bad)
+                aligned = Bp is None
+                pk = level.thin_decision_partials(**dec, aligned=aligned)
+                pp = level.thin_decision_partials_plain(**dec, aligned=aligned)
+                lk = level.thin_decision_level(**dec, aligned=aligned)
+                lp = level.thin_decision_level_plain(**dec, aligned=aligned)
+                wk, mk = level.thin_gibbs_level(**gib)
+                wp, mp = level.thin_gibbs_level_plain(**gib)
+                torch.cuda.synchronize()
+                what = f"{dname} {name} B={B} S={S} P={P} bad={bad}"
+                okp = pp[:, 3].clone()
+                _check(torch.equal(pk[:, 3], okp), f"K4 ok flags: {what}")
+                _check(float(okp.min()) == (0.0 if bad else 1.0),
+                       f"forced r <= 0 flags: {what}")
+                _check(bool(lk[1]) == bool(lp[1]) == (not bad),
+                       f"K4 level ok: {what}")
+                _check(_close(pk, pp, tol), f"K4 partials disagree: {what}")
+                for i in (0, 2, 3):
+                    _check(_close(lk[i], lp[i], tol),
+                           f"K4 level scalar {i} disagrees: {what}")
+                _check(_close(wk, wp, tol) and _close(mk, mp, tol),
+                       f"K3 disagrees: {what}")
+                _check(bool((wk[1, S // 2:] == 0).all()), f"K3 mask: {what}")
+                if dname == "float32" and name == "config3":
+                    err["k4"] = max(err["k4"], float((pk - pp).abs().max()))
+                    err["k3"] = max(err["k3"], float((wk - wp).abs().max()),
+                                    float((mk - mp).abs().max()))
+            print(f"K3/K4 ok {dname} {name} B={B} S={S} P={P}", flush=True)
+    print(f"K3 max |d| f32 at config 3: {err['k3']:.3e}; "
+          f"K4 max |d partials| f32 at config 3: {err['k4']:.3e}")
+    return err
+
+
+def time_level_kernels(level, torch, thin3, reps=20):
+    """CUDA-event ms per call of K3 and K4 (wrappers, as the sweeps call
+    them) and their plain versions at config 3's thin level (f32,
+    aligned), with the bound of each: K3 reads H, wpar and five (B, S)
+    vectors and writes wu and msg, 4 B S P flops; K4 reads Kxc, the B
+    parent slabs, prevH, wpar and four (B, S) vectors and writes (B, 4),
+    2 P^2 (S + 1) B + 6 P S B flops."""
+    B, S, P = thin3
+    dec, gib = _level_inputs(torch, torch.float32, B, S, P, None, seed=11,
+                             bad=False)
+    it = 4
+    out = {}
+    k, p = _event_times(torch, {
+        "kernel": lambda: level.thin_gibbs_level(**gib),
+        "plain": lambda: level.thin_gibbs_level_plain(**gib)}, reps)
+    out["k3"] = (k, p, _bound(it * (B * S * P + 6 * B * S + 2 * B * P),
+                              4 * B * S * P))
+    k, p = _event_times(torch, {
+        "kernel": lambda: level.thin_decision_level(**dec, aligned=True),
+        "plain": lambda: level.thin_decision_level_plain(**dec, aligned=True)},
+        reps)
+    out["k4"] = (k, p, _bound(
+        it * (2 * B * P * S + B * P * P + B * P + 4 * B * S + 4 * B),
+        2 * P * P * (S + 1) * B + 6 * P * S * B))
+    for name, (k, p, (bd, by)) in out.items():
+        print(f"{name.upper()} time B={B} S={S} P={P} f32: kernel {k:.4f} ms,"
+              f" plain {p:.4f} ms, bound {bd:.4f} ms ({by})")
+    return out
 
 
 def main() -> int:
@@ -192,20 +455,37 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bench
     import spamtree_tpu_torch  # noqa: F401  (sets the f32 precision pins)
-    from spamtree_tpu_torch.ops import _build, chol
+    from spamtree_tpu_torch.ops import _build, chol, level
 
     _phase("card")
     card_info(torch)
-    _phase("build K1")
-    build_kernel(chol, _build, torch)
+    _phase("build K1, K3, K4")
+    build_kernels(chol, level, _build, torch)
     _phase("K1 vs plain")
     max_err = check_kernel(chol, torch)
     rows = time_kernel(chol, torch)
     _phase("config 1")
-    run_config(bench, chol, torch, 1, keep=1000, burn=1000, thin=2)
+    run_config(bench, chol, level, torch, 1, keep=1000, burn=1000, thin=2)
     _phase("config 3")
-    r3 = run_config(bench, chol, torch, 3, keep=100, burn=200, thin=2)
+    r3, thin3 = run_config(bench, chol, level, torch, 3, keep=100, burn=200,
+                           thin=2)
+    _check(len(thin3) == 1, f"config 3 thin levels {thin3}")
+    _phase(f"K3/K4 vs plain (config 3 thin level {thin3[0]})")
+    lerr = check_level_kernels(level, torch, thin3[0])
+    ltimes = time_level_kernels(level, torch, thin3[0])
+    _phase("config 1, accept-aware, level kernels")
+    run_accept_aware(bench, chol, level, torch, 1, keep=500, burn=500, thin=2)
+    _phase("config 3, accept-aware, level kernels, composed factors")
+    run_accept_aware(bench, chol, level, torch, 3, keep=100, burn=200, thin=2)
+    _phase("config 3, accept-aware, level kernels, no composed factors")
+    a3 = run_accept_aware(bench, chol, level, torch, 3, keep=100, burn=200,
+                          thin=2, composed=False)
+    _check(a3["k4_launches"] > 0, "K4 never launched at config 3")
+    _phase("config 1, limited tree, accept-aware, level kernels")
+    run_accept_aware(bench, chol, level, torch, 1, keep=200, burn=200, thin=1,
+                     limited=True)
 
+    k1_bound = sum(r[4][0] for r in rows)
     print(json.dumps({"kernels": [{
         "name": "inv_chol",
         "route": "cuda",
@@ -216,7 +496,26 @@ def main() -> int:
         # one call at each config-3 reference-level shape, summed
         "ms": sum(r[2] for r in rows),
         "plain_ms": sum(r[3] for r in rows),
-    }]}))
+        "bound_ms": k1_bound,
+        "bound_by": ("bytes" if all(r[4][1] == "bytes" for r in rows)
+                     else "operations"),
+        "library_ms": None,
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "spamtree_tpu_torch/csrc/thin_level.cu",
+        "replaces": replaces,
+        # from the config-3 accept-aware run without composed factors
+        "launches": a3[f"{key}_launches"],
+        "max_abs_err": lerr[key],
+        "ms": ltimes[key][0],
+        "plain_ms": ltimes[key][1],
+        "bound_ms": ltimes[key][2][0],
+        "bound_by": ltimes[key][2][1],
+        "library_ms": None,
+    } for name, key, replaces in (
+        ("thin_gibbs", "k3", "spamtree_tpu/ops/pallas_level.py:306"),
+        ("thin_decision", "k4", "spamtree_tpu/ops/pallas_level.py:186"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,8 @@ CUDA kernels for NVIDIA Hopper.
 A port of ``spamtree_tpu`` (the JAX package beside this one, which stays
 the reference).  Module layout and function names mirror the JAX package:
 ``tree/`` (NumPy partitioner and padded schedule), ``ops/`` (covariance,
-masked linear algebra, the batched inverse-Cholesky kernel), ``model/``
+masked linear algebra, the batched inverse-Cholesky kernel, the fused
+thin-level kernels), ``model/``
 (sweeps, Gibbs, MCMC) and ``api.py``.  This package imports neither jax nor
 ``spamtree_tpu``.
 """

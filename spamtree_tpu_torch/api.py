@@ -1,9 +1,9 @@
 """User-facing API: ``spamtree()`` fit + predict in one MCMC run.
 
 Port of the main path of ``spamtree_tpu/api.py`` (reference front-end
-R/spamtree_fit.R): one chain on the full tree, every kept draw collected,
-prediction at the NaN rows.  The remaining knobs of the JAX package raise
-NotImplementedError naming the knob.
+R/spamtree_fit.R): one chain on a full or limited tree, every kept draw
+collected, prediction at the NaN rows.  The remaining knobs of the JAX
+package raise NotImplementedError naming the knob.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from spamtree_tpu_torch.tree.schedule import build_schedule
 # default value it does run
 _NOT_PORTED = dict(
     elevation=False, start_level=0, tree_depth=np.inf,
-    last_not_reference=True, limited_tree=False, cherrypick_same_margin=True,
+    last_not_reference=True, cherrypick_same_margin=True,
     cherrypick_group_locations=True, mvbias=0.0, prior=None, starting=None,
     debug=None, precompile=False, n_chains=1, checkpoint_path=None,
     resume_from=None, sink_dir=None, devices=None, mesh=None,
@@ -68,7 +68,7 @@ class Fit(NamedTuple):
 
 def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
                 settings=None, seed=1, dtype=torch.float32, verbose=False,
-                device="cuda", **knobs) -> Fit:
+                device="cuda", limited_tree=False, **knobs) -> Fit:
     """Tree, schedule, model, tuned proposal and initial state of a
     ``spamtree`` run (same arguments), without running the chain."""
     settings = dict(settings or {})
@@ -107,8 +107,9 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     tb = {}  # setup breakdown: seconds per pre-MCMC phase
     t_ = time.time()
     tree = make_tree(cs, np.isfinite(ys), mvs, axis_cell_size=axis_size, K=K,
+                     limited_tree=limited_tree,
                      rng=np.random.default_rng(seed), verbose=verbose)
-    sched = build_schedule(tree)
+    sched = build_schedule(tree, limited_tree=limited_tree)
     tb["tree_s"] = round(time.time() - t_, 2)
     tspec = make_theta_spec(dd, q, start_theta=auto_start_theta(
         dd, q, cs, ys, mvs))
@@ -144,7 +145,7 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
 
 def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
              settings=None, seed=1, dtype=torch.float32, verbose=False,
-             device="cuda", **knobs):
+             device="cuda", limited_tree=False, **knobs):
     """Fit a SpamTree model: fit + prediction in one MCMC run.
 
     y : (n,) response; NaN rows are predicted.
@@ -157,6 +158,8 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     seed : seeds the tree, the device generator and the host yhat noise.
     dtype : torch.float32 or torch.float64.
     device : where the model runs; "cuda" raises when CUDA is absent.
+    limited_tree : each block conditions on its parent block's rows alone
+        (reference make_tree.R), instead of on all its ancestors.
 
     Returns a dict with w_mcmc, yhat_mcmc (keep, n), beta_mcmc (p, keep, q),
     tausq_mcmc (q, keep), theta_mcmc (n_theta, keep), order (outputs are in
@@ -165,7 +168,8 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     """
     fit = prepare_fit(y, x, coords, mv_id=mv_id, cell_size=cell_size, K=K,
                       mcmc=mcmc, settings=settings, seed=seed, dtype=dtype,
-                      verbose=verbose, device=device, **knobs)
+                      verbose=verbose, device=device,
+                      limited_tree=limited_tree, **knobs)
     res = run_mcmc(fit.ms, fit.bounds, fit.cfg, fit.state, fit.gen,
                    verbose=verbose, yhat_seed=seed)
     return {

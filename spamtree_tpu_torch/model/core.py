@@ -19,18 +19,26 @@ JAX package.
 Every padded slot of a level scatters into the sentinel row ``w[n]``; its
 values are masked to 0, so the duplicate writes agree and ``w[n]`` stays 0.
 
-Not ported (raise NotImplementedError): limited trees, the prediction
-operators' recompute mode (``pred_in_carry=False``), and the decision-only
-sweep of the accept-aware step.
+The decision-only sweep of the accept-aware step (``sweep(decision_only=
+True)``) propagates joint factors only to sweep levels, lets a reference
+level hand its thin children factor parts instead of an assembled joint
+(``SPAMTREE_COMPOSED_FACTORS``, default on), and with
+``SPAMTREE_LEVEL_KERNELS=1`` runs thin levels through the fused kernels of
+``ops.level`` (K4 in the decision sweep, K3 in ``gibbs_w``).
+
+Not ported (raises NotImplementedError): the prediction operators'
+recompute mode (``pred_in_carry=False``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from spamtree_tpu_torch.ops import level as level_ops
 from spamtree_tpu_torch.ops.chol import MAX_S
 from spamtree_tpu_torch.ops.covariance import (
     CovModel,
@@ -72,9 +80,8 @@ class ModelStatic:
                  y: np.ndarray, X: np.ndarray, spec: CovModel,
                  dtype=torch.float32, device="cpu", chunk_bytes: float = 512e6,
                  use_kernel: bool = True):
-        if sched.limited_tree:
-            raise NotImplementedError("limited_tree is not ported")
         n = sched.n
+        self.limited_tree = sched.limited_tree
         self.spec = spec
         self.dtype = dtype
         self.device = torch.device(device)
@@ -211,6 +218,10 @@ class ModelStatic:
         # which levels emit a joint factor (used by a later level or by the
         # prediction buckets), and the last level that consumes each one
         used = {p.lp_level for p in sched.levels if p.lp_level >= 0}
+        # parents of sweep levels only: the decision-only sweep builds no
+        # prediction operators, so it skips joints that only they consume
+        self.serves_as_sweep_parent = [t in used
+                                       for t in range(len(sched.levels))]
         self.pred_lp = pred_buckets[0].lp_level if pred_buckets else -1
         if self.pred_lp >= 0:
             used.add(self.pred_lp)
@@ -229,7 +240,7 @@ class ModelStatic:
             }
             if self.pred_lp == t2:
                 widths |= {p.prows.shape[1] for p in pred_buckets}
-            if widths:
+            if widths and not sched.limited_tree:
                 assert len(widths) == 1, (t2, widths)
                 wc = widths.pop()
                 assert wc >= w_emit, (t2, wc, w_emit)
@@ -321,24 +332,40 @@ def _run_level(args, nc: int, carry, body):
 
 
 def _apply_parent_factor(parent_joint, lp_pos, Kxc, gc: int,
-                         aligned: bool = False):
+                         aligned: bool = False, need_H: bool = True):
     """Conditional-mean machinery M = LAi Kxc, H = Kxc' LAi' LAi.
 
     With ``gc > 1`` the level is parent-major in groups of gc children, so
     the (P, P) parent joint factor is gathered once per parent and applied
     to all its children as one batched product with a (P, gc*S) right-hand
     side.  Returns (M, H, LAi); LAi is (B, P, P) for gc == 1 and (G, P, P)
-    grouped otherwise."""
+    grouped otherwise.  ``need_H=False`` (decision-only sweep) returns None
+    for H: the decision needs only M-derived forms."""
     B, P, S = Kxc.shape
     if gc <= 1:
         LAi = parent_joint if aligned else parent_joint[lp_pos]
         M = LAi @ Kxc
-        return M, torch.einsum("bps,bpq->bsq", M, LAi), LAi
+        H = torch.einsum("bps,bpq->bsq", M, LAi) if need_H else None
+        return M, H, LAi
     G = B // gc
     LAi = parent_joint[lp_pos[::gc]]
     M4 = torch.einsum("gpq,gcqs->gcps", LAi, Kxc.reshape(G, gc, P, S))
-    H = torch.einsum("gcps,gpq->gcsq", M4, LAi).reshape(B, S, P)
+    H = (torch.einsum("gcps,gpq->gcsq", M4, LAi).reshape(B, S, P)
+         if need_H else None)
     return M4.reshape(B, P, S), H, LAi
+
+
+def _hw_from_M(M, LAi, wpar, gc: int):
+    """Prior conditional mean H wpar = M' (LAi wpar) without forming H
+    (exact: H = Kxc' LAi' LAi = M' LAi)."""
+    B, P, S = M.shape
+    if gc <= 1:
+        u = torch.einsum("bpq,bq->bp", LAi, wpar)
+        return torch.einsum("bps,bp->bs", M, u)
+    G = B // gc
+    u = torch.einsum("gpq,gcq->gcp", LAi, wpar.reshape(G, gc, P))
+    return torch.einsum("gcps,gcp->gcs", M.reshape(G, gc, P, S),
+                        u).reshape(B, S)
 
 
 def _assemble_joint(LAi, Rinv, H, P, S, gc, pad: int = 0):
@@ -362,6 +389,76 @@ def _assemble_joint(LAi, Rinv, H, P, S, gc, pad: int = 0):
             torch.cat([J.new_zeros((B, pad, W)), eye], dim=2),
         ], dim=1)
     return J
+
+
+def _composed_enabled() -> bool:
+    """Gate of the parts-composed decision sweep
+    (``SPAMTREE_COMPOSED_FACTORS``, default on), read at call time."""
+    return os.environ.get("SPAMTREE_COMPOSED_FACTORS", "1") not in (
+        "0", "false", "")
+
+
+def _compose_children(ms: ModelStatic, t: int) -> bool:
+    """May ref level ``t`` emit factor parts (LAi, H, Rinv) instead of its
+    assembled joint J in the decision-only sweep?  True when every sweep
+    consumer is a thin, parent-aligned, unchunked, ungrouped level whose
+    parent layout is exactly [t's prows ; t's rows]: the child then applies
+    J = [[LAi, 0], [-Rinv H, Rinv]] block by block and the (B, P+S, P+S)
+    joint is never formed.  Limited trees keep their plain factor."""
+    if ms.limited_tree or ms.level_chunks[t] != 1:
+        return False
+    consumers = [c for c in range(len(ms.levels)) if ms.level_lp[c] == t]
+    if not consumers:
+        return False
+    P_t = ms.levels[t].prows.shape[1]
+    S_t = ms.levels[t].rows.shape[1]
+    return all(
+        (not ms.level_is_ref[c])
+        and ms.level_aligned[c]
+        and ms.level_chunks[c] == 1
+        and ms.level_group_c[c] <= 1
+        and ms.levels[c].prows.shape[1] == P_t + S_t
+        for c in consumers
+    )
+
+
+def _apply_parts_thin(parts, Kxc, wpar):
+    """Thin-level decision quantities (hk, hw), both (B, S), from parent
+    factor parts (LAi, H, Rinv, gc_p): LAi (B/gc_p, Pp, Pp) grouped by the
+    parent's parent-major groups, H (B, Sp, Pp), Rinv (B, Sp, Sp); Kxc
+    (B, P, S) with P = Pp + Sp rows ordered [parent's ancestors ; parent's
+    rows].  Exactly J Kxc and M'(J wpar) for J = [[LAi, 0], [-Rinv H,
+    Rinv]]:  M_top = LAi K_anc, M_bot = Rinv (K_par - H K_anc),
+    hk = sum_p M_top^2 + sum_s M_bot^2, hw = M_top' u_top + M_bot' u_bot with
+    u_top = LAi w_anc and u_bot = Rinv (w_par - H w_anc)."""
+    LAi, H, Rinv, gc_p = parts
+    B, P, S = Kxc.shape
+    Pp = 0 if LAi is None else LAi.shape[-1]
+    K_anc, K_par = Kxc[:, :Pp, :], Kxc[:, Pp:, :]
+    w_anc, w_par = wpar[:, :Pp], wpar[:, Pp:]
+    if Pp == 0:
+        # parent is the root level: J = Rinv alone
+        M_bot = torch.einsum("bst,btu->bsu", Rinv, K_par)
+        hk = torch.sum(M_bot * M_bot, dim=1)
+        u_bot = torch.einsum("bst,bt->bs", Rinv, w_par)
+        return hk, torch.einsum("bsu,bs->bu", M_bot, u_bot)
+    if gc_p <= 1:
+        M_top = torch.einsum("bpq,bqs->bps", LAi, K_anc)
+        u_top = torch.einsum("bpq,bq->bp", LAi, w_anc)
+    else:
+        G = B // gc_p
+        M_top = torch.einsum("gpq,gcqs->gcps", LAi,
+                             K_anc.reshape(G, gc_p, Pp, S)).reshape(B, Pp, S)
+        u_top = torch.einsum("gpq,gcq->gcp", LAi,
+                             w_anc.reshape(G, gc_p, Pp)).reshape(B, Pp)
+    HK = torch.einsum("bsp,bpt->bst", H, K_anc)
+    M_bot = torch.einsum("bst,btu->bsu", Rinv, K_par - HK)
+    hk = torch.sum(M_top * M_top, dim=1) + torch.sum(M_bot * M_bot, dim=1)
+    u_bot = torch.einsum("bst,bt->bs", Rinv,
+                         w_par - torch.einsum("bsp,bp->bs", H, w_anc))
+    hw = (torch.einsum("bps,bp->bs", M_top, u_top)
+          + torch.einsum("bsu,bs->bu", M_bot, u_bot))
+    return hk, hw
 
 
 def _wpar_from(wj_src, lp_pos, al: bool, gc: int):
@@ -402,6 +499,10 @@ def _w_joints(ms: ModelStatic, w, need: set) -> dict:
     for t in sorted(need):
         lvl = ms.levels[t]
         w_r = w[lvl.rows]
+        if ms.limited_tree:
+            # limited trees: children condition on the parent's rows alone
+            wjs[t] = w_r
+            continue
         if lvl.prows.shape[1] == 0:
             wj = w_r
         else:
@@ -449,9 +550,15 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
     quad_cur)``: the -0.5 w'Ci w quadratic forms under the new factors and
     under ``prev_leveldata``.  ``emit_pred_joint=True`` returns the raw
     deepest-reference joint factor as pred_data, so the MCMC step builds the
-    prediction operators only on accept."""
+    prediction operators only on accept.
+
+    ``decision_only=True`` (requires quad_prev) returns only ``(logdet, ok,
+    quad_new, quad_cur)``: no leveldata or prediction operators, H and prec
+    are never formed (M-derived forms replace them), joint factors go only
+    to levels that later sweep levels consume, and a reference level whose
+    consumers allow it passes them factor parts (``_compose_children``)."""
     if decision_only:
-        raise NotImplementedError("the decision-only sweep is not ported")
+        assert quad_prev is not None, "decision_only requires quad_prev"
     params = unpack_theta(theta.to(ms.dtype), ms.spec)
     leveldata = []
     zero = torch.zeros((), dtype=ms.dtype, device=ms.device)
@@ -461,12 +568,20 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
     wjs = {}  # joint w rows per parent level (see _wpar_from)
     wj_need = _wj_parents_needed(ms) if quad_prev is not None else set()
 
+    def drop_consumed(t):
+        # drop joint factors whose last consumer has now run
+        for k in [k for k, last in ms.last_consumer.items() if last == t]:
+            joints.pop(k, None)
+            wjs.pop(k, None)
+
     for t, lvl_full in enumerate(ms.levels):
         P = lvl_full.prows.shape[1]
+        S_lvl = lvl_full.rows.shape[1]
         is_ref = ms.level_is_ref[t]
         gc = ms.level_group_c[t]
         al = ms.level_aligned[t]
-        emit_joint = is_ref and ms.serves_as_parent[t]
+        emit_joint = is_ref and (ms.serves_as_sweep_parent[t] if decision_only
+                                 else ms.serves_as_parent[t])
         parent_joint = joints.get(ms.level_lp[t]) if P > 0 else None
         prev_t = quad_prev[t] if quad_prev is not None else None
         if coords_cache is not None:
@@ -482,28 +597,78 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
                 wpar_full = _wpar_from(wjs[ms.level_lp[t]], lvl_full.lp_pos,
                                        al, gc)
             if is_ref and t in wj_need:
-                wj = (w_r_full if wpar_full is None
+                wj = (w_r_full if ms.limited_tree or wpar_full is None
                       else torch.cat([wpar_full, w_r_full], dim=1))
                 if ms.joint_pad[t]:
                     wj = torch.cat([wj, wj.new_zeros((wj.shape[0],
                                                       ms.joint_pad[t]))], 1)
                 wjs[t] = wj
+        # decision mode: factor parts instead of the assembled joint when
+        # every consumer can apply them block by block
+        compose = (decision_only and emit_joint and _composed_enabled()
+                   and _compose_children(ms, t))
+
+        if (decision_only and not is_ref and P > 0 and gc <= 1
+                and ms.level_chunks[t] == 1 and parent_joint is not None):
+            parts = isinstance(parent_joint, tuple)
+            kernel_ok = (not parts and P <= level_ops.MAX_P
+                         and S_lvl <= level_ops.MAX_S
+                         and level_ops.use_level_kernels())
+            if kernel_ok or parts:
+                lvl = lvl_full
+                cxr, mvr, cxp, mvp = cx
+                Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr)
+                Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
+                kdiag = pairwise_cov_diag(cxr, mvr, params, ms.spec)
+                if parts:
+                    # composed parts: thin-level decision without the joint
+                    hk, hw = _apply_parts_thin(parent_joint, Kxc, wpar_full)
+                    r = torch.where(lvl.rmask, kdiag - hk, 1.0)
+                    okl = torch.isfinite(r) & (r > 0)
+                    ok = ok & torch.all(okl)
+                    r = torch.where(okl, r, 1.0)
+                    logdet = logdet - 0.5 * torch.sum(
+                        torch.where(lvl.rmask, torch.log(r), 0.0))
+                    wx = w_r_full - hw
+                    qn = qn - 0.5 * torch.sum(wx * wx / r)
+                    wxc = w_r_full - torch.einsum("bsp,bp->bs", prev_t.H,
+                                                  wpar_full)
+                    qc = qc - 0.5 * torch.sum(prev_t.prec * wxc * wxc)
+                else:
+                    # fused thin-level kernel K4: the whole level's decision
+                    # quantities in one launch
+                    ld_b, ok_b, qn_b, qc_b = level_ops.thin_decision_level(
+                        Kxc.contiguous(), parent_joint.contiguous(),
+                        lvl.lp_pos,
+                        wpar_full.contiguous(), w_r_full.contiguous(),
+                        prev_t.H.contiguous(), prev_t.prec.contiguous(),
+                        kdiag.contiguous(), lvl.rmask.to(ms.dtype),
+                        aligned=al)
+                    logdet = logdet + ld_b
+                    ok = ok & ok_b
+                    qn = qn + qn_b
+                    qc = qc + qc_b
+                drop_consumed(t)
+                continue
 
         def level_body(carry, args, P=P, is_ref=is_ref, emit_joint=emit_joint,
                        parent_joint=parent_joint, gc=gc, al=al,
-                       jpad=ms.joint_pad[t]):
+                       compose=compose, jpad=ms.joint_pad[t]):
             logdet, ok, qn, qc = carry
             lvl, prev, w_r, wpar, cxr, mvr, cxp, mvp = args
             B, S = lvl.rows.shape
+            need_H = (not decision_only) or emit_joint
             if P > 0:
                 Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr)
                 Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
                 M, H, LAi = _apply_parent_factor(parent_joint, lvl.lp_pos,
-                                                 Kxc, gc, al)
-                hw = (torch.einsum("bsp,bp->bs", H, wpar)
-                      if quad_prev is not None else None)
-                hw_prev = (torch.einsum("bsp,bp->bs", prev.H, wpar)
-                           if quad_prev is not None else None)
+                                                 Kxc, gc, al, need_H)
+                hw = hw_prev = None
+                if quad_prev is not None:
+                    # the prior mean goes through M when H was not formed
+                    hw = (torch.einsum("bsp,bp->bs", H, wpar) if H is not None
+                          else _hw_from_M(M, LAi, wpar, gc))
+                    hw_prev = torch.einsum("bsp,bp->bs", prev.H, wpar)
             else:
                 Kxc = M = LAi = None
                 H = ms.X.new_zeros((B, S, 0))
@@ -514,8 +679,8 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
                 Rcc = identity_pad(Kcc, lvl.rmask)
                 if P > 0:
                     Rcc = Rcc - torch.einsum("bps,bpt->bst", M, M)
-                _, Rinv, okl = chol_inv_masked(
-                    Rcc, lvl.rmask, ms.use_kernel and S <= MAX_S)
+                use_k = ms.use_kernel and S <= MAX_S
+                _, Rinv, okl = chol_inv_masked(Rcc, lvl.rmask, use_k)
                 logdet = logdet + torch.sum(
                     torch.log(torch.diagonal(Rinv, dim1=-2, dim2=-1)))
                 ok = ok & torch.all(okl)
@@ -525,13 +690,32 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
                     wxc = w_r - hw_prev
                     qc = qc - 0.5 * torch.einsum("bs,bst,bt->", wxc,
                                                  prev.prec, wxc)
+                J = None
+                if emit_joint and not compose:
+                    if ms.limited_tree:
+                        # limited tree: children condition on this block's
+                        # rows alone, so the factor is the inverse Cholesky
+                        # factor of the raw Kcc (reference: .cpp:901-903)
+                        _, J, okp = chol_inv_masked(Kcc, lvl.rmask, use_k)
+                        ok = ok & torch.all(okp)
+                    else:
+                        J = _assemble_joint(LAi, Rinv, H, P, S, gc, pad=jpad)
+                if decision_only:
+                    if compose:
+                        outs = (LAi, H, Rinv)
+                    else:
+                        outs = (J,) if emit_joint else ()
+                    return (logdet, ok, qn, qc), outs
                 prec = torch.einsum("bks,bkt->bst", Rinv, Rinv)
-                if emit_joint:
-                    J = _assemble_joint(LAi, Rinv, H, P, S, gc, pad=jpad)
-                    return (logdet, ok, qn, qc), (H, prec, J)
-                return (logdet, ok, qn, qc), (H, prec)
+                outs = (H, prec, J) if emit_joint else (H, prec)
+                return (logdet, ok, qn, qc), outs
             kdiag = pairwise_cov_diag(cxr, mvr, params, ms.spec)
-            hk = torch.einsum("bsp,bps->bs", H, Kxc) if P > 0 else 0.0
+            if P == 0:
+                hk = 0.0
+            elif H is not None:
+                hk = torch.einsum("bsp,bps->bs", H, Kxc)
+            else:
+                hk = torch.sum(M * M, dim=1)  # diag(M'M)
             r = torch.where(lvl.rmask, kdiag - hk, 1.0)
             okl = torch.isfinite(r) & (r > 0)
             ok = ok & torch.all(okl)
@@ -543,20 +727,26 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
                 qn = qn - 0.5 * torch.sum(wx * wx / r)
                 wxc = w_r - hw_prev
                 qc = qc - 0.5 * torch.sum(prev.prec * wxc * wxc)
+            if decision_only:
+                return (logdet, ok, qn, qc), ()
             return (logdet, ok, qn, qc), (H, 1.0 / r)
 
         args = (lvl_full, prev_t, w_r_full, wpar_full, *cx)
         (logdet, ok, qn, qc), outs = _run_level(
             args, ms.level_chunks[t], (logdet, ok, qn, qc), level_body)
-        if emit_joint:
-            joints[t] = outs[2]
-        leveldata.append(LevelData(H=outs[0], prec=outs[1]))
+        if decision_only:
+            if compose:
+                joints[t] = (*outs, gc)  # (LAi, H, Rinv, gc_p) parts
+            elif emit_joint:
+                joints[t] = outs[0]
+        else:
+            if emit_joint:
+                joints[t] = outs[2]
+            leveldata.append(LevelData(H=outs[0], prec=outs[1]))
+        drop_consumed(t)
 
-        # drop joint factors whose last consumer has now run
-        for k in [k for k, last in ms.last_consumer.items() if last == t]:
-            joints.pop(k, None)
-            wjs.pop(k, None)
-
+    if decision_only:
+        return logdet, ok, qn, qc
     # prediction operators for the all-missing blocks, from the deepest
     # reference joint factor while it is live
     pred_data = None
@@ -715,6 +905,28 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
                      else ms.X.new_zeros(lvl_full.rows.shape))
         gram_t = gram[t] if gram is not None and P > 0 else None
         wj_src = wjs.get(ms.level_lp[t]) if P > 0 else None
+
+        if (not is_ref and P > 0 and ms.level_chunks[t] == 1 and acc_t is None
+                and gram_t is not None and P <= level_ops.MAX_P
+                and lvl_full.rows.shape[1] <= level_ops.MAX_S
+                and level_ops.use_level_kernels()):
+            # fused thin-level kernel K3: prior mean, posterior draw and the
+            # full parent message vector in one launch; the per-segment Gram
+            # additions and the routing stay outside
+            assert ms.level_group_c[t] == 1, "thin levels are never grouped"
+            lvl, data = lvl_full, leveldata[t]
+            wpar = _wpar_from(wj_src, lvl.lp_pos, ms.level_aligned[t], 1)
+            ti, resid, zz = (a.contiguous() for a in aux[lvl.rows].unbind(-1))
+            wu, msg_full = level_ops.thin_gibbs_level(
+                data.H.contiguous(), data.prec.contiguous(),
+                wpar.contiguous(), zz, ti, resid, lvl.rmask.to(ms.dtype))
+            w[lvl.rows] = wu
+            vs = tuple(msg_full[:, o : o + sa] + torch.einsum(
+                "bpq,bq->bp", gram_t[a], wpar[:, o : o + sa])
+                for a, (o, sa) in enumerate(zip(seg_off, seg_size)))
+            _route_messages(ms, acc, t, (gram_t, vs),
+                            vs_only=routed is not None)
+            continue
 
         def level_body(w, args, P=P, is_ref=is_ref, wj_src=wj_src,
                        al=ms.level_aligned[t], gc=ms.level_group_c[t]):

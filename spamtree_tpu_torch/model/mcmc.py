@@ -7,9 +7,15 @@ likelihood sweep (with both quadratic forms fused into it; a failed
 Cholesky rejects) -> on accept, the message Gram blocks and prediction
 operators -> prediction on kept iterations -> tausq/beta Gibbs.
 
+With ``MCMCConfig(accept_aware=True)`` the theta proposal runs the
+decision-only sweep, and only an accepted proposal pays a second, factor-
+emitting sweep that rebuilds the state it installs.
+
 Randomness enters as an explicit ``StepDraws`` argument; ``draw_step``
 makes one from a ``torch.Generator`` on the model's device.  The accept
-decision is read on the host (one device sync per iteration).
+decision is read on the host (one device sync per iteration; the
+accept-aware step reads the rebuild's ok flag too, on accepted iterations
+only).
 """
 
 from __future__ import annotations
@@ -65,6 +71,10 @@ class MCMCConfig(NamedTuple):
     chunk: int = 50  # kept samples per device->host transfer
     theta_prior: object = None  # see model/priors.py; None = flat
     ram_reference_warmup: bool = False
+    # accept-aware theta step: the proposal runs a decision-only sweep and
+    # the factor-emitting rebuild runs on accept only; None resolves to
+    # False, as in the JAX package
+    accept_aware: object = None
 
 
 class StepDraws(NamedTuple):
@@ -134,14 +144,16 @@ def init_state(ms: ModelStatic, bounds: np.ndarray, start_theta: np.ndarray,
 
 def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
               coords_cache=None):
-    """The single-iteration transition ``step(state, draws, predicting)``
-    (the JAX package's always-emit theta step).  ``coords_cache`` is
-    core.level_coords(ms), built once per run."""
+    """The single-iteration transition ``step(state, draws, predicting)``:
+    the JAX package's always-emit theta step, or its accept-aware step with
+    ``cfg.accept_aware``.  ``coords_cache`` is core.level_coords(ms), built
+    once per run."""
     bnds = torch.as_tensor(np.asarray(bounds), dtype=ms.dtype, device=ms.device)
     Vi = torch.as_tensor(_as_matrix(cfg.beta_Vi, ms.p), dtype=ms.dtype,
                          device=ms.device)
     Vim = torch.zeros(ms.p, dtype=ms.dtype, device=ms.device)
     prior_fn = make_theta_prior(cfg.theta_prior)
+    accept_aware = bool(cfg.accept_aware)  # None -> False
 
     def step(state: MCMCState, draws: StepDraws, predicting: bool) -> MCMCState:
         theta, logdetCi, leveldata = state.theta, state.logdetCi, state.leveldata
@@ -154,9 +166,14 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
         prop, _ = clamp_bounds(prop, bnds)
         # both quadratic forms (proposal and current factors) ride the
         # proposal sweep's level loop
-        new_ld, new_pj, new_logdet, ok, q_new, q_cur = sweep(
-            ms, prop, w, quad_prev=leveldata, emit_pred_joint=True,
-            coords_cache=coords_cache)
+        if accept_aware:
+            new_logdet, ok, q_new, q_cur = sweep(
+                ms, prop, w, quad_prev=leveldata, decision_only=True,
+                coords_cache=coords_cache)
+        else:
+            new_ld, new_pj, new_logdet, ok, q_new, q_cur = sweep(
+                ms, prop, w, quad_prev=leveldata, emit_pred_joint=True,
+                coords_cache=coords_cache)
         logaccept = (new_logdet + q_new) - (logdetCi + q_cur) \
             + calc_jacobian(prop, theta, bnds)
         if prior_fn is not None:
@@ -165,7 +182,16 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
         acceptp = torch.where(finite, torch.exp(torch.clamp(logaccept, max=0.0)),
                               0.0)
         accepted = bool(((draws.u < acceptp) & ok).item())  # host sync
-        if accepted:
+        install = accepted
+        if accepted and accept_aware:
+            # the factor-emitting rebuild; it installs only if its own
+            # Cholesky flag holds (it can differ from the decision's only at
+            # a borderline block), else the old state is kept
+            new_ld, new_pj, new_logdet, ok2 = sweep(
+                ms, prop, w, build_pred=pred_data is not None,
+                emit_pred_joint=True, coords_cache=coords_cache)
+            install = bool(ok2.item())
+        if install:
             # the factor swap and the state derived from the factors
             theta, logdetCi, leveldata = prop, new_logdet, new_ld
             gram = gram_full(ms, new_ld)

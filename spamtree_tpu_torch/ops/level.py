@@ -1,0 +1,226 @@
+"""Fused thin-level kernels: K3 (w-Gibbs) and K4/K5 (decision sweep).
+
+``thin_gibbs_level`` and ``thin_decision_level`` are the wrappers of the
+CUDA kernels in ``csrc/thin_level.cu``, which replace the Pallas TPU kernels
+``spamtree_tpu/ops/pallas_level.py::thin_gibbs_level`` (K3) and
+``thin_decision_level`` with both of its bodies (K4, and K5 =
+``_thin_decision_kernel_vpu``; the split was a TPU layout artefact, one CUDA
+kernel covers both).  ``thin_gibbs_level_plain`` and
+``thin_decision_level_plain`` are the plain PyTorch versions of the same
+functions: the wrappers use them for tensors on the CPU, and the tests and
+``chip_smoke.py`` hold the kernels against them.
+
+Both kernels are opt-in on the model's paths, gated like the JAX package's
+by ``SPAMTREE_LEVEL_KERNELS`` (default off), read at call time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+# the JAX package's static gate (pallas_level.py:39-40)
+MAX_P = 1024
+MAX_S = 512
+LAUNCHES_GIBBS = 0  # kernel launches by thin_gibbs_level
+LAUNCHES_DECISION = 0  # kernel launches by thin_decision_level
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_bound: dict = {}
+
+
+def use_level_kernels() -> bool:
+    """Opt-in gate (``SPAMTREE_LEVEL_KERNELS=1``); default off, as in the
+    JAX package."""
+    return os.environ.get("SPAMTREE_LEVEL_KERNELS", "0") not in (
+        "0", "false", "")
+
+
+def _kernel(name: str, dtype):
+    """The ctypes entry point ``st_<name>_<dtype>``; builds the library at
+    first use."""
+    key = (name, dtype)
+    if key not in _bound:
+        from spamtree_tpu_torch.ops import _build
+
+        fn = getattr(_build.load("thin_level"), f"st_{name}_{_SUFFIX[dtype]}")
+        n_ptr = {"thin_gibbs": 9, "thin_decision": 10}[name]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bound[key] = fn
+    return _bound[key]
+
+
+def _check(fname: str, shapes: dict, dtype, device):
+    """Device, dtype, shape and contiguity checks shared by the wrappers;
+    ``shapes`` maps an argument name to (tensor, expected shape)."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{fname}: dtype {dtype} not in (float32, float64)")
+    if device.type != "cuda":
+        raise ValueError(f"{fname}: unsupported device {device}")
+    for nm, (a, shape) in shapes.items():
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"{fname}: {nm} has shape {tuple(a.shape)}, "
+                             f"expected {tuple(shape)}")
+        if a.device != device:
+            raise ValueError(f"{fname}: {nm} is on {a.device}, not {device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{fname}: {nm} must be contiguous")
+
+
+def thin_gibbs_level_plain(H, prec, wpar, z, ti, resid, rmask_f):
+    """(wu, msg) of one thin level's w-Gibbs update (``thin_gibbs_level``)."""
+    hw = torch.einsum("bsp,bp->bs", H, wpar)
+    sig = prec + ti
+    wu = (prec * hw + resid) / sig + z / torch.sqrt(sig)
+    wu = torch.where(rmask_f > 0.5, wu, 0.0)
+    msg = torch.einsum("bsp,bs->bp", H, prec * (wu - hw))
+    return wu, msg
+
+
+def thin_gibbs_level(H, prec, wpar, z, ti, resid, rmask_f):
+    """Fused w-Gibbs body of one thin level: (wu, msg).
+
+    H (B,S,P) stored conditional-mean operators; prec (B,S) stored
+    precisions; wpar (B,P); z (B,S) standard normals; ti (B,S) per-row noise
+    precision; resid (B,S) = ti*(y - XB); rmask_f (B,S) 0/1.  Returns wu
+    (B,S) = (prec*hw + resid)/sig + z/sqrt(sig) masked to 0, with hw = H wpar
+    and sig = prec + ti, and msg (B,P) = H' prec (wu - hw).  CUDA tensors
+    launch kernel K3; CPU tensors take ``thin_gibbs_level_plain``."""
+    global LAUNCHES_GIBBS
+    if H.device.type == "cpu":
+        return thin_gibbs_level_plain(H, prec, wpar, z, ti, resid, rmask_f)
+    if H.dim() != 3:
+        raise ValueError(f"thin_gibbs_level: H must be (B, S, P), got "
+                         f"{tuple(H.shape)}")
+    B, S, P = H.shape
+    if B < 1 or not 1 <= S <= MAX_S or not 1 <= P <= MAX_P:
+        raise ValueError(f"thin_gibbs_level: need B >= 1, 1 <= S <= {MAX_S}, "
+                         f"1 <= P <= {MAX_P}, got B={B}, S={S}, P={P}")
+    vecs = dict(prec=prec, z=z, ti=ti, resid=resid, rmask_f=rmask_f)
+    if any(a.dtype != H.dtype for a in (wpar, *vecs.values())):
+        raise TypeError("thin_gibbs_level: all inputs must share H's dtype")
+    _check("thin_gibbs_level",
+           dict(H=(H, (B, S, P)), wpar=(wpar, (B, P)),
+                **{k: (a, (B, S)) for k, a in vecs.items()}),
+           H.dtype, H.device)
+    fn = _kernel("thin_gibbs", H.dtype)
+    wu = torch.empty((B, S), dtype=H.dtype, device=H.device)
+    msg = torch.empty((B, P), dtype=H.dtype, device=H.device)
+    with torch.cuda.device(H.device):
+        stream = torch.cuda.current_stream(H.device).cuda_stream
+        err = fn(H.data_ptr(), prec.data_ptr(), wpar.data_ptr(), z.data_ptr(),
+                 ti.data_ptr(), resid.data_ptr(), rmask_f.data_ptr(),
+                 wu.data_ptr(), msg.data_ptr(), B, S, P, stream)
+    if err != 0:
+        raise RuntimeError(f"thin_gibbs kernel launch failed: CUDA error {err}")
+    LAUNCHES_GIBBS += 1
+    return wu, msg
+
+
+def _decision_reduce(part):
+    """(B, 4) per-block partials (logdet, qn, qc, ok) -> the level's
+    (logdet, ok, qn, qc), as the JAX wrapper reduces its kernel's rows."""
+    return (part[:, 0].sum(), part[:, 3].min() > 0.5, part[:, 1].sum(),
+            part[:, 2].sum())
+
+
+def thin_decision_partials_plain(Kxc, joint, lp_pos, wpar, w_r, prevH,
+                                 prevprec, kdiag, rmask_f, aligned=False):
+    """Per-block (B, 4) partials (logdet, qn, qc, ok) of
+    ``thin_decision_level``, the plain PyTorch version."""
+    LAi = (joint if aligned else joint[lp_pos]).to(Kxc.dtype)
+    M = LAi @ Kxc
+    hk = torch.sum(M * M, dim=1)
+    hw = torch.einsum("bps,bp->bs", M, torch.einsum("bpq,bq->bp", LAi, wpar))
+    rmask = rmask_f > 0.5
+    r = torch.where(rmask, kdiag - hk, 1.0)
+    okl = torch.isfinite(r) & (r > 0)
+    r = torch.where(okl, r, 1.0)
+    logdet = -0.5 * torch.sum(torch.where(rmask, torch.log(r), 0.0), dim=1)
+    wx = w_r - hw
+    qn = -0.5 * torch.sum(wx * wx / r, dim=1)
+    wxc = w_r - torch.einsum("bsp,bp->bs", prevH, wpar)
+    qc = -0.5 * torch.sum(prevprec * wxc * wxc, dim=1)
+    ok = torch.all(okl, dim=1).to(Kxc.dtype)
+    return torch.stack([logdet, qn, qc, ok], dim=1)
+
+
+def thin_decision_level_plain(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
+                              kdiag, rmask_f, aligned=False):
+    """(logdet, ok, qn, qc) of ``thin_decision_level``, plain PyTorch."""
+    return _decision_reduce(thin_decision_partials_plain(
+        Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec, kdiag, rmask_f,
+        aligned))
+
+
+def thin_decision_partials(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
+                           kdiag, rmask_f, aligned=False):
+    """Per-block (B, 4) partials (logdet, qn, qc, ok) from kernel K4 (CUDA
+    tensors) or from ``thin_decision_partials_plain`` (CPU tensors)."""
+    global LAUNCHES_DECISION
+    if Kxc.device.type == "cpu":
+        return thin_decision_partials_plain(Kxc, joint, lp_pos, wpar, w_r,
+                                            prevH, prevprec, kdiag, rmask_f,
+                                            aligned)
+    if Kxc.dim() != 3 or joint.dim() != 3:
+        raise ValueError("thin_decision_level: Kxc must be (B, P, S) and "
+                         "joint (Bp, P, P)")
+    B, P, S = Kxc.shape
+    Bp = joint.shape[0]
+    if B < 1 or not 1 <= S <= MAX_S or not 1 <= P <= MAX_P:
+        raise ValueError(f"thin_decision_level: need B >= 1, 1 <= S <= "
+                         f"{MAX_S}, 1 <= P <= {MAX_P}, got B={B}, S={S}, P={P}")
+    if aligned and Bp != B:
+        raise ValueError(f"thin_decision_level: aligned needs the joint batch "
+                         f"to match B={B}, got {Bp}")
+    vecs = dict(w_r=w_r, prevprec=prevprec, kdiag=kdiag, rmask_f=rmask_f)
+    if any(a.dtype != Kxc.dtype for a in (joint, wpar, prevH, *vecs.values())):
+        raise TypeError("thin_decision_level: all float inputs must share "
+                        "Kxc's dtype")
+    if lp_pos.dtype != torch.int64:
+        raise TypeError(f"thin_decision_level: lp_pos must be int64, got "
+                        f"{lp_pos.dtype}")
+    _check("thin_decision_level",
+           dict(Kxc=(Kxc, (B, P, S)), joint=(joint, (Bp, P, P)),
+                lp_pos=(lp_pos, (B,)), wpar=(wpar, (B, P)),
+                prevH=(prevH, (B, S, P)),
+                **{k: (a, (B, S)) for k, a in vecs.items()}),
+           Kxc.dtype, Kxc.device)
+    fn = _kernel("thin_decision", Kxc.dtype)
+    part = torch.empty((B, 4), dtype=Kxc.dtype, device=Kxc.device)
+    with torch.cuda.device(Kxc.device):
+        stream = torch.cuda.current_stream(Kxc.device).cuda_stream
+        # aligned: the kernel reads parent slab b for block b (lp_pos unread)
+        err = fn(Kxc.data_ptr(), joint.data_ptr(),
+                 None if aligned else lp_pos.data_ptr(), wpar.data_ptr(),
+                 w_r.data_ptr(), prevH.data_ptr(), prevprec.data_ptr(),
+                 kdiag.data_ptr(), rmask_f.data_ptr(), part.data_ptr(),
+                 B, S, P, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"thin_decision kernel launch failed: CUDA error {err}")
+    LAUNCHES_DECISION += 1
+    return part
+
+
+def thin_decision_level(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
+                        kdiag, rmask_f, aligned=False):
+    """Fused decision-sweep body of one thin level: (logdet, ok, qn, qc).
+
+    Kxc (B,P,S) masked cross-covariance; joint (Bp,P,P) parent joint-factor
+    batch; lp_pos (B,) int64 parent position of each block (unread when
+    ``aligned``, where Bp == B and block b takes slab b); wpar (B,P); w_r,
+    prevprec, kdiag, rmask_f (B,S); prevH (B,S,P).  Per block, with
+    LAi = joint[lp_pos[b]] and M = LAi Kxc: hk = sum_p M^2, hw = M'(LAi
+    wpar), r = kdiag - hk on masked-in rows (1 elsewhere), ok = all r finite
+    and > 0, logdet = -1/2 sum log r, qn = -1/2 sum (w_r - hw)^2 / r and
+    qc = -1/2 sum prevprec (w_r - prevH wpar)^2; the per-block values are
+    summed (ok: all) over B outside the kernel."""
+    return _decision_reduce(thin_decision_partials(
+        Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec, kdiag, rmask_f,
+        aligned))

@@ -1,28 +1,44 @@
 """Where one MCMC iteration's time goes, on one CUDA card.
 
     python -m spamtree_tpu_torch.utils.profile_step [--config 3] [--iters 20]
+        [--ab k1|step]
 
 Run from the repository root (it takes its data from ``bench.py``'s
 makers).  Sets the chain up as ``spamtree`` does, runs warm-up iterations,
-times runs of ``--iters`` iterations on the host clock (synchronised) with
-kernel K1 and with its plain version in turns (five rounds of K1, plain,
-plain, K1), then traces ``--iters`` iterations with ``torch.profiler`` and
-prints JSON lines: median ms per iteration of each variant (untraced) and
-every run's, the device-busy ms per iteration summed over the
-traced kernels, the device idle share (1 - busy / untraced ms per
-iteration), K1's (``inv_chol_kernel``) ms per iteration, the host time
-spent in the accept decision's ``.item()`` (under the trace), and the top
-kernels by device time.
+then times runs of ``--iters`` iterations on the host clock (synchronised)
+with the variants of ``--ab`` in turns on the same chain:
+
+* ``k1`` (default): the always-emit step with kernel K1 and with its plain
+  version, five rounds of (K1, plain, plain, K1);
+* ``step``: the always-emit theta step, the accept-aware step
+  (``MCMCConfig(accept_aware=True)``) and the accept-aware step with the
+  fused level kernels K3/K4 on (``SPAMTREE_LEVEL_KERNELS=1``), five rounds
+  of (always-emit, accept-aware, accept-aware + kernels, and back).
+
+Then it traces ``--iters`` iterations of each variant with
+``torch.profiler`` and prints JSON lines: median ms per iteration of each
+variant (untraced) and every run's, and per variant the device-busy ms per
+iteration summed over the traced kernels, the device idle share (1 - busy /
+untraced ms per iteration), the kernels per iteration, the hand-written
+kernels' ms per iteration (K1 ``inv_chol_kernel``, K3 ``thin_gibbs_kernel``,
+K4 ``thin_decision_kernel``) and the host time spent in the accept
+decision's ``.item()`` (under the trace); the top-level keys repeat those of
+the first variant (``k1``) or of the accept-aware step with the kernels
+(``step``), whose top kernels by device time follow.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
+
+KERNELS = {"k1": "inv_chol_kernel", "k3": "thin_gibbs_kernel",
+           "k4": "thin_decision_kernel"}
 
 
 def main():
@@ -31,6 +47,7 @@ def main():
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=30)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--ab", choices=("k1", "step"), default="k1")
     args = ap.parse_args()
 
     import bench
@@ -42,56 +59,81 @@ def main():
     fit = prepare_fit(y - np.nanmean(y), X, coords, mv_id=mv,
                       mcmc=dict(keep=1, burn=1, thin=1), device="cuda")
     ms, state = fit.ms, fit.state
-    step = make_step(ms, fit.bounds, fit.cfg, coords_cache=level_coords(ms))
+    cc = level_coords(ms)
     shape = tausq_shape(ms, fit.cfg.tausq_ab)
     nt = state.theta.shape[0]
+    always_emit = make_step(ms, fit.bounds, fit.cfg, coords_cache=cc)
+    accept_aware = make_step(ms, fit.bounds,
+                             fit.cfg._replace(accept_aware=True),
+                             coords_cache=cc)
+    # name -> (step, K1 on, SPAMTREE_LEVEL_KERNELS)
+    variants = {
+        "k1": {"k1": (always_emit, True, "0"),
+               "plain_chol": (always_emit, False, "0")},
+        "step": {"always_emit": (always_emit, True, "0"),
+                 "accept_aware": (accept_aware, True, "0"),
+                 "accept_aware_kernels": (accept_aware, True, "1")},
+    }[args.ab]
+    names = list(variants)
+    order = (names + names[::-1]) * 5
 
-    def run(s, k):
+    def run(s, k, name):
+        step, ms.use_kernel, gate = variants[name]
+        os.environ["SPAMTREE_LEVEL_KERNELS"] = gate
         for i in range(k):
             s = step(s, draw_step(ms, fit.gen, nt, shape), i % 2 == 1)
         torch.cuda.synchronize()
         return s
 
-    state = run(state, args.warmup)
-    # A/B on the same chain: K1 against its plain version as the S <= 64
-    # Cholesky of the sweep and of gibbs_w, five (kernel, plain, plain,
-    # kernel) rounds
-    ab = {True: [], False: []}
-    for use_kernel in (True, False, False, True) * 5:
-        ms.use_kernel = use_kernel
+    state = run(state, args.warmup, names[-1])
+    ab = {k: [] for k in names}
+    for name in order:
         t0 = time.time()
-        state = run(state, args.iters)
-        ab[use_kernel].append(1e3 * (time.time() - t0) / args.iters)
-    ms.use_kernel = True
-    ms_it = float(np.median(ab[True]))
+        state = run(state, args.iters, name)
+        ab[name].append(1e3 * (time.time() - t0) / args.iters)
+    traced = names[0] if args.ab == "k1" else names[-1]
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    t0 = time.time()
-    with torch.profiler.profile(activities=acts) as prof:
-        state = run(state, args.iters)
-    wall_traced = time.time() - t0
-    rows, sync_us = [], 0.0
-    for e in prof.key_averages():
-        if e.key == "aten::_local_scalar_dense":  # the accept decision's .item()
-            sync_us += e.cpu_time_total
-        if e.device_type == torch.autograd.DeviceType.CUDA:  # kernels only
-            rows.append((e.key, e.self_device_time_total, e.count))
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows) / 1e3 / args.iters
-    k1_ms = sum(r[1] for r in rows if "inv_chol_kernel" in r[0]) / 1e3 / args.iters
-    print(json.dumps(dict(
-        config=args.config, n=ms.n, iters=args.iters, ms_per_iter=ms_it,
-        ms_per_iter_plain_chol=float(np.median(ab[False])),
-        ab_runs_k1=ab[True], ab_runs_plain_chol=ab[False],
-        device_busy_ms_per_iter=busy_ms,
-        device_idle_share=1.0 - busy_ms / ms_it,
-        k1_ms_per_iter=k1_ms,
-        sync_wait_ms_per_iter_traced=sync_us / 1e3 / args.iters,
-        kernels_per_iter=sum(r[2] for r in rows) / args.iters,
-        traced_ms_per_iter=1e3 * wall_traced / args.iters,
-        accept=state.ram.accept_count / max(state.ram.propos_count, 1.0),
-    )))
+    def trace(name):
+        """Device time, kernel count and accept-sync time per iteration of
+        ``--iters`` traced iterations of variant ``name``."""
+        nonlocal state
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        t0 = time.time()
+        with torch.profiler.profile(activities=acts) as prof:
+            state = run(state, args.iters, name)
+        wall = time.time() - t0
+        rows, sync_us = [], 0.0
+        for e in prof.key_averages():
+            if e.key == "aten::_local_scalar_dense":  # the accept's .item()
+                sync_us += e.cpu_time_total
+            if e.device_type == torch.autograd.DeviceType.CUDA:  # kernels
+                rows.append((e.key, e.self_device_time_total, e.count))
+        rows.sort(key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows) / 1e3 / args.iters
+        med = float(np.median(ab[name]))
+        return rows, dict(
+            ms_per_iter=med, device_busy_ms_per_iter=busy,
+            device_idle_share=1.0 - busy / med,
+            **{f"{k}_ms_per_iter": sum(r[1] for r in rows if v in r[0])
+               / 1e3 / args.iters for k, v in KERNELS.items()},
+            sync_wait_ms_per_iter_traced=sync_us / 1e3 / args.iters,
+            kernels_per_iter=sum(r[2] for r in rows) / args.iters,
+            traced_ms_per_iter=1e3 * wall / args.iters)
+
+    per_variant = {}
+    for name in names:
+        r, per_variant[name] = trace(name)
+        if name == traced:
+            rows = r
+    out = dict(config=args.config, n=ms.n, iters=args.iters, ab=args.ab,
+               traced=traced, **per_variant[traced])
+    for name in names:
+        out[f"ms_per_iter_{name}"] = float(np.median(ab[name]))
+        out[f"ab_runs_{name}"] = ab[name]
+    out["per_variant"] = per_variant
+    out["accept"] = state.ram.accept_count / max(state.ram.propos_count, 1.0)
+    print(json.dumps(out))
     for name, us, count in rows[: args.top]:
         print(json.dumps(dict(kernel=name[:90], ms_per_iter=us / 1e3 / args.iters,
                               calls_per_iter=count / args.iters)))
