@@ -11,7 +11,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    each kernel's registers, shared memory and spills;
 3. holds K1 against its plain PyTorch version at the main path's shapes and
    more, f32 and f64, with and without L, each batch also with one non-SPD
-   block that must come out ok=False; times both at the config-3 shapes;
+   block that must come out ok=False; times both at the config-3 shapes,
+   Linv alone (K1) and with L (the TPU's K2);
 4. runs spamtree(device="cuda") on bench config 1 (n=625) at its full
    keep=1000, burn=1000, thin=2 (the always-emit theta step);
 5. runs config 3 (n=1e5, bivariate AG10) with burn=200, keep=100, thin=2.
@@ -23,7 +24,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    (through lp_pos, repeated and shuffled parents, Bp != B), P=128 and
    P=384 (the TPU's K5 layouts) and the gate's edge (S=512, P=1024), each
    with a partly masked block, with and without a block forced to r <= 0
-   that both versions must flag ok=False; times both at config 3's shape;
+   that both versions must flag ok=False; times both at config 3's shape,
+   K4 also at P=128 and P=384 (K5's layouts), and times the cuBLAS product
+   LAi Kxc alone at config 3's shape, the yardstick of K4's product;
 7. the accept-aware theta step (MCMCConfig(accept_aware=True)) with the
    fused level kernels on (SPAMTREE_LEVEL_KERNELS=1): config 1 (keep=500,
    burn=500, thin=2), config 3 with composed factor parts on (the default)
@@ -33,10 +36,14 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    whose parent hands it an assembled joint (none when every thin level's
    parent composes).
 
-Every kernel's launch count is set to 0 just before a run and read just
-after it.  The line before the last is the kernels' JSON record; the last
-line is {"ok": true, "device": {...}}.  Imports no jax; ``bench`` only for
-its numpy data makers.
+Kernel and plain times are device times: a run of calls captured in a
+CUDA graph and replayed between CUDA events, so the host's launch overhead
+drops out; the per-call time of eager calls is printed beside them.  Every
+kernel's launch count is set to 0 just before a run and read just after
+it (the timing phases come before the runs or between them).  The line
+before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}.  Imports no jax; ``bench`` only for its
+numpy data makers.
 """
 
 import contextlib
@@ -101,23 +108,42 @@ def _counts(chol, level):
                 k4_launches=level.LAUNCHES_DECISION)
 
 
-def _event_times(torch, fns, reps):
-    """CUDA-event ms per call of each of ``fns`` ({"kernel", "plain"}),
-    in turns plain, kernel, kernel, plain; the minimum of each."""
-    for f in fns.values():
-        for _ in range(3):
-            f()
-    times = {k: [] for k in fns}
+def _device_times(torch, fns, reps):
+    """Device ms per call of each of ``fns`` ({"kernel", "plain"}): ``reps``
+    calls captured in one CUDA graph, replayed between CUDA events, so the
+    host's launch overhead drops out; in turns plain, kernel, kernel, plain,
+    the minimum of each.  Also the CUDA-event ms per call of ``reps`` eager
+    calls, which includes that overhead where it is the longer.  Returns
+    (kernel, plain, kernel per eager call, plain per eager call)."""
+    graphs = {}
+    for name, f in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                f()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                f()
+        graphs[name] = g
+    torch.cuda.synchronize()
+    dev = {k: [] for k in fns}
+    call = {k: [] for k in fns}
     for name in ("plain", "kernel", "kernel", "plain"):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fns[name]()
-        e1.record()
-        torch.cuda.synchronize()
-        times[name].append(e0.elapsed_time(e1) / reps)
-    return min(times["kernel"]), min(times["plain"])
+        for what, run in (("graph", graphs[name].replay),
+                          ("eager", lambda: [fns[name]() for _ in range(reps)])):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            run()
+            e1.record()
+            torch.cuda.synchronize()
+            ms = e0.elapsed_time(e1) / reps
+            (dev if what == "graph" else call)[name].append(ms)
+    return (min(dev["kernel"]), min(dev["plain"]), min(call["kernel"]),
+            min(call["plain"]))
 
 
 def card_info(torch):
@@ -195,21 +221,28 @@ def check_kernel(chol, torch):
     return max_err32
 
 
-def time_kernel(chol, torch, reps=50):
-    """CUDA-event ms per call, kernel and plain, at the config-3 shapes
+def time_kernel(chol, torch, write_l=False, reps=50):
+    """Device ms per call, kernel and plain, at the config-3 shapes
     (f32), alternating plain, kernel, kernel, plain; with each shape's
-    bound (A read once, Linv written once; S^3/3 flops for the factor and
-    as many for its inverse)."""
+    bound (A read once, Linv written once, and L with ``write_l``; S^3/3
+    flops for the factor and as many for its inverse)."""
     rows = []
+    name = "K2 (K1 with L)" if write_l else "K1"
     for B, S in CONFIG3_SHAPES:
         A = _spd_batch(torch, B, S, torch.float32, seed=7)
-        k, p = _event_times(torch, {"kernel": lambda: chol.inv_chol(A),
-                                    "plain": lambda: chol.inv_chol_plain(A)},
-                            reps)
-        bound = _bound(2 * B * S * S * 4, B * 2 * S ** 3 / 3)
+        k, p, kc, pc = _device_times(torch, {
+            "kernel": lambda: chol.inv_chol(A, write_l=write_l),
+            "plain": lambda: chol.inv_chol_plain(A, write_l=write_l)}, reps)
+        bound = _bound((3 if write_l else 2) * B * S * S * 4,
+                       B * 2 * S ** 3 / 3)
         rows.append((B, S, k, p, bound))
-        print(f"K1 time B={B} S={S}: kernel {k:.4f} ms, plain {p:.4f} ms, "
-              f"bound {bound[0]:.4f} ms ({bound[1]})")
+        print(f"{name} time B={B} S={S}: kernel {k:.4f} ms, plain {p:.4f} ms,"
+              f" bound {bound[0]:.4f} ms ({bound[1]}); per call with the "
+              f"host: kernel {kc:.4f} ms, plain {pc:.4f} ms")
+    print(f"{name} time summed over the config-3 shapes: kernel "
+          f"{sum(r[2] for r in rows):.4f} ms, plain "
+          f"{sum(r[3] for r in rows):.4f} ms, bound "
+          f"{sum(r[4][0] for r in rows):.4f} ms")
     return rows
 
 
@@ -416,33 +449,54 @@ def check_level_kernels(level, torch, thin3):
     return err
 
 
+def _time_decision(level, torch, B, S, P, reps):
+    """(kernel ms, plain ms, bound) of K4 at (B, S, P), f32, aligned: it
+    reads Kxc, the B parent slabs, prevH, wpar and four (B, S) vectors and
+    writes (B, 4), 2 P^2 (S + 1) B + 6 P S B flops."""
+    dec, _ = _level_inputs(torch, torch.float32, B, S, P, None, seed=11,
+                           bad=False)
+    k, p, kc, pc = _device_times(torch, {
+        "kernel": lambda: level.thin_decision_partials(**dec, aligned=True),
+        "plain": lambda: level.thin_decision_partials_plain(**dec,
+                                                            aligned=True)},
+        reps)
+    print(f"K4 per call with the host, B={B} S={S} P={P} f32: kernel "
+          f"{kc:.4f} ms, plain {pc:.4f} ms")
+    return k, p, _bound(
+        4 * (2 * B * P * S + B * P * P + B * P + 4 * B * S + 4 * B),
+        2 * P * P * (S + 1) * B + 6 * P * S * B), dec
+
+
 def time_level_kernels(level, torch, thin3, reps=20):
-    """CUDA-event ms per call of K3 and K4 (wrappers, as the sweeps call
-    them) and their plain versions at config 3's thin level (f32,
-    aligned), with the bound of each: K3 reads H, wpar and five (B, S)
-    vectors and writes wu and msg, 4 B S P flops; K4 reads Kxc, the B
-    parent slabs, prevH, wpar and four (B, S) vectors and writes (B, 4),
-    2 P^2 (S + 1) B + 6 P S B flops."""
+    """Device ms per call of K3 and K4 (their wrappers; K4's per-block
+    partials, before the wrapper's reduction over blocks) and their plain
+    versions at config 3's thin level (f32,
+    aligned), with the bound of each (K3 reads H, wpar and five (B, S)
+    vectors and writes wu and msg, 4 B S P flops); K4 also at P=128 and
+    P=384 (the TPU's K5 layouts, as "k5_p128", "k5_p384"); and the cuBLAS
+    product LAi Kxc alone at config 3's shape, K4's product's yardstick."""
     B, S, P = thin3
-    dec, gib = _level_inputs(torch, torch.float32, B, S, P, None, seed=11,
-                             bad=False)
-    it = 4
+    _, gib = _level_inputs(torch, torch.float32, B, S, P, None, seed=11,
+                           bad=False)
     out = {}
-    k, p = _event_times(torch, {
+    k, p, _, _ = _device_times(torch, {
         "kernel": lambda: level.thin_gibbs_level(**gib),
         "plain": lambda: level.thin_gibbs_level_plain(**gib)}, reps)
-    out["k3"] = (k, p, _bound(it * (B * S * P + 6 * B * S + 2 * B * P),
-                              4 * B * S * P))
-    k, p = _event_times(torch, {
-        "kernel": lambda: level.thin_decision_level(**dec, aligned=True),
-        "plain": lambda: level.thin_decision_level_plain(**dec, aligned=True)},
-        reps)
-    out["k4"] = (k, p, _bound(
-        it * (2 * B * P * S + B * P * P + B * P + 4 * B * S + 4 * B),
-        2 * P * P * (S + 1) * B + 6 * P * S * B))
-    for name, (k, p, (bd, by)) in out.items():
-        print(f"{name.upper()} time B={B} S={S} P={P} f32: kernel {k:.4f} ms,"
-              f" plain {p:.4f} ms, bound {bd:.4f} ms ({by})")
+    out["k3"] = (k, p, _bound(4 * (B * S * P + 6 * B * S + 2 * B * P),
+                              4 * B * S * P), thin3)
+    k, p, bound, dec = _time_decision(level, torch, B, S, P, reps)
+    out["k4"] = (k, p, bound, thin3)
+    for key, shape in (("k5_p128", (64, 68, 128)), ("k5_p384", (64, 68, 384))):
+        out[key] = _time_decision(level, torch, *shape, reps)[:3] + (shape,)
+    for name, (k, p, (bd, by), (b, s, pp)) in out.items():
+        print(f"{name.upper()} time B={b} S={s} P={pp} f32: kernel {k:.4f} "
+              f"ms, plain {p:.4f} ms, bound {bd:.4f} ms ({by})")
+    LAi, Kxc = dec["joint"], dec["Kxc"]
+    t = _device_times(torch, {"kernel": lambda: torch.bmm(LAi, Kxc),
+                              "plain": lambda: torch.bmm(LAi, Kxc)}, reps)[0]
+    bd = _bound(4 * (2 * B * P * S + B * P * P), 2 * B * P * P * S)[0]
+    print(f"cuBLAS bmm(LAi, Kxc) alone, B={B} S={S} P={P} f32: {t:.4f} ms "
+          f"(bound {bd:.4f} ms)")
     return out
 
 
@@ -464,6 +518,7 @@ def main() -> int:
     _phase("K1 vs plain")
     max_err = check_kernel(chol, torch)
     rows = time_kernel(chol, torch)
+    time_kernel(chol, torch, write_l=True)
     _phase("config 1")
     run_config(bench, chol, level, torch, 1, keep=1000, burn=1000, thin=2)
     _phase("config 3")

@@ -30,14 +30,30 @@
 // CUDA cores (TF32 is barred by the package's precision pins): at config 3,
 // 12.2 GFLOP, 0.183 ms at the H100 SXM's 67 TFLOP/s, against ~0.52 GB of
 // input, 0.154 ms at 3.35 TB/s.
-// Design: one thread block per tree block, a plain shared-memory tiled
-// product.  u rides as a virtual column S of the right-hand side, read
-// straight from wpar (never concatenated in device memory), and the column
-// tile that holds it runs first, so every later tile finds u complete in
-// shared memory.  Each 64 x 32 tile of M is reduced into hk and hw in
-// registers and never leaves the SM.  The tiles need at most 37 KB of
-// shared memory (double, P = 1024), at any S <= 512.  LAi is not assumed
-// triangular.
+// Design: one thread block of 160 threads per tree block, one pass over
+// LAi.  For each 64-row tile of LAi the block makes the whole 64 x 80 slab
+// of M in registers, each thread a 4 x 8 micro-tile: three 16-byte shared
+// loads feed 32 FMAs per contraction step.  LAi's tile sits transposed
+// (depth-major) in shared memory so that a thread's four rows are one
+// 16-byte load, and a warp spans all 16 row threads and two column
+// threads.  The 80 columns are up to 79 columns of Kxc and u's column,
+// read straight from wpar (never concatenated in device memory), so u[p]
+// is finished in the same row tile as M[p, :]; S > 79 loops over column
+// passes, each with its own copy of u's column.  hk and hw accumulate per
+// column in registers across row tiles and meet in shared memory once per
+// pass.  LAi (64 x 16) and [Kxc | u] (16 x 80) tiles stream through a
+// three-stage ring of 4- or 8-byte cp.async copies (a warp's copies land on
+// consecutive shared-memory words), so the next tiles' loads overlap this
+// tile's FMAs: LAi's row stride (P elements) is no multiple of 16
+// bytes at the main shapes, which rules out TMA and 16-byte copies.
+// Kxc's tile is re-read per row tile (80 KB per block at config 3, from
+// L2); LAi is read from device memory once.  At most 41 KB (float) or
+// 82 KB (double) of shared memory at any P <= 1024, S <= 512.  LAi is not
+// assumed triangular.  What holds it back: each warp's contraction step
+// needs four shared-memory wavefronts for eight cycles of FMAs, so four
+// warps issuing at once ask for twice what shared memory serves; and the
+// padded slab does 1.32x the needed FLOPs at config 3 (320 rows for 293,
+// 80 columns for 69).
 //
 // No early exit and no error path: a non-positive or non-finite r makes the
 // block's ok flag 0, as in the TPU kernel.  Built without fast-math, so log,
@@ -47,12 +63,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // K3's block
 constexpr int kWarps = kThreads / 32;
-constexpr int TP = 64;  // rows of LAi per tile
-constexpr int TS = 32;  // columns of [Kxc | wpar] per tile
-constexpr int TQ = 32;  // contraction depth per tile
-constexpr int RP = TP / kWarps;  // rows of M per thread
 
 __device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
@@ -108,20 +120,85 @@ __global__ void __launch_bounds__(kThreads) thin_gibbs_kernel(
   }
 }
 
+// K4's tiling (see the header): threads, micro-tile, tiles, ring depth
+constexpr int kDecThreads = 160;
+constexpr int NC = 10, NR = 16;  // column and row threads of the block
+constexpr int RN = 8, RM = 4;    // M columns and rows per thread
+constexpr int W = NC * RN;       // slab width: up to W-1 columns and u
+constexpr int TP = NR * RM;      // rows of LAi per row tile
+constexpr int TQ = 16;           // contraction depth per stage
+constexpr int LDA = TP + 4;      // pitch of the transposed LAi tile
+constexpr int STAGES = 3;
+// the tile copies: one slab column of [Kxc | u] per thread, every other
+// depth row; two threads per row of LAi's tile, 8 depths each
+static_assert(kDecThreads == 2 * W, "[Kxc | u] copy");
+static_assert(TQ == 16 && TP * TQ / 8 <= kDecThreads, "LAi copy");
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) thin_decision_kernel(
+constexpr size_t decision_smem() {
+  return sizeof(T) * (STAGES * TQ * W + STAGES * TQ * LDA + TP + 2 * NR * W +
+                      3 * kDecThreads);
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
+  // src_size 0 fills the element with zeros and reads nothing, so src may
+  // point past the array there
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? static_cast<int>(sizeof(T)) : 0;
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
+}
+
+// N consecutive shared-memory values, 16 bytes per load (p 16-byte aligned)
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p + j);
+    v[j] = x.x; v[j + 1] = x.y; v[j + 2] = x.z; v[j + 3] = x.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_vec(const double* p, double (&v)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; j += 2) {
+    const double2 x = *reinterpret_cast<const double2*>(p + j);
+    v[j] = x.x; v[j + 1] = x.y;
+  }
+}
+
+// float: at most 102 registers (a few bytes spill), so four blocks share
+// an SM; measured faster than 123 registers and three blocks
+template <typename T>
+__global__ void __launch_bounds__(kDecThreads, sizeof(T) == 4 ? 4 : 1)
+    thin_decision_kernel(
     const T* __restrict__ Kxc, const T* __restrict__ joint,
     const long long* __restrict__ lp_pos, const T* __restrict__ wpar,
     const T* __restrict__ w_r, const T* __restrict__ prevH,
     const T* __restrict__ prevprec, const T* __restrict__ kdiag,
     const T* __restrict__ rmask, T* __restrict__ part, int S, int P) {
-  __shared__ T sA[TP][TQ];       // tile of LAi
-  __shared__ T sB[TQ][TS];       // tile of [Kxc | wpar]
-  __shared__ T sHk[kWarps][TS];  // per-warp column partials of hk
-  __shared__ T sHw[kWarps][TS];  // ... and of hw
-  __shared__ T sQc[kWarps];
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* su = reinterpret_cast<T*>(smem_raw);  // P: u = LAi wpar
+  T* sB = reinterpret_cast<T*>(smem_raw);  // STAGES x TQ x W: [Kxc | u] tiles
+  T* sA = sB + STAGES * TQ * W;            // STAGES x TQ x LDA: LAi tiles
+  T* su = sA + STAGES * TQ * LDA;          // TP: u on the row tile
+  T* sHk = su + TP;                        // NR x W: per-row-thread hk
+  T* sHw = sHk + NR * W;                   // ... and hw
+  T* sRed = sHw + NR * W;                  // 3 x kDecThreads: block sums
 
   const long long b = blockIdx.x;
   // aligned levels pass no lp_pos: block b reads parent slab b
@@ -129,75 +206,116 @@ __global__ void __launch_bounds__(kThreads) thin_decision_kernel(
   const T* A = joint + pb * P * P;
   const T* K = Kxc + b * P * S;
   const T* wp = wpar + b * P;
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  const int ntile = (S + 1 + TS - 1) / TS;  // S columns + the u column
+  const int tid = threadIdx.x, tr = tid % NR, tc = tid / NR;
+  const int nrt = (P + TP - 1) / TP, nqt = (P + TQ - 1) / TQ;
+  const int nit = nrt * nqt;  // (row tile, depth tile) steps of one pass
 
-  T ld_acc = T(0), qn_acc = T(0);  // warp 0: sums over its columns
+  T ld_acc = T(0), qn_acc = T(0);  // thread tid: column c0 + tid of a pass
   bool ok = true;
 
-  for (int k = 0; k < ntile; ++k) {
-    const int s0 = ((k + ntile - 1) % ntile) * TS;  // u's tile first
-    const int c = s0 + tx;
-    T hk = T(0), hw = T(0);
-    for (int p0 = 0; p0 < P; p0 += TP) {
-      T m[RP];
+  for (int c0 = 0; c0 < S; c0 += W - 1) {
+    const int nc = min(W - 1, S - c0);  // Kxc columns; u sits in slot nc
+
+    // stage `st` <- LAi rows of row tile it / nqt, depth tile it % nqt.
+    // A warp's copies land on consecutive shared-memory words (no bank
+    // conflicts), and a tile costs each thread one address and 4- or 8-byte
+    // cp.async's.
+    auto load = [&](int st, int it) {
+      const int p0 = (it / nqt) * TP, q0 = (it % nqt) * TQ;
+      if (tid < TP * TQ / 8) {  // LAi: row r, depths q0 + cq ..
+        const int r = tid % TP, cq = 8 * (tid / TP), p = p0 + r;
+        const T* src = A + static_cast<long long>(p) * P + q0 + cq;
+        T* dst = sA + st * TQ * LDA + cq * LDA + r;
 #pragma unroll
-      for (int i = 0; i < RP; ++i) m[i] = T(0);
-      for (int q0 = 0; q0 < P; q0 += TQ) {
-        for (int e = tid; e < TP * TQ; e += kThreads) {
-          const int r = e / TQ, cc = e % TQ;
-          const int p = p0 + r, q = q0 + cc;
-          sA[r][cc] = (p < P && q < P) ? A[static_cast<long long>(p) * P + q]
-                                       : T(0);
+        for (int m = 0; m < 8; ++m) {
+          const bool v = p < P && q0 + cq + m < P;
+          cp_async(dst + m * LDA, src + m, v);
         }
-        for (int e = tid; e < TQ * TS; e += kThreads) {
-          const int r = e / TS, cc = e % TS;
-          const int q = q0 + r, col = s0 + cc;
-          T v = T(0);
-          if (q < P) {
-            if (col < S) v = K[static_cast<long long>(q) * S + col];
-            else if (col == S) v = wp[q];
+      }
+      {  // [Kxc | u]: slab column j, depth rows r0, r0 + 2, ...
+        const int j = tid % W, r0 = tid / W;
+        const T* src = j < nc ? K + c0 + j : wp;  // column j's depth 0
+        const long long ld = j < nc ? S : 1;      // ... and its stride
+        T* dst = sB + st * TQ * W + r0 * W + j;
+#pragma unroll
+        for (int m = 0; m < TQ / 2; ++m) {
+          const int q = q0 + r0 + 2 * m;
+          const bool v = j <= nc && q < P;
+          cp_async(dst + 2 * m * W, src + q * ld, v);
+        }
+      }
+    };
+
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < nit) load(st, st);
+      cp_async_commit();  // empty groups keep the ring's count uniform
+    }
+
+    T acc[RM][RN], hk[RN], hw[RN];
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      hk[j] = hw[j] = T(0);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) acc[i][j] = T(0);
+    }
+
+    for (int it = 0; it < nit; ++it) {
+      cp_async_wait_ring();
+      __syncthreads();  // stage it has landed; stage it - 1 is free
+      const int nxt = it + STAGES - 1;
+      if (nxt < nit) load(nxt % STAGES, nxt);
+      cp_async_commit();
+
+      const T* a = sA + (it % STAGES) * TQ * LDA + RM * tr;
+      const T* bt = sB + (it % STAGES) * TQ * W + RN * tc;
+#pragma unroll
+      for (int kk = 0; kk < TQ; ++kk) {
+        T av[RM], bv[RN];
+        load_vec(a + kk * LDA, av);
+        load_vec(bt + kk * W, bv);
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < RN; ++j) acc[i][j] += av[i] * bv[j];
+      }
+
+      if (it % nqt == nqt - 1) {  // row tile done: M and u are complete
+#pragma unroll
+        for (int j = 0; j < RN; ++j) {
+          if (RN * tc + j == nc) {
+#pragma unroll
+            for (int i = 0; i < RM; ++i) su[RM * tr + i] = acc[i][j];
           }
-          sB[r][cc] = v;
         }
         __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < TQ; ++kk) {
-          const T bv = sB[kk][tx];
+        // rows past P are zero-filled, so they add nothing
 #pragma unroll
-          for (int i = 0; i < RP; ++i) m[i] += sA[ty + kWarps * i][kk] * bv;
-        }
-        __syncthreads();
-      }
-      if (c == S) {
+        for (int i = 0; i < RM; ++i) {
+          const T uv = su[RM * tr + i];
 #pragma unroll
-        for (int i = 0; i < RP; ++i) {
-          const int p = p0 + ty + kWarps * i;
-          if (p < P) su[p] = m[i];
-        }
-      }
-      __syncthreads();
-      if (c < S) {
-#pragma unroll
-        for (int i = 0; i < RP; ++i) {
-          const int p = p0 + ty + kWarps * i;
-          if (p < P) {
-            hk += m[i] * m[i];
-            hw += m[i] * su[p];
+          for (int j = 0; j < RN; ++j) {
+            hk[j] += acc[i][j] * acc[i][j];
+            hw[j] += acc[i][j] * uv;
+            acc[i][j] = T(0);
           }
         }
       }
     }
-    sHk[ty][tx] = hk;
-    sHw[ty][tx] = hw;
+
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      sHk[tr * W + RN * tc + j] = hk[j];
+      sHw[tr * W + RN * tc + j] = hw[j];
+    }
     __syncthreads();
-    if (ty == 0 && c < S) {
+    if (tid < nc) {
       T hks = T(0), hws = T(0);
-      for (int g = 0; g < kWarps; ++g) {
-        hks += sHk[g][tx];
-        hws += sHw[g][tx];
+      for (int g = 0; g < NR; ++g) {
+        hks += sHk[g * W + tid];
+        hws += sHw[g * W + tid];
       }
-      const long long i = b * S + c;
+      const long long i = b * S + c0 + tid;
       const bool in = rmask[i] > T(0.5);
       T r = in ? kdiag[i] - hks : T(1);
       const bool okl = isfinite(r) && r > T(0);
@@ -207,35 +325,40 @@ __global__ void __launch_bounds__(kThreads) thin_decision_kernel(
       const T wx = w_r[i] - hws;
       qn_acc += wx * wx / r;
     }
-    __syncthreads();
+    __syncthreads();  // sHk, su and the ring are reused by the next pass
   }
 
-  // qc: wxc = w_r - prevH wpar, one warp per row of prevH
+  // qc: wxc = w_r - prevH wpar, one warp per row of prevH (full warps)
+  const int lane = tid & 31, warp = tid >> 5;
+  constexpr int kFullWarps = kDecThreads / 32;
   T qc_acc = T(0);
   const T* Hp = prevH + b * S * P;
-  for (int s = ty; s < S; s += kWarps) {
-    const T* row = Hp + static_cast<long long>(s) * P;
-    T acc = T(0);
-    for (int p = tx; p < P; p += 32) acc += row[p] * wp[p];
-    acc = warp_sum(acc);
-    const long long i = b * S + s;
-    const T wxc = w_r[i] - acc;
-    qc_acc += prevprec[i] * wxc * wxc;
-  }
-  if (tx == 0) sQc[ty] = qc_acc;
-  __syncthreads();
-  if (ty == 0) {
-    ld_acc = warp_sum(ld_acc);
-    qn_acc = warp_sum(qn_acc);
-    const bool all_ok = __all_sync(0xffffffffu, ok);
-    if (tx == 0) {
-      T qc = T(0);
-      for (int g = 0; g < kWarps; ++g) qc += sQc[g];
-      part[b * 4 + 0] = T(-0.5) * ld_acc;
-      part[b * 4 + 1] = T(-0.5) * qn_acc;
-      part[b * 4 + 2] = T(-0.5) * qc;
-      part[b * 4 + 3] = all_ok ? T(1) : T(0);
+  if (warp < kFullWarps) {
+    for (int s = warp; s < S; s += kFullWarps) {
+      const T* row = Hp + static_cast<long long>(s) * P;
+      T acc = T(0);
+      for (int p = lane; p < P; p += 32) acc += row[p] * wp[p];
+      acc = warp_sum(acc);
+      const long long i = b * S + s;
+      const T wxc = w_r[i] - acc;
+      qc_acc += prevprec[i] * wxc * wxc;
     }
+  }
+  sRed[tid] = ld_acc;
+  sRed[kDecThreads + tid] = qn_acc;
+  sRed[2 * kDecThreads + tid] = lane == 0 ? qc_acc : T(0);
+  const bool all_ok = __syncthreads_and(ok);
+  if (tid == 0) {  // in a fixed order: runs repeat bit for bit
+    T ld = T(0), qn = T(0), qc = T(0);
+    for (int g = 0; g < kDecThreads; ++g) {
+      ld += sRed[g];
+      qn += sRed[kDecThreads + g];
+      qc += sRed[2 * kDecThreads + g];
+    }
+    part[b * 4 + 0] = T(-0.5) * ld;
+    part[b * 4 + 1] = T(-0.5) * qn;
+    part[b * 4 + 2] = T(-0.5) * qc;
+    part[b * 4 + 3] = all_ok ? T(1) : T(0);
   }
 }
 
@@ -264,12 +387,12 @@ int launch_decision(const void* Kxc, const void* joint, const void* lp_pos,
                     const void* wpar, const void* w_r, const void* prevH,
                     const void* prevprec, const void* kdiag, const void* rmask,
                     void* part, long long B, int S, int P, void* stream) {
-  const size_t smem = sizeof(T) * static_cast<size_t>(P);
+  const size_t smem = decision_smem<T>();
   cudaError_t err = cudaFuncSetAttribute(
       thin_decision_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  thin_decision_kernel<T><<<static_cast<unsigned int>(B), kThreads, smem,
+  thin_decision_kernel<T><<<static_cast<unsigned int>(B), kDecThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(Kxc), static_cast<const T*>(joint),
       static_cast<const long long*>(lp_pos), static_cast<const T*>(wpar),

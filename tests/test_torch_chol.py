@@ -78,6 +78,59 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert chol.LAUNCHES == before
 
 
+def _inv_chol_right_looking(a):
+    """Step-by-step emulation of csrc/inv_chol.cu's schedule: a right-looking
+    Cholesky that carries the inverse along as an unscaled residual T
+    (T = I at the start; row k of Linv is row k of T over L_kk).  At step k
+    every row i > k subtracts (A[i, k] / L_kk^2) v from [T[i, :k+1] |
+    A[i, k+1:]], with v = [T[k, :k], 1 | A[k+1:, k]]: one update of the
+    trailing matrix and of the residual."""
+    B, S, _ = a.shape
+    A = a.clone()
+    T = torch.eye(S, dtype=a.dtype).expand(B, S, S).clone()
+    L = torch.zeros_like(a)
+    rdiag = torch.zeros(B, S, dtype=a.dtype)
+    for k in range(S):
+        lkk = torch.sqrt(A[:, k, k])
+        rk = 1.0 / lkk
+        aik = A[:, k + 1:, k].clone()
+        L[:, k, k] = lkk
+        L[:, k + 1:, k] = aik * rk[:, None]
+        rdiag[:, k] = rk
+        f = aik * (rk * rk)[:, None]
+        A[:, k + 1:, k + 1:] -= torch.tril(f[:, :, None] * aik[:, None, :])
+        T[:, k + 1:, :k + 1] -= f[:, :, None] * T[:, k, None, :k + 1]
+    return L, torch.tril(T * rdiag[:, :, None])
+
+
+@pytest.mark.parametrize("S", [1, 7, 47, 64])
+def test_right_looking_schedule_matches_plain(S):
+    """The kernel's schedule in float64 against inv_chol_plain (rtol 1e-10
+    of the largest entry: another summation order), and a non-SPD block
+    that must turn NaN from its first bad pivot on, and only there."""
+    B = 5
+    A = _spd(B, S, seed=S + 3)
+    if S == 1:
+        A[2, 0, 0] = -1.0
+    else:
+        A[2, 0, 1] = A[2, 1, 0] = 10.0 * S
+    bad_k = next(k for k in range(S)
+                 if np.linalg.eigvalsh(A[2, :k + 1, :k + 1]).min() <= 0)
+    L_e, X_e = _inv_chol_right_looking(torch.as_tensor(A))
+    L_p, X_p = chol.inv_chol_plain(torch.as_tensor(A), write_l=True)
+    good = [0, 1, 3, 4]
+    for got, ref in ((L_e, L_p), (X_e, X_p)):
+        np.testing.assert_allclose(got[good].numpy(), ref[good].numpy(),
+                                   rtol=0, atol=1e-10 * float(
+                                       ref[good].abs().max()))
+    low = torch.tril(torch.ones(S, S, dtype=torch.bool))
+    assert torch.isfinite(X_e[2, :bad_k]).all()
+    assert torch.isnan(X_e[2, bad_k:][low[bad_k:]]).all()
+    d = torch.diagonal(X_e, dim1=-2, dim2=-1)
+    ok = torch.all(torch.isfinite(d) & (d > 0), dim=-1)
+    assert ok.tolist() == [True, True, False, True, True]
+
+
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card: the kernel has no CPU mode")

@@ -83,6 +83,73 @@ def test_decision_plain_matches_pallas(case):
                                    for b in range(c["B"])]
 
 
+# K4's tiling in csrc/thin_level.cu: rows of LAi per row tile, contraction
+# depth per stage, slab width (up to W - 1 columns of Kxc and u's column)
+K4_TP, K4_TQ, K4_W = 64, 16, 80
+
+
+def _decision_one_pass(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec, kdiag,
+                       rmask_f, aligned=False):
+    """Step-by-step emulation of csrc/thin_level.cu's K4 schedule: for each
+    column pass, each row tile of LAi makes its slab [M | u] over depth
+    tiles, and hk and hw accumulate from M and the u of the same tile."""
+    LAi = joint if aligned else joint[lp_pos]
+    B, P, S = Kxc.shape
+    hk = torch.zeros(B, S, dtype=Kxc.dtype)
+    hw = torch.zeros(B, S, dtype=Kxc.dtype)
+    for c0 in range(0, S, K4_W - 1):
+        nc = min(K4_W - 1, S - c0)
+        rhs = torch.cat([Kxc[:, :, c0:c0 + nc], wpar[:, :, None]], dim=2)
+        for p0 in range(0, P, K4_TP):
+            acc = 0
+            for q0 in range(0, P, K4_TQ):
+                acc = acc + (LAi[:, p0:p0 + K4_TP, q0:q0 + K4_TQ]
+                             @ rhs[:, q0:q0 + K4_TQ])
+            m, u = acc[:, :, :nc], acc[:, :, nc:]
+            hk[:, c0:c0 + nc] += (m * m).sum(dim=1)
+            hw[:, c0:c0 + nc] += (m * u).sum(dim=1)
+    rmask = rmask_f > 0.5
+    r = torch.where(rmask, kdiag - hk, 1.0)
+    okl = torch.isfinite(r) & (r > 0)
+    r = torch.where(okl, r, 1.0)
+    logdet = -0.5 * torch.where(rmask, torch.log(r), 0.0).sum(dim=1)
+    qn = -0.5 * ((w_r - hw) ** 2 / r).sum(dim=1)
+    wxc = w_r - torch.einsum("bsp,bp->bs", prevH, wpar)
+    qc = -0.5 * (prevprec * wxc * wxc).sum(dim=1)
+    return torch.stack([logdet, qn, qc, okl.all(dim=1).to(Kxc.dtype)], dim=1)
+
+
+ONE_PASS_CASES = {
+    # config 1's thin level through shuffled, repeated parents, Bp != B
+    "config1": dict(B=16, Bp=12, P=69, S=18,
+                    lp_pos=np.random.default_rng(5).integers(0, 12, 16)),
+    # P not a multiple of the row tile, S + 1 > W: two column passes
+    "ragged_two_passes": dict(B=3, Bp=2, P=150, S=100, lp_pos=[1, 0, 1]),
+    # aligned, with a block forced to r <= 0
+    "aligned_not_ok": dict(B=4, Bp=4, P=70, S=9),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ONE_PASS_CASES))
+def test_decision_one_pass_schedule_matches_plain(case):
+    """The kernel's schedule in float64 against the plain partials (rtol
+    1e-12: another summation order), with identical ok flags."""
+    c = dict(ONE_PASS_CASES[case])
+    aligned = "lp_pos" not in c
+    d = _decision_inputs(len(case), **c)
+    if case == "aligned_not_ok":
+        d["kdiag"][2] = 1e-3
+    names = ("Kxc", "joint", "lp_pos", "wpar", "w_r", "prevH", "prevprec",
+             "kdiag", "rmask_f")
+    args = [_t(d[k]) for k in names]
+    got = _decision_one_pass(*args, aligned=aligned)
+    ref = level.thin_decision_partials_plain(*args, aligned=aligned)
+    assert torch.equal(got[:, 3], ref[:, 3])
+    assert ref[:, 3].tolist() == [float(not (aligned and b == 2))
+                                  for b in range(c["B"])]
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-12)
+
+
 @pytest.mark.parametrize("B,S,P", [(5, 7, 11), (3, 16, 128)])
 def test_gibbs_plain_matches_pallas(B, S, P):
     import jax.numpy as jnp
