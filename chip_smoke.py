@@ -25,8 +25,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    P=384 (the TPU's K5 layouts) and the gate's edge (S=512, P=1024), each
    with a partly masked block, with and without a block forced to r <= 0
    that both versions must flag ok=False; times both at config 3's shape,
-   K4 also at P=128 and P=384 (K5's layouts), and times the cuBLAS product
-   LAi Kxc alone at config 3's shape, the yardstick of K4's product;
+   K4 also at P=128 and P=384 with config 3's B (K5's layouts), and times
+   the cuBLAS product LAi Kxc alone at config 3's shape, the yardstick of
+   K4's product;
 7. the accept-aware theta step (MCMCConfig(accept_aware=True)) with the
    fused level kernels on (SPAMTREE_LEVEL_KERNELS=1): config 1 (keep=500,
    burn=500, thin=2), config 3 with composed factor parts on (the default)
@@ -36,14 +37,20 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    whose parent hands it an assembled joint (none when every thin level's
    parent composes).
 
-Kernel and plain times are device times: a run of calls captured in a
-CUDA graph and replayed between CUDA events, so the host's launch overhead
-drops out; the per-call time of eager calls is printed beside them.  Every
-kernel's launch count is set to 0 just before a run and read just after
-it (the timing phases come before the runs or between them).  The line
-before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Imports no jax; ``bench`` only for its
-numpy data makers.
+Kernel and plain times (the kernels record's ms and plain_ms) are CUDA
+events around eager calls of the wrappers the sweeps call, host time
+included; the device time of each, from a run of calls captured in a CUDA
+graph and replayed, is printed beside them.  Every kernel's launch count
+is set to 0 just before a run and read just after it (the timing phases
+come before the runs or between them).  The line before the last is the
+kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --times
+
+runs phases 1-2 and the timings of phases 3 and 6 alone, at config 3's
+known thin level, for comparing two trees in one call (copy this script
+into the other tree and run it there).  Imports no jax; ``bench`` only for
+its numpy data makers.
 """
 
 import contextlib
@@ -59,6 +66,7 @@ import numpy as np
 # config-3 reference levels: (B, S) of each level's Cholesky batch
 CONFIG3_SHAPES = [(1, 50), (4, 49), (16, 50), (64, 50), (256, 50), (1024, 47)]
 CHECK_SHAPES = CONFIG3_SHAPES + [(1024, 64), (3, 7), (130, 33)]
+CONFIG3_THIN = (1024, 68, 293)  # config 3's thin level (B, S, P)
 TOL = {"float32": 1e-4, "float64": 1e-10}  # max|dLinv| <= TOL * max|Linv|
 # the published H100 SXM peaks that bound a kernel: device memory rate and
 # the FP32 rate outside the tensor cores (TF32 is barred by the package)
@@ -108,42 +116,49 @@ def _counts(chol, level):
                 k4_launches=level.LAUNCHES_DECISION)
 
 
-def _device_times(torch, fns, reps):
-    """Device ms per call of each of ``fns`` ({"kernel", "plain"}): ``reps``
-    calls captured in one CUDA graph, replayed between CUDA events, so the
-    host's launch overhead drops out; in turns plain, kernel, kernel, plain,
-    the minimum of each.  Also the CUDA-event ms per call of ``reps`` eager
-    calls, which includes that overhead where it is the longer.  Returns
-    (kernel, plain, kernel per eager call, plain per eager call)."""
-    graphs = {}
-    for name, f in fns.items():
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                f()
-        torch.cuda.current_stream().wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(reps):
-                f()
-        graphs[name] = g
-    torch.cuda.synchronize()
-    dev = {k: [] for k in fns}
-    call = {k: [] for k in fns}
+def _event_times(torch, fns, reps):
+    """CUDA-event ms per call of each of ``fns`` ({"kernel", "plain"}),
+    in turns plain, kernel, kernel, plain; the minimum of each."""
+    for f in fns.values():
+        for _ in range(3):
+            f()
+    times = {k: [] for k in fns}
     for name in ("plain", "kernel", "kernel", "plain"):
-        for what, run in (("graph", graphs[name].replay),
-                          ("eager", lambda: [fns[name]() for _ in range(reps)])):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            run()
-            e1.record()
-            torch.cuda.synchronize()
-            ms = e0.elapsed_time(e1) / reps
-            (dev if what == "graph" else call)[name].append(ms)
-    return (min(dev["kernel"]), min(dev["plain"]), min(call["kernel"]),
-            min(call["plain"]))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fns[name]()
+        e1.record()
+        torch.cuda.synchronize()
+        times[name].append(e0.elapsed_time(e1) / reps)
+    return min(times["kernel"]), min(times["plain"])
+
+
+def _graph_ms(torch, f, reps):
+    """Device ms per call of ``f``: ``reps`` calls captured in one CUDA
+    graph, replayed twice between CUDA events, the faster replay; the
+    host's launch overhead drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            f()
+    times = []
+    for _ in range(2):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / reps)
+    return min(times)
 
 
 def card_info(torch):
@@ -193,10 +208,18 @@ def check_kernel(chol, torch):
                 if corrupt:  # one indefinite block
                     A[B // 2, 0, 1] = A[B // 2, 1, 0] = 10.0 * S
                     good[B // 2] = False
+                linv_alone = chol.inv_chol(A)
                 for write_l in (False, True):
                     out_k = chol.inv_chol(A, write_l=write_l)
                     out_p = chol.inv_chol_plain(A, write_l=write_l)
                     torch.cuda.synchronize()
+                    linv = out_k[1] if write_l else out_k
+                    _check(torch.equal(linv.isnan(), linv_alone.isnan())
+                           and torch.equal(linv.nan_to_num(),
+                                           linv_alone.nan_to_num()),
+                           f"K1 Linv not bit-identical with and without L "
+                           f"(or between calls): {dname} B={B} S={S} "
+                           f"write_l={write_l}")
                     pairs = ([("L", out_k[0], out_p[0]),
                               ("Linv", out_k[1], out_p[1])] if write_l
                              else [("Linv", out_k, out_p)])
@@ -222,27 +245,31 @@ def check_kernel(chol, torch):
 
 
 def time_kernel(chol, torch, write_l=False, reps=50):
-    """Device ms per call, kernel and plain, at the config-3 shapes
-    (f32), alternating plain, kernel, kernel, plain; with each shape's
-    bound (A read once, Linv written once, and L with ``write_l``; S^3/3
-    flops for the factor and as many for its inverse)."""
+    """CUDA-event ms per eager call, kernel and plain, at the config-3
+    shapes (f32), alternating plain, kernel, kernel, plain; with each
+    shape's bound (A read once, Linv written once, and L with ``write_l``;
+    S^3/3 flops for the factor and as many for its inverse) and the device
+    ms of both in a CUDA graph."""
     rows = []
     name = "K2 (K1 with L)" if write_l else "K1"
     for B, S in CONFIG3_SHAPES:
         A = _spd_batch(torch, B, S, torch.float32, seed=7)
-        k, p, kc, pc = _device_times(torch, {
-            "kernel": lambda: chol.inv_chol(A, write_l=write_l),
-            "plain": lambda: chol.inv_chol_plain(A, write_l=write_l)}, reps)
+        fns = {"kernel": lambda: chol.inv_chol(A, write_l=write_l),
+               "plain": lambda: chol.inv_chol_plain(A, write_l=write_l)}
+        k, p = _event_times(torch, fns, reps)
+        gk, gp = (_graph_ms(torch, fns[n], reps) for n in ("kernel", "plain"))
         bound = _bound((3 if write_l else 2) * B * S * S * 4,
                        B * 2 * S ** 3 / 3)
-        rows.append((B, S, k, p, bound))
+        rows.append((B, S, k, p, bound, gk, gp))
         print(f"{name} time B={B} S={S}: kernel {k:.4f} ms, plain {p:.4f} ms,"
-              f" bound {bound[0]:.4f} ms ({bound[1]}); per call with the "
-              f"host: kernel {kc:.4f} ms, plain {pc:.4f} ms")
+              f" bound {bound[0]:.4f} ms ({bound[1]}); device time in a "
+              f"CUDA graph: kernel {gk:.4f} ms, plain {gp:.4f} ms")
     print(f"{name} time summed over the config-3 shapes: kernel "
           f"{sum(r[2] for r in rows):.4f} ms, plain "
           f"{sum(r[3] for r in rows):.4f} ms, bound "
-          f"{sum(r[4][0] for r in rows):.4f} ms")
+          f"{sum(r[4][0] for r in rows):.4f} ms; device time in a CUDA "
+          f"graph: kernel {sum(r[5] for r in rows):.4f} ms, plain "
+          f"{sum(r[6] for r in rows):.4f} ms")
     return rows
 
 
@@ -449,54 +476,48 @@ def check_level_kernels(level, torch, thin3):
     return err
 
 
-def _time_decision(level, torch, B, S, P, reps):
-    """(kernel ms, plain ms, bound) of K4 at (B, S, P), f32, aligned: it
-    reads Kxc, the B parent slabs, prevH, wpar and four (B, S) vectors and
-    writes (B, 4), 2 P^2 (S + 1) B + 6 P S B flops."""
-    dec, _ = _level_inputs(torch, torch.float32, B, S, P, None, seed=11,
-                           bad=False)
-    k, p, kc, pc = _device_times(torch, {
-        "kernel": lambda: level.thin_decision_partials(**dec, aligned=True),
-        "plain": lambda: level.thin_decision_partials_plain(**dec,
-                                                            aligned=True)},
-        reps)
-    print(f"K4 per call with the host, B={B} S={S} P={P} f32: kernel "
-          f"{kc:.4f} ms, plain {pc:.4f} ms")
-    return k, p, _bound(
-        4 * (2 * B * P * S + B * P * P + B * P + 4 * B * S + 4 * B),
-        2 * P * P * (S + 1) * B + 6 * P * S * B), dec
-
-
 def time_level_kernels(level, torch, thin3, reps=20):
-    """Device ms per call of K3 and K4 (their wrappers; K4's per-block
-    partials, before the wrapper's reduction over blocks) and their plain
-    versions at config 3's thin level (f32,
-    aligned), with the bound of each (K3 reads H, wpar and five (B, S)
-    vectors and writes wu and msg, 4 B S P flops); K4 also at P=128 and
-    P=384 (the TPU's K5 layouts, as "k5_p128", "k5_p384"); and the cuBLAS
-    product LAi Kxc alone at config 3's shape, K4's product's yardstick."""
+    """CUDA-event ms per eager call of K3 and K4 (wrappers, as the sweeps
+    call them) and their plain versions at config 3's thin level (f32,
+    aligned), with the bound of each and the device ms of both in a CUDA
+    graph: K3 reads H, wpar and five (B, S) vectors and writes wu and msg,
+    4 B S P flops; K4 reads Kxc, the B parent slabs, prevH, wpar and four
+    (B, S) vectors and writes (B, 4), 2 P^2 (S + 1) B + 6 P S B flops.  K4
+    also at P=128 and P=384 with config 3's B (the TPU's K5 layouts, as
+    "k5_p128", "k5_p384"); and the device ms of the cuBLAS product LAi Kxc
+    alone at config 3's shape, the yardstick of K4's product."""
     B, S, P = thin3
     _, gib = _level_inputs(torch, torch.float32, B, S, P, None, seed=11,
                            bad=False)
-    out = {}
-    k, p, _, _ = _device_times(torch, {
+    cases = {"k3": (thin3, {
         "kernel": lambda: level.thin_gibbs_level(**gib),
-        "plain": lambda: level.thin_gibbs_level_plain(**gib)}, reps)
-    out["k3"] = (k, p, _bound(4 * (B * S * P + 6 * B * S + 2 * B * P),
-                              4 * B * S * P), thin3)
-    k, p, bound, dec = _time_decision(level, torch, B, S, P, reps)
-    out["k4"] = (k, p, bound, thin3)
-    for key, shape in (("k5_p128", (64, 68, 128)), ("k5_p384", (64, 68, 384))):
-        out[key] = _time_decision(level, torch, *shape, reps)[:3] + (shape,)
-    for name, (k, p, (bd, by), (b, s, pp)) in out.items():
-        print(f"{name.upper()} time B={b} S={s} P={pp} f32: kernel {k:.4f} "
-              f"ms, plain {p:.4f} ms, bound {bd:.4f} ms ({by})")
-    LAi, Kxc = dec["joint"], dec["Kxc"]
-    t = _device_times(torch, {"kernel": lambda: torch.bmm(LAi, Kxc),
-                              "plain": lambda: torch.bmm(LAi, Kxc)}, reps)[0]
+        "plain": lambda: level.thin_gibbs_level_plain(**gib)},
+        _bound(4 * (B * S * P + 6 * B * S + 2 * B * P), 4 * B * S * P))}
+    decs = {}
+    for key, (b, s, p) in (("k4", thin3), ("k5_p128", (B, S, 128)),
+                           ("k5_p384", (B, S, 384))):
+        dec = decs[key] = _level_inputs(torch, torch.float32, b, s, p, None,
+                                        seed=11, bad=False)[0]
+        cases[key] = ((b, s, p), {
+            "kernel": lambda dec=dec: level.thin_decision_level(
+                **dec, aligned=True),
+            "plain": lambda dec=dec: level.thin_decision_level_plain(
+                **dec, aligned=True)}, _bound(
+            4 * (2 * b * p * s + b * p * p + b * p + 4 * b * s + 4 * b),
+            2 * p * p * (s + 1) * b + 6 * p * s * b))
+    out = {}
+    for key, ((b, s, p), f, (bd, by)) in cases.items():
+        k, pl = _event_times(torch, f, reps)
+        gk, gp = (_graph_ms(torch, f[n], reps) for n in ("kernel", "plain"))
+        out[key] = (k, pl, (bd, by), (b, s, p), gk, gp)
+        print(f"{key.upper()} time B={b} S={s} P={p} f32: kernel {k:.4f} ms,"
+              f" plain {pl:.4f} ms, bound {bd:.4f} ms ({by}); device time in"
+              f" a CUDA graph: kernel {gk:.4f} ms, plain {gp:.4f} ms")
+    LAi, Kxc = decs["k4"]["joint"], decs["k4"]["Kxc"]
+    t = _graph_ms(torch, lambda: torch.bmm(LAi, Kxc), reps)
     bd = _bound(4 * (2 * B * P * S + B * P * P), 2 * B * P * P * S)[0]
-    print(f"cuBLAS bmm(LAi, Kxc) alone, B={B} S={S} P={P} f32: {t:.4f} ms "
-          f"(bound {bd:.4f} ms)")
+    print(f"cuBLAS bmm(LAi, Kxc) alone, B={B} S={S} P={P} f32, device time "
+          f"in a CUDA graph: {t:.4f} ms (bound {bd:.4f} ms)")
     return out
 
 
@@ -515,6 +536,12 @@ def main() -> int:
     card_info(torch)
     _phase("build K1, K3, K4")
     build_kernels(chol, level, _build, torch)
+    if sys.argv[1:] == ["--times"]:
+        _phase("K1, K2, K3, K4 times")
+        time_kernel(chol, torch)
+        time_kernel(chol, torch, write_l=True)
+        time_level_kernels(level, torch, CONFIG3_THIN)
+        return 0
     _phase("K1 vs plain")
     max_err = check_kernel(chol, torch)
     rows = time_kernel(chol, torch)

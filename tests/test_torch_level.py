@@ -10,6 +10,9 @@ Cholesky factorisations (LAPACK against XLA) before the level quantities
 (rtol 1e-10); w-Gibbs adds one more solve per level (rtol 1e-9, as
 tests/test_torch_core.py)."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -83,9 +86,22 @@ def test_decision_plain_matches_pallas(case):
                                    for b in range(c["B"])]
 
 
-# K4's tiling in csrc/thin_level.cu: rows of LAi per row tile, contraction
-# depth per stage, slab width (up to W - 1 columns of Kxc and u's column)
-K4_TP, K4_TQ, K4_W = 64, 16, 80
+def _k4_tiling():
+    """K4's tiling as csrc/thin_level.cu declares it (its top-level
+    ``constexpr int`` lines), so that the emulation follows the kernel:
+    TP rows of LAi per row tile, TQ contraction depth per stage, slab width
+    W (up to W - 1 columns of Kxc and u's column)."""
+    src = (Path(level.__file__).resolve().parents[1] / "csrc"
+           / "thin_level.cu").read_text()
+    env = {}
+    for decl in re.findall(r"^constexpr int ([^;]+);", src, re.M):
+        for part in decl.split(","):
+            name, expr = (x.strip() for x in part.split("=", 1))
+            env[name] = eval(expr, {"__builtins__": {}}, env)
+    return env["TP"], env["TQ"], env["W"]
+
+
+K4_TP, K4_TQ, K4_W = _k4_tiling()
 
 
 def _decision_one_pass(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec, kdiag,
