@@ -27,7 +27,12 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    that both versions must flag ok=False; times both at config 3's shape,
    K4 also at P=128 and P=384 with config 3's B (K5's layouts), and times
    the cuBLAS product LAi Kxc alone at config 3's shape, the yardstick of
-   K4's product;
+   K4's product.  K3 also at config 5's four thin levels, wpar gathered
+   through lp_pos from 16384 parents, and at one shape per variant of the
+   kernel (its launcher picks a variant from S, P and the type; the variant
+   is printed), each run twice to the same bits; K1, K3 and K4 are timed at
+   config 5's shapes too, K3 and K4 over rotating inputs larger than the
+   L2 cache;
 7. the accept-aware theta step (MCMCConfig(accept_aware=True)) with the
    fused level kernels on (SPAMTREE_LEVEL_KERNELS=1): config 1 (keep=500,
    burn=500, thin=2), config 3 with composed factor parts on (the default)
@@ -35,7 +40,14 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    (keep=200, burn=200, thin=1).  Each must meet phase 5's checks, launch
    K3 on every thin level of every iteration, and K4 on every thin level
    whose parent hands it an assembled joint (none when every thin level's
-   parent composes).
+   parent composes);
+8. config 5 (n=1e6, bivariate, imbalanced margins, limited tree, chunk=50)
+   at its own keep=200, burn=300, thin=1: the accept-aware step with the
+   level kernels through prepare_fit / run_mcmc, then the always-emit step
+   through spamtree().  Every level must run in one chunk; K3 launches on
+   each of the four thin levels of every iteration, K4 and K1 launch; the
+   record line carries every level's (B, S, P).  The kernels record takes
+   its launch counts from the accept-aware run.
 
 Kernel and plain times (the kernels record's ms and plain_ms) are CUDA
 events around eager calls of the wrappers the sweeps call, host time
@@ -48,9 +60,9 @@ kernels' JSON record; the last line is {"ok": true, "device": {...}}.
     python3 chip_smoke.py --times
 
 runs phases 1-2 and the timings of phases 3 and 6 alone, at config 3's
-known thin level, for comparing two trees in one call (copy this script
-into the other tree and run it there).  Imports no jax; ``bench`` only for
-its numpy data makers.
+and config 5's known levels, for comparing two trees in one call (copy
+this script into the other tree and run it there).  Imports no jax;
+``bench`` only for its numpy data makers.
 """
 
 import contextlib
@@ -67,6 +79,18 @@ import numpy as np
 CONFIG3_SHAPES = [(1, 50), (4, 49), (16, 50), (64, 50), (256, 50), (1024, 47)]
 CHECK_SHAPES = CONFIG3_SHAPES + [(1024, 64), (3, 7), (130, 33)]
 CONFIG3_THIN = (1024, 68, 293)  # config 3's thin level (B, S, P)
+# config 5: (B, S) of the reference levels, (B, S, P) of the thin levels,
+# which all hang on the deepest reference level through lp_pos
+CONFIG5_SHAPES = [(4 ** k, 25) for k in range(8)]
+CONFIG5_THIN = [(6235, 23, 25), (5917, 29, 25), (3678, 37, 25), (554, 57, 25)]
+# K3 once more per variant of its launcher (B, S, P): the flat variant at
+# its gate's edges, both rows capacities, the tiled variant past them
+K3_VARIANT_SHAPES = [(64, 48, 32), (64, 128, 12), (64, 1, 1), (64, 32, 128),
+                     (64, 72, 320), (64, 73, 320), (64, 129, 3)]
+# K3's timed shapes beside config 5's (the flat variant): config 3's (rows,
+# the larger capacity), the smaller rows capacity and the tiled variant
+K3_TIME_SHAPES = [CONFIG3_THIN, (1024, 32, 128), (1024, 73, 320)]
+L2_BYTES = 50e6
 TOL = {"float32": 1e-4, "float64": 1e-10}  # max|dLinv| <= TOL * max|Linv|
 # the published H100 SXM peaks that bound a kernel: device memory rate and
 # the FP32 rate outside the tensor cores (TF32 is barred by the package)
@@ -244,15 +268,16 @@ def check_kernel(chol, torch):
     return max_err32
 
 
-def time_kernel(chol, torch, write_l=False, reps=50):
-    """CUDA-event ms per eager call, kernel and plain, at the config-3
-    shapes (f32), alternating plain, kernel, kernel, plain; with each
-    shape's bound (A read once, Linv written once, and L with ``write_l``;
-    S^3/3 flops for the factor and as many for its inverse) and the device
-    ms of both in a CUDA graph."""
+def time_kernel(chol, torch, write_l=False, reps=50, shapes=CONFIG3_SHAPES,
+                label="config-3"):
+    """CUDA-event ms per eager call, kernel and plain, at ``shapes`` (a
+    configuration's reference levels; f32), alternating plain, kernel,
+    kernel, plain; with each shape's bound (A read once, Linv written once,
+    and L with ``write_l``; S^3/3 flops for the factor and as many for its
+    inverse) and the device ms of both in a CUDA graph."""
     rows = []
     name = "K2 (K1 with L)" if write_l else "K1"
-    for B, S in CONFIG3_SHAPES:
+    for B, S in shapes:
         A = _spd_batch(torch, B, S, torch.float32, seed=7)
         fns = {"kernel": lambda: chol.inv_chol(A, write_l=write_l),
                "plain": lambda: chol.inv_chol_plain(A, write_l=write_l)}
@@ -264,7 +289,7 @@ def time_kernel(chol, torch, write_l=False, reps=50):
         print(f"{name} time B={B} S={S}: kernel {k:.4f} ms, plain {p:.4f} ms,"
               f" bound {bound[0]:.4f} ms ({bound[1]}); device time in a "
               f"CUDA graph: kernel {gk:.4f} ms, plain {gp:.4f} ms")
-    print(f"{name} time summed over the config-3 shapes: kernel "
+    print(f"{name} time summed over the {label} shapes: kernel "
           f"{sum(r[2] for r in rows):.4f} ms, plain "
           f"{sum(r[3] for r in rows):.4f} ms, bound "
           f"{sum(r[4][0] for r in rows):.4f} ms; device time in a CUDA "
@@ -273,7 +298,13 @@ def time_kernel(chol, torch, write_l=False, reps=50):
     return rows
 
 
-def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin):
+def _level_shapes(levels):
+    """[(B, S, P)] of a list of LevelArrays."""
+    return [tuple(lv.rows.shape) + (lv.prows.shape[1],) for lv in levels]
+
+
+def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin,
+               chunk=200, limited=False):
     """The always-emit theta step through spamtree()."""
     import spamtree_tpu_torch
 
@@ -286,7 +317,8 @@ def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin):
     out = spamtree_tpu_torch.spamtree(
         y - ybar, X, coords, mv_id=mv, cell_size=25,
         mcmc=dict(keep=keep, burn=burn, thin=thin),
-        settings=dict(chunk=200), seed=1, device="cuda")
+        settings=dict(chunk=chunk), seed=1, device="cuda",
+        limited_tree=limited)
     wall = time.time() - t0
     counts = _counts(chol, level)
     launches = counts["k1_launches"]
@@ -297,7 +329,8 @@ def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin):
     rmspe = float(np.sqrt(np.mean((y_post[mo] - y_full[order][mo]) ** 2)))
     sd = float(np.nanstd(y_full))
     n_ref = sum(1 for p in out["schedule"].levels if p.is_ref and p.S <= 64)
-    res = dict(config=c["name"], step="always_emit", n=len(y), iters=iters,
+    res = dict(config=c["name"], step="always_emit", limited_tree=limited,
+               n=len(y), iters=iters,
                ips=iters / out["mcmc_time"], mcmc_time=out["mcmc_time"],
                setup_time=wall - out["mcmc_time"], rmspe=rmspe, sd_y=sd,
                accept=out["accept_ratio"], **counts, ref_levels_s64=n_ref,
@@ -318,7 +351,7 @@ def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin):
 
 
 def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
-                     composed=True, limited=False):
+                     composed=True, limited=False, chunk=200):
     """prepare_fit, then run_mcmc with the accept-aware theta step and the
     fused level kernels on; returns the run's record."""
     from spamtree_tpu_torch.api import prepare_fit
@@ -334,7 +367,7 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
         t0 = time.time()
         fit = prepare_fit(y - ybar, X, coords, mv_id=mv, cell_size=25,
                           mcmc=dict(keep=keep, burn=burn, thin=thin),
-                          settings=dict(chunk=200), seed=1, device="cuda",
+                          settings=dict(chunk=chunk), seed=1, device="cuda",
                           limited_tree=limited)
         setup = time.time() - t0
         ms = fit.ms
@@ -370,9 +403,11 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
                ips=iters / res["mcmc_time"], mcmc_time=res["mcmc_time"],
                setup_time=setup, rmspe=rmspe, sd_y=sd,
                accept=res["accept_ratio"], **counts, ref_levels_s64=n_ref,
-               thin_levels=[tuple(ms.levels[t].rows.shape)
-                            + (ms.levels[t].prows.shape[1],)
-                            for t in thin_lvls],
+               levels=_level_shapes(ms.levels),
+               pred_buckets=_level_shapes(ms.pred_arrays or []),
+               level_chunks=ms.level_chunks, pred_chunks=ms.pred_chunks,
+               pred_in_carry=ms.pred_in_carry,
+               thin_levels=_level_shapes(ms.levels[t] for t in thin_lvls),
                k3_levels=len(k3_lvls), k4_levels=len(k4_lvls),
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                setup_breakdown=fit.setup_breakdown)
@@ -387,8 +422,8 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
                                       "k4_launches"))
     _check(n_ref > 0 and k1 >= 2 * n_ref * iters,
            f"K1 launches {k1} < 2 x {n_ref} ref levels x {iters} its")
-    _check(k3_lvls and k3 >= len(k3_lvls) * iters,
-           f"K3 launches {k3} < {len(k3_lvls)} thin levels x {iters} its")
+    _check(k3_lvls and k3 == len(k3_lvls) * iters,
+           f"K3 launches {k3} != {len(k3_lvls)} thin levels x {iters} its")
     _check(k4 >= len(k4_lvls) * iters,
            f"K4 launches {k4} < {len(k4_lvls)} thin levels x {iters} its")
     _check((k4 == 0) == all_compose,
@@ -521,6 +556,150 @@ def time_level_kernels(level, torch, thin3, reps=20):
     return out
 
 
+def _gibbs_inputs(torch, dtype, B, S, P, seed, Bp=None):
+    """K3 inputs as ``_level_inputs`` makes them, block 2 masked whole; with
+    ``Bp`` wpar is gathered from Bp parents' rows through a random lp_pos,
+    as the unaligned thin levels read theirs."""
+    gib = _level_inputs(torch, dtype, B, S, P, None, seed, bad=False)[1]
+    gib["rmask_f"] = gib["rmask_f"].clone()
+    gib["rmask_f"][min(2, B - 1)] = 0.0
+    if Bp is not None:
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        lp_pos = torch.randint(0, Bp, (B,), generator=g, device="cuda")
+        wj = torch.randn(Bp, P, generator=g, device="cuda", dtype=dtype)
+        gib["wpar"] = wj[lp_pos]
+    return gib
+
+
+def _variant(level, S, P, dtype):
+    """K3's variant at (S, P), where the package under test reports it."""
+    f = getattr(level, "thin_gibbs_variant", None)
+    return f(S, P, dtype) if f else "not reported"
+
+
+def check_gibbs_shapes(level, torch):
+    """K3 against its plain version, f32 and f64, at config 5's four thin
+    levels (wpar through lp_pos from 16384 parents) and at one shape per
+    variant; two runs on the same inputs must give the same bits."""
+    cases = ([(f"config5 thin {i}", *shp, CONFIG5_SHAPES[-1][0])
+              for i, shp in enumerate(CONFIG5_THIN)]
+             + [("variant", *shp, None) for shp in K3_VARIANT_SHAPES]
+             + [("edge", 8, 512, 1024, None),
+                ("config3", *CONFIG3_THIN, None)])
+    seen = set()
+    for dname in ("float32", "float64"):
+        dtype, tol = getattr(torch, dname), TOL[dname]
+        for name, B, S, P, Bp in cases:
+            gib = _gibbs_inputs(torch, dtype, B, S, P, seed=B + S + P, Bp=Bp)
+            wk, mk = level.thin_gibbs_level(**gib)
+            wk2, mk2 = level.thin_gibbs_level(**gib)
+            wp, mp = level.thin_gibbs_level_plain(**gib)
+            torch.cuda.synchronize()
+            var = _variant(level, S, P, dtype)
+            seen.add(var)
+            what = f"{dname} {name} B={B} S={S} P={P} variant {var}"
+            _check(torch.equal(wk, wk2) and torch.equal(mk, mk2),
+                   f"K3 runs differ: {what}")
+            _check(_close(wk, wp, tol) and _close(mk, mp, tol),
+                   f"K3 disagrees: {what}")
+            _check(bool((wk[gib["rmask_f"] <= 0.5] == 0).all()),
+                   f"K3 mask: {what}")
+            print(f"K3 ok {what}", flush=True)
+    print(f"K3 variants checked: {sorted(seen)}")
+    _check(len(seen) >= 5, f"K3 variants checked: {sorted(seen)}")
+
+
+def _time_shapes(torch, kname, label, shapes, make, fns, bound, note=None,
+                 reps=20):
+    """Time a level kernel and its plain version at each (B, S, P) of
+    ``shapes``, f32: CUDA events around eager wrapper calls and the device
+    ms of the same calls in a CUDA graph.  The calls take ``make(shape,
+    seed)``'s input sets in turn, enough of them that a pass over them
+    exceeds the L2 cache: the sweeps find these arrays cold (H was written
+    at the last accepted proposal).  ``bound(shape, inputs)`` gives the
+    bytes and flops of one call.  Returns the sums over the shapes."""
+    tot = dict(ms=0.0, dev=0.0, plain=0.0, plain_dev=0.0, bound=0.0)
+    for shp in shapes:
+        sets = [make(shp, 0)]
+        nbytes, flops = bound(shp, sets[0])
+        nsets = max(1, min(32, int(-(-2.4 * L2_BYTES // nbytes))))
+        sets += [make(shp, seed) for seed in range(1, nsets)]
+        turn = [0]
+
+        def nxt():
+            turn[0] = (turn[0] + 1) % nsets
+            return sets[turn[0]]
+
+        f = {k: (lambda fn=fn: fn(**nxt())) for k, fn in fns.items()}
+        k, pl = _event_times(torch, f, reps)
+        gk, gp = (_graph_ms(torch, f[n], reps) for n in ("kernel", "plain"))
+        bd, by = _bound(nbytes, flops)
+        for key, v in zip(tot, (k, gk, pl, gp, bd)):
+            tot[key] += v
+        B, S, P = shp
+        print(f"{kname} time {label} B={B} S={S} P={P} f32"
+              f"{note(shp) if note else ''} ({nsets} input sets): kernel "
+              f"{k:.4f} ms, plain {pl:.4f} ms, bound {bd:.4f} ms ({by}); "
+              f"device time in a CUDA graph: kernel {gk:.4f} ms, plain "
+              f"{gp:.4f} ms, bound / kernel {bd / gk:.2f}")
+    print(f"{kname} time summed over the {label} shapes: kernel "
+          f"{tot['ms']:.4f} ms, plain {tot['plain']:.4f} ms, bound "
+          f"{tot['bound']:.4f} ms; device time in a CUDA graph: kernel "
+          f"{tot['dev']:.4f} ms, plain {tot['plain_dev']:.4f} ms")
+    return tot
+
+
+def time_gibbs_shapes(level, torch, shapes, label, Bp=None):
+    """K3 at ``shapes``, with the variant its launcher takes at each.  The
+    bound counts H, wpar and msg (B, P), and the five input vectors and wu
+    (B, S), each once, and 4 B S P flops."""
+    return _time_shapes(
+        torch, "K3", label, shapes,
+        lambda shp, seed: _gibbs_inputs(torch, torch.float32, *shp, seed=seed,
+                                        Bp=Bp),
+        {"kernel": level.thin_gibbs_level,
+         "plain": level.thin_gibbs_level_plain},
+        lambda shp, _: (4 * (shp[0] * shp[1] * shp[2] + 6 * shp[0] * shp[1]
+                             + 2 * shp[0] * shp[2]),
+                        4 * shp[0] * shp[1] * shp[2]),
+        note=lambda shp: " variant "
+        + _variant(level, shp[1], shp[2], torch.float32))
+
+
+def time_decision_shapes(level, torch, shapes, Bp, label):
+    """K4 (thin_decision_level, reduction included) at ``shapes`` through
+    lp_pos on ``Bp`` parents.  The bound counts Kxc, prevH, the parent slabs
+    this lp_pos reads, wpar and four (B, S) vectors, and 2 P^2 (S + 1) B +
+    6 P S B flops."""
+    def bound(shp, dec):
+        B, S, P = shp
+        slabs = int(torch.unique(dec["lp_pos"]).numel())
+        nbytes = 4 * (2 * B * P * S + slabs * P * P + B * P + 4 * B * S
+                      + 4 * B)
+        return nbytes, 2 * P * P * (S + 1) * B + 6 * P * S * B
+
+    return _time_shapes(
+        torch, "K4", label, shapes,
+        lambda shp, seed: _level_inputs(torch, torch.float32, *shp, Bp,
+                                        seed=seed, bad=False)[0],
+        {"kernel": level.thin_decision_level,
+         "plain": level.thin_decision_level_plain}, bound,
+        note=lambda shp: f" Bp={Bp}")
+
+
+def time_config5_kernels(chol, level, torch):
+    """K1, K3 and K4 at config 5's level shapes; K3 also at config 3's and
+    at one shape of each other variant, over rotating inputs like the
+    others."""
+    Bp = CONFIG5_SHAPES[-1][0]
+    return dict(
+        k1=time_kernel(chol, torch, shapes=CONFIG5_SHAPES, label="config-5"),
+        k3_variants=time_gibbs_shapes(level, torch, K3_TIME_SHAPES,
+                                      "config-3 and per-variant"),
+        k3=time_gibbs_shapes(level, torch, CONFIG5_THIN, "config-5", Bp=Bp),
+        k4=time_decision_shapes(level, torch, CONFIG5_THIN, Bp, "config-5"))
+
+
 def main() -> int:
     import torch
 
@@ -541,6 +720,7 @@ def main() -> int:
         time_kernel(chol, torch)
         time_kernel(chol, torch, write_l=True)
         time_level_kernels(level, torch, CONFIG3_THIN)
+        time_config5_kernels(chol, level, torch)
         return 0
     _phase("K1 vs plain")
     max_err = check_kernel(chol, torch)
@@ -555,6 +735,8 @@ def main() -> int:
     _phase(f"K3/K4 vs plain (config 3 thin level {thin3[0]})")
     lerr = check_level_kernels(level, torch, thin3[0])
     ltimes = time_level_kernels(level, torch, thin3[0])
+    check_gibbs_shapes(level, torch)
+    t5 = time_config5_kernels(chol, level, torch)
     _phase("config 1, accept-aware, level kernels")
     run_accept_aware(bench, chol, level, torch, 1, keep=500, burn=500, thin=2)
     _phase("config 3, accept-aware, level kernels, composed factors")
@@ -566,6 +748,26 @@ def main() -> int:
     _phase("config 1, limited tree, accept-aware, level kernels")
     run_accept_aware(bench, chol, level, torch, 1, keep=200, burn=200, thin=1,
                      limited=True)
+    c5 = bench.CONFIGS[5]
+    kw5 = dict(keep=c5["keep"], burn=c5["burn"], thin=c5["thin"],
+               chunk=c5["chunk"], limited=c5["kwargs"]["limited_tree"])
+    _phase("config 5, limited tree, accept-aware, level kernels")
+    a5 = run_accept_aware(bench, chol, level, torch, 5, **kw5)
+    lv5 = [tuple(x) for x in a5["levels"]]
+    _check([x[:2] for x in lv5[:len(CONFIG5_SHAPES)]] == CONFIG5_SHAPES
+           and lv5[len(CONFIG5_SHAPES):] == CONFIG5_THIN
+           and a5["thin_levels"] == CONFIG5_THIN,
+           f"config 5 levels {lv5} are not the shapes the kernels were "
+           f"checked and timed at")
+    _check(set(a5["level_chunks"]) == {1} and set(a5["pred_chunks"]) == {1}
+           and a5["pred_in_carry"], "config 5: a level runs in several chunks")
+    # K3 ran on each of them in every iteration (checked with the run)
+    _check(a5["k3_levels"] == a5["k4_levels"] == len(CONFIG5_THIN)
+           and a5["k4_launches"] > 0,
+           f"config 5: K3 on {a5['k3_levels']} levels, K4 on "
+           f"{a5['k4_levels']}, {a5['k4_launches']} K4 launches")
+    _phase("config 5, limited tree, always-emit")
+    run_config(bench, chol, level, torch, 5, **kw5)
 
     k1_bound = sum(r[4][0] for r in rows)
     print(json.dumps({"kernels": [{
@@ -573,7 +775,13 @@ def main() -> int:
         "route": "cuda",
         "source": "spamtree_tpu_torch/csrc/inv_chol.cu",
         "replaces": "spamtree_tpu/ops/pallas_chol.py:107",
-        "launches": r3["k1_launches"],
+        # from config 5's accept-aware run; config 3's always-emit beside it
+        "launches": a5["k1_launches"],
+        "launches_config3": r3["k1_launches"],
+        # one call at each config-5 reference-level shape, summed
+        "ms_config5": sum(r[2] for r in t5["k1"]),
+        "plain_ms_config5": sum(r[3] for r in t5["k1"]),
+        "bound_ms_config5": sum(r[4][0] for r in t5["k1"]),
         "max_abs_err": max_err,
         # one call at each config-3 reference-level shape, summed
         "ms": sum(r[2] for r in rows),
@@ -587,8 +795,14 @@ def main() -> int:
         "route": "cuda",
         "source": "spamtree_tpu_torch/csrc/thin_level.cu",
         "replaces": replaces,
-        # from the config-3 accept-aware run without composed factors
-        "launches": a3[f"{key}_launches"],
+        # from config 5's accept-aware run; beside it config 3's without
+        # composed factors, and the kernel's ms summed over config 5's four
+        # thin levels (ms, plain_ms and bound_ms are at config 3's level)
+        "launches": a5[f"{key}_launches"],
+        "launches_config3": a3[f"{key}_launches"],
+        "ms_config5": t5[key]["ms"],
+        "plain_ms_config5": t5[key]["plain"],
+        "bound_ms_config5": t5[key]["bound"],
         "max_abs_err": lerr[key],
         "ms": ltimes[key][0],
         "plain_ms": ltimes[key][1],

@@ -1,20 +1,49 @@
 // Fused thin-level kernels for the SpamTree sweeps: K3 (w-Gibbs) and K4
 // (decision sweep), each instantiated for float and double.
 //
-// thin_gibbs_kernel replaces the Pallas TPU kernel
+// K3 replaces the Pallas TPU kernel
 // spamtree_tpu/ops/pallas_level.py::thin_gibbs_level (_thin_gibbs_kernel).
 // Per thin block b, with H (S, P) the stored conditional-mean operator:
 //   hw  = H wpar ; sig = prec + ti
 //   wu  = (prec hw + resid) / sig + z / sqrt(sig), 0 where rmask <= 0.5
 //   msg = H' (prec (wu - hw))
-// What bounds it on Hopper: bytes.  It reads H once from device memory (at
-// bench config 3, B = 1024, S = 68, P = 293, f32: 82 MB, 0.026 ms at the
-// H100 SXM's 3.35 TB/s) for 4 B S P flops.  Design: one thread block per tree block.
-// Pass 1 gives each warp whole rows of H, read coalesced along P against
-// wpar held in shared memory, and reduces each row with warp shuffles; the
-// row's wu and v = prec (wu - hw) stay in shared memory.  Pass 2 gives each
-// thread one column p of H, reads H again (the block's slab, at most 2 MB,
-// comes from L2) and sums H[s, p] v[s] in row order.
+// What bounds it on Hopper: bytes.  4 B S P flops for B S P elements of H,
+// two (B, P) and seven (B, S) arrays (at bench config 3, B = 1024, S = 68,
+// P = 293, f32: 82 MB of H, 0.026 ms at the H100 SXM's 3.35 TB/s; at config
+// 5's four thin levels, P = 25, a quarter of the bytes are the vectors).
+// Design: H is read from device memory once and held on chip between the two
+// contractions; the threads follow the slab.  Three variants, chosen by the
+// launcher from (S, P, type) alone (gibbs_variant):
+// * flat (thin_gibbs_flat_kernel): P <= 32, S <= 128 and S P <= 1536.  One
+//   warp per tree block, kFlatWarps tree blocks per thread block, the slab
+//   in the warp's shared memory at row pitch P | 1 (no bank conflicts along
+//   a column of lanes).  The warp copies the flattened slab by cp.async as
+//   it lies in device memory, lane l elements l, l + 32, ...: every copy a
+//   full 128-byte line, no lane idle on P < 32, no registers held, so six
+//   thread blocks share an SM and all of an SM's slabs are in flight at
+//   once.  Lane j makes hw[s], wu[s] and v[s] = prec (wu - hw) of rows j,
+//   j + 32, ... in column order; lane p sums column p of H' v in row order.
+// * rows (thin_gibbs_rows_kernel<WARPS, RPW, CPL>): S <= WARPS RPW and
+//   P <= 32 CPL, capacities in GIBBS_ROWS_F32 / GIBBS_ROWS_F64 (the first
+//   that holds the slab).  One thread block per tree block; warp w holds
+//   rows w, w + WARPS, ... and lane l columns l, l + 32, ...: RPW x CPL
+//   registers a thread (9 x 10 at config 3).  hw[s] is the row's products
+//   summed per lane in column order, then a warp butterfly; lane r of the
+//   warp makes wu and v of the warp's r-th row and broadcasts v by shuffle;
+//   msg[p] is each thread's sum over its rows in row order, then the warps'
+//   sums through shared memory in warp order.
+// * tiled (thin_gibbs_tiled_kernel): any S <= 512, P <= 1024 beyond those
+//   capacities.  One thread block per tree block, pass 1 a warp per row
+//   against wpar in shared memory, pass 2 a thread per column: it reads the
+//   slab twice, the second time mostly from L2.
+// In the resident variants every load of H is issued before the first use
+// and wpar and the five (B, S) vectors are staged coalesced by cp.async; in
+// the rows variant all register indices are static (loops unrolled over the
+// capacity, the ragged edge masked to 0).  Measured on an H100 at config 5's
+// thin levels, the flat variant with the slab in registers (products staged
+// through shared memory) took 1.6x the time of this one; at config 3's the
+// rows variant with the slab in shared memory took 2.2x.  No atomics: every
+// sum has an order fixed by (S, P), so runs repeat bit for bit.
 //
 // thin_decision_kernel replaces pallas_level.py::thin_decision_level, both
 // its bodies (_thin_decision_kernel, and _thin_decision_kernel_vpu for the
@@ -63,8 +92,18 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // K3's block
+constexpr int kThreads = 256;  // the tiled K3's block
 constexpr int kWarps = kThreads / 32;
+// K3's flat variant: tree blocks (warps) per thread block, thread blocks
+// per SM the registers are capped for (half as many in double), and its
+// gate (at most 158 KB of shared memory a thread block, in double)
+constexpr int kFlatWarps = 8, kFlatBlocks = 6;
+constexpr int kFlatMaxP = 32, kFlatMaxS = 128, kFlatMaxN = 1536;
+// K3's rows variant: the resident capacities, smallest first; the launcher
+// takes the first that holds (S, P).  Warps per tree block, rows per warp,
+// columns per lane, thread blocks per SM the registers are capped for.
+#define GIBBS_ROWS_F32(X) X(8, 4, 4, 4) X(8, 9, 10, 2)
+#define GIBBS_ROWS_F64(X) X(8, 4, 4, 2) X(16, 5, 10, 1)
 
 __device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
@@ -79,7 +118,178 @@ __device__ __forceinline__ T warp_sum(T v) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) thin_gibbs_kernel(
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
+  // src_size 0 fills the element with zeros and reads nothing, so src may
+  // point past the array there
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? static_cast<int>(sizeof(T)) : 0;
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// wu of one row and v = prec (wu - hw), from the row's staged vectors
+template <typename T>
+__device__ __forceinline__ T gibbs_row(T hw, T pr, T ti, T resid, T z,
+                                       T rmask, T* wu_out) {
+  const T sig = pr + ti;
+  T wu = (pr * hw + resid) / sig + z / sqrt_(sig);
+  if (!(rmask > T(0.5))) wu = T(0);
+  *wu_out = wu;
+  return pr * (wu - hw);
+}
+
+// K3, flat variant: one warp per tree block, its slab in shared memory
+// (see the header).  vstride: shared-memory elements per warp.
+template <typename T>
+__global__ void __launch_bounds__(
+    32 * kFlatWarps, sizeof(T) == 4 ? kFlatBlocks : kFlatBlocks / 2)
+    thin_gibbs_flat_kernel(
+    const T* __restrict__ H, const T* __restrict__ prec,
+    const T* __restrict__ wpar, const T* __restrict__ z,
+    const T* __restrict__ ti, const T* __restrict__ resid,
+    const T* __restrict__ rmask, T* __restrict__ wu_out,
+    T* __restrict__ msg_out, long long B, int S, int P, int vstride) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long b = static_cast<long long>(blockIdx.x) * kFlatWarps + warp;
+  if (b >= B) return;  // warps never meet at a block barrier
+  const int PP = P | 1, n = S * P;
+  T* sw = reinterpret_cast<T*>(smem_raw) + warp * vstride;  // 32: wpar
+  T* svec = sw + 32;     // 5 x S: prec, ti, resid, z, rmask
+  T* sv = svec + 5 * S;  // S: prec (wu - hw)
+  T* sH = sv + S;        // S x PP: the slab
+
+  cp_async(sw + lane, wpar + b * P + lane, lane < P);
+  const T* const vecs[5] = {prec, ti, resid, z, rmask};
+#pragma unroll
+  for (int j = 0; j < 5; ++j)
+    for (int s = lane; s < S; s += 32)
+      cp_async(svec + j * S + s, vecs[j] + b * S + s, true);
+  // the slab as it lies in device memory, 128 bytes a warp's copy; (s, p)
+  // of element e = lane + 32 k is stepped without a division per element
+  const T* Hb = H + b * n;
+  const int q32 = 32 / P, r32 = 32 % P;
+  int s = lane / P, p = lane - s * P;
+  for (int e = lane; e < n; e += 32) {
+    cp_async(sH + s * PP + p, Hb + e, true);
+    s += q32;
+    p += r32;
+    if (p >= P) { p -= P; ++s; }
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncwarp();
+  for (int sb = 0; sb < S; sb += 32) {
+    const int sr = sb + lane;
+    if (sr < S) {
+      T hw = T(0);
+      for (int c = 0; c < P; ++c) hw += sH[sr * PP + c] * sw[c];
+      sv[sr] = gibbs_row(hw, svec[sr], svec[S + sr], svec[2 * S + sr],
+                         svec[3 * S + sr], svec[4 * S + sr],
+                         wu_out + b * S + sr);
+    }
+  }
+  __syncwarp();
+  if (lane < P) {
+    T m = T(0);
+    for (int r = 0; r < S; ++r) m += sH[r * PP + lane] * sv[r];
+    msg_out[b * P + lane] = m;
+  }
+}
+
+// K3, rows variant: one thread block per tree block, rows over the warps
+// and columns over the lanes (see the header)
+template <typename T, int WARPS, int RPW, int CPL, int MINB>
+__global__ void __launch_bounds__(32 * WARPS, MINB) thin_gibbs_rows_kernel(
+    const T* __restrict__ H, const T* __restrict__ prec,
+    const T* __restrict__ wpar, const T* __restrict__ z,
+    const T* __restrict__ ti, const T* __restrict__ resid,
+    const T* __restrict__ rmask, T* __restrict__ wu_out,
+    T* __restrict__ msg_out, int S, int P) {
+  static_assert(RPW <= 32, "lane r finishes the warp's r-th row");
+  constexpr int NT = 32 * WARPS, PC = 32 * CPL, SC = WARPS * RPW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sw = reinterpret_cast<T*>(smem_raw);  // PC: wpar, 0 past P
+  T* svec = sw + PC;                       // 5 x SC: prec, ti, resid, z, rmask
+  T* spart = svec + 5 * SC;                // WARPS x PC: the warps' column sums
+
+  const long long b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int p = tid; p < PC; p += NT) cp_async(sw + p, wpar + b * P + p, p < P);
+  const T* const vecs[5] = {prec, ti, resid, z, rmask};
+#pragma unroll
+  for (int j = 0; j < 5; ++j)
+    for (int s = tid; s < S; s += NT)
+      cp_async(svec + j * SC + s, vecs[j] + b * S + s, true);
+  cp_async_commit();
+
+  T h[RPW][CPL];  // H[warp + r WARPS, lane + 32 c]
+  const T* Hb = H + b * S * P;
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const int s = warp + r * WARPS;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int p = lane + 32 * c;
+      h[r][c] = (s < S && p < P) ? Hb[static_cast<long long>(s) * P + p] : T(0);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  T hw_mine = T(0);  // lane r: hw of row warp + r WARPS
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    T t = T(0);
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) t += h[r][c] * sw[lane + 32 * c];
+    t = warp_sum(t);
+    if (lane == r) hw_mine = t;
+  }
+  T v_mine = T(0);
+  const int s_mine = warp + lane * WARPS;
+  if (lane < RPW && s_mine < S)
+    v_mine = gibbs_row(hw_mine, svec[s_mine], svec[SC + s_mine],
+                       svec[2 * SC + s_mine], svec[3 * SC + s_mine],
+                       svec[4 * SC + s_mine], wu_out + b * S + s_mine);
+
+  T acc[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) acc[c] = T(0);
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const T v = __shfl_sync(0xffffffffu, v_mine, r);
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[c] += h[r][c] * v;
+  }
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) spart[warp * PC + lane + 32 * c] = acc[c];
+  __syncthreads();
+  for (int p = tid; p < P; p += NT) {
+    T m = T(0);
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) m += spart[w * PC + p];
+    msg_out[b * P + p] = m;
+  }
+}
+
+// K3, tiled variant: reads the slab twice (see the header)
+template <typename T>
+__global__ void __launch_bounds__(kThreads) thin_gibbs_tiled_kernel(
     const T* __restrict__ H, const T* __restrict__ prec,
     const T* __restrict__ wpar, const T* __restrict__ z,
     const T* __restrict__ ti, const T* __restrict__ resid,
@@ -103,6 +313,8 @@ __global__ void __launch_bounds__(kThreads) thin_gibbs_kernel(
     hw = warp_sum(hw);
     if (lane == 0) {
       const long long i = b * S + s;
+      // gibbs_row's arithmetic, written out: with the five values loaded
+      // as its arguments this variant measured 10 % slower on an H100
       const T pr = prec[i];
       const T sig = pr + ti[i];
       T wu = (pr * hw + resid[i]) / sig + z[i] / sqrt_(sig);
@@ -138,25 +350,6 @@ template <typename T>
 constexpr size_t decision_smem() {
   return sizeof(T) * (STAGES * TQ * W + STAGES * TQ * LDA + TP + 2 * NR * W +
                       3 * kDecThreads);
-}
-
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
-  // src_size 0 fills the element with zeros and reads nothing, so src may
-  // point past the array there
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? static_cast<int>(sizeof(T)) : 0;
-  if constexpr (sizeof(T) == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 __device__ __forceinline__ void cp_async_wait_ring() {
@@ -362,23 +555,96 @@ __global__ void __launch_bounds__(kDecThreads, sizeof(T) == 4 ? 4 : 1)
   }
 }
 
+// K3's arguments as the C entry points take them
+template <typename T>
+struct GibbsArgs {
+  const T *H, *prec, *wpar, *z, *ti, *resid, *rmask;
+  T *wu, *msg;
+  long long B;
+  int S, P;
+  cudaStream_t stream;
+};
+
+// dynamic shared memory above 48 KB has to be asked for
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Which K3 variant serves (S, P): 0 tiled, 1 flat, 10000 WARPS + 100 RPW +
+// CPL rows.  A pure function of (S, P, T).
+template <typename T>
+int gibbs_variant(int S, int P) {
+  if (P <= kFlatMaxP && S <= kFlatMaxS && S * P <= kFlatMaxN) return 1;
+#define X(W_, R_, C_, M_) \
+  if (S <= W_ * R_ && P <= 32 * C_) return 10000 * W_ + 100 * R_ + C_;
+  if constexpr (sizeof(T) == 4) {
+    GIBBS_ROWS_F32(X)
+  } else {
+    GIBBS_ROWS_F64(X)
+  }
+#undef X
+  return 0;
+}
+
+template <typename T>
+int launch_gibbs_flat(const GibbsArgs<T>& a) {
+  const int vstride = 32 + 6 * a.S + a.S * (a.P | 1);
+  const size_t smem = sizeof(T) * kFlatWarps * vstride;
+  cudaError_t err = allow_smem(thin_gibbs_flat_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned int grid =
+      static_cast<unsigned int>((a.B + kFlatWarps - 1) / kFlatWarps);
+  thin_gibbs_flat_kernel<T><<<grid, 32 * kFlatWarps, smem, a.stream>>>(
+      a.H, a.prec, a.wpar, a.z, a.ti, a.resid, a.rmask, a.wu, a.msg, a.B, a.S,
+      a.P, vstride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int WARPS, int RPW, int CPL, int MINB>
+int launch_gibbs_rows(const GibbsArgs<T>& a) {
+  const size_t smem =
+      sizeof(T) * (32 * CPL + 5 * WARPS * RPW + WARPS * 32 * CPL);
+  cudaError_t err =
+      allow_smem(thin_gibbs_rows_kernel<T, WARPS, RPW, CPL, MINB>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  thin_gibbs_rows_kernel<T, WARPS, RPW, CPL, MINB>
+      <<<static_cast<unsigned int>(a.B), 32 * WARPS, smem, a.stream>>>(
+          a.H, a.prec, a.wpar, a.z, a.ti, a.resid, a.rmask, a.wu, a.msg, a.S,
+          a.P);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_gibbs(const void* H, const void* prec, const void* wpar,
                  const void* z, const void* ti, const void* resid,
                  const void* rmask, void* wu, void* msg, long long B, int S,
                  int P, void* stream) {
+  const GibbsArgs<T> a{
+      static_cast<const T*>(H),     static_cast<const T*>(prec),
+      static_cast<const T*>(wpar),  static_cast<const T*>(z),
+      static_cast<const T*>(ti),    static_cast<const T*>(resid),
+      static_cast<const T*>(rmask), static_cast<T*>(wu),
+      static_cast<T*>(msg),         B, S, P,
+      static_cast<cudaStream_t>(stream)};
+  const int var = gibbs_variant<T>(S, P);
+  if (var == 1) return launch_gibbs_flat<T>(a);
+#define X(W_, R_, C_, M_)                     \
+  if (var == 10000 * W_ + 100 * R_ + C_)      \
+    return launch_gibbs_rows<T, W_, R_, C_, M_>(a);
+  if constexpr (sizeof(T) == 4) {
+    GIBBS_ROWS_F32(X)
+  } else {
+    GIBBS_ROWS_F64(X)
+  }
+#undef X
   const size_t smem = sizeof(T) * (static_cast<size_t>(P) + S);
-  cudaError_t err = cudaFuncSetAttribute(
-      thin_gibbs_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  thin_gibbs_kernel<T><<<static_cast<unsigned int>(B), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(H), static_cast<const T*>(prec),
-      static_cast<const T*>(wpar), static_cast<const T*>(z),
-      static_cast<const T*>(ti), static_cast<const T*>(resid),
-      static_cast<const T*>(rmask), static_cast<T*>(wu), static_cast<T*>(msg),
-      S, P);
+  thin_gibbs_tiled_kernel<T><<<static_cast<unsigned int>(B), kThreads, smem,
+                               a.stream>>>(a.H, a.prec, a.wpar, a.z, a.ti,
+                                           a.resid, a.rmask, a.wu, a.msg, S, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -423,6 +689,15 @@ extern "C" int st_thin_gibbs_f64(const void* H, const void* prec,
                                  long long B, int S, int P, void* stream) {
   return launch_gibbs<double>(H, prec, wpar, z, ti, resid, rmask, wu, msg, B,
                               S, P, stream);
+}
+
+// which K3 variant the launcher takes at (S, P): see gibbs_variant
+extern "C" int st_thin_gibbs_variant_f32(int S, int P) {
+  return gibbs_variant<float>(S, P);
+}
+
+extern "C" int st_thin_gibbs_variant_f64(int S, int P) {
+  return gibbs_variant<double>(S, P);
 }
 
 extern "C" int st_thin_decision_f32(const void* Kxc, const void* joint,

@@ -55,6 +55,23 @@ def _kernel(name: str, dtype):
     return _bound[key]
 
 
+def thin_gibbs_variant(S: int, P: int, dtype=torch.float32) -> str:
+    """The K3 variant the launcher takes at (S, P), as it reports it:
+    ``flat`` (one warp per tree block, the slab in shared memory),
+    ``rows<WARPS>x<RPW>x<CPL>`` (one thread block per tree block, RPW x CPL
+    slab values in each thread's registers) or ``tiled``.  Builds the
+    library at first use."""
+    from spamtree_tpu_torch.ops import _build
+
+    fn = getattr(_build.load("thin_level"),
+                 f"st_thin_gibbs_variant_{_SUFFIX[dtype]}")
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    code = fn(S, P)
+    if code < 2:
+        return ("tiled", "flat")[code]
+    return f"rows{code // 10000}x{code // 100 % 100}x{code % 100}"
+
+
 def _check(fname: str, shapes: dict, dtype, device):
     """Device, dtype, shape and contiguity checks shared by the wrappers;
     ``shapes`` maps an argument name to (tensor, expected shape)."""
@@ -90,7 +107,15 @@ def thin_gibbs_level(H, prec, wpar, z, ti, resid, rmask_f):
     precision; resid (B,S) = ti*(y - XB); rmask_f (B,S) 0/1.  Returns wu
     (B,S) = (prec*hw + resid)/sig + z/sqrt(sig) masked to 0, with hw = H wpar
     and sig = prec + ti, and msg (B,P) = H' prec (wu - hw).  CUDA tensors
-    launch kernel K3; CPU tensors take ``thin_gibbs_level_plain``."""
+    launch kernel K3; CPU tensors take ``thin_gibbs_level_plain``.
+
+    The launcher picks K3's variant from (S, P, dtype) alone
+    (``thin_gibbs_variant``): slabs with P <= 32, S <= 128 and S*P <= 1536
+    sit in one warp's shared memory, eight tree blocks to a thread block
+    (the limited tree's thin levels); slabs up to (72, 320) in float32 or
+    (80, 320) in float64 sit in one thread block's registers (the full
+    tree's thin level); both read H once.  Anything larger, up to the gate,
+    takes the tiled variant, which reads H twice."""
     global LAUNCHES_GIBBS
     if H.device.type == "cpu":
         return thin_gibbs_level_plain(H, prec, wpar, z, ti, resid, rmask_f)

@@ -3,8 +3,9 @@
     python -m spamtree_tpu_torch.utils.profile_step [--config 3] [--iters 20]
         [--ab k1|step]
 
-Run from the repository root (it takes its data from ``bench.py``'s
-makers).  Sets the chain up as ``spamtree`` does, runs warm-up iterations,
+Run from the repository root (it takes its data and the configuration's
+own keywords, such as config 5's ``limited_tree=True``, from ``bench.py``).
+Sets the chain up as ``spamtree`` does, runs warm-up iterations,
 then times runs of ``--iters`` iterations on the host clock (synchronised)
 with the variants of ``--ab`` in turns on the same chain:
 
@@ -20,7 +21,7 @@ Then it traces ``--iters`` iterations of each variant with
 variant (untraced) and every run's, and per variant the device-busy ms per
 iteration summed over the traced kernels, the device idle share (1 - busy /
 untraced ms per iteration), the kernels per iteration, the hand-written
-kernels' ms per iteration (K1 ``inv_chol_kernel``, K3 ``thin_gibbs_kernel``,
+kernels' ms per iteration (K1 ``inv_chol_kernel``, K3 ``thin_gibbs_*_kernel``,
 K4 ``thin_decision_kernel``) and the host time spent in the accept
 decision's ``.item()`` (under the trace); the top-level keys repeat those of
 the first variant (``k1``) or of the accept-aware step with the kernels
@@ -37,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-KERNELS = {"k1": "inv_chol_kernel", "k3": "thin_gibbs_kernel",
+KERNELS = {"k1": "inv_chol_kernel", "k3": "thin_gibbs_",
            "k4": "thin_decision_kernel"}
 
 
@@ -55,9 +56,11 @@ def main():
     from spamtree_tpu_torch.model.core import level_coords, tausq_shape
     from spamtree_tpu_torch.model.mcmc import draw_step, make_step
 
-    y, _, _, X, coords, mv = bench.CONFIGS[args.config]["maker"]()
+    cfg = bench.CONFIGS[args.config]
+    y, _, _, X, coords, mv = cfg["maker"]()
     fit = prepare_fit(y - np.nanmean(y), X, coords, mv_id=mv,
-                      mcmc=dict(keep=1, burn=1, thin=1), device="cuda")
+                      mcmc=dict(keep=1, burn=1, thin=1), device="cuda",
+                      **cfg["kwargs"])
     ms, state = fit.ms, fit.state
     cc = level_coords(ms)
     shape = tausq_shape(ms, fit.cfg.tausq_ab)
@@ -126,7 +129,8 @@ def main():
         r, per_variant[name] = trace(name)
         if name == traced:
             rows = r
-    out = dict(config=args.config, n=ms.n, iters=args.iters, ab=args.ab,
+    out = dict(config=args.config, n=ms.n, limited_tree=ms.limited_tree,
+               iters=args.iters, ab=args.ab,
                traced=traced, **per_variant[traced])
     for name in names:
         out[f"ms_per_iter_{name}"] = float(np.median(ab[name]))

@@ -86,18 +86,26 @@ def test_decision_plain_matches_pallas(case):
                                    for b in range(c["B"])]
 
 
-def _k4_tiling():
-    """K4's tiling as csrc/thin_level.cu declares it (its top-level
-    ``constexpr int`` lines), so that the emulation follows the kernel:
-    TP rows of LAi per row tile, TQ contraction depth per stage, slab width
-    W (up to W - 1 columns of Kxc and u's column)."""
-    src = (Path(level.__file__).resolve().parents[1] / "csrc"
-           / "thin_level.cu").read_text()
+def _cu_source():
+    return (Path(level.__file__).resolve().parents[1] / "csrc"
+            / "thin_level.cu").read_text()
+
+
+def _cu_constants():
+    """The top-level ``constexpr int`` constants of csrc/thin_level.cu."""
     env = {}
-    for decl in re.findall(r"^constexpr int ([^;]+);", src, re.M):
+    for decl in re.findall(r"^constexpr int ([^;]+);", _cu_source(), re.M):
         for part in decl.split(","):
             name, expr = (x.strip() for x in part.split("=", 1))
             env[name] = eval(expr, {"__builtins__": {}}, env)
+    return env
+
+
+def _k4_tiling():
+    """K4's tiling as csrc/thin_level.cu declares it, so that the emulation
+    follows the kernel: TP rows of LAi per row tile, TQ contraction depth
+    per stage, slab width W (up to W - 1 columns of Kxc and u's column)."""
+    env = _cu_constants()
     return env["TP"], env["TQ"], env["W"]
 
 
@@ -189,6 +197,209 @@ def test_gibbs_plain_matches_pallas(B, S, P):
     assert (got[0][1, S - 3:] == 0).all()
 
 
+def _k3_capacities():
+    """The rows variant's capacities as csrc/thin_level.cu lists them,
+    (warps, rows per warp, columns per lane), per type."""
+    src = _cu_source()
+
+    def table(name):
+        line = re.search(rf"^#define {name}\(X\) (.*)$", src, re.M).group(1)
+        return [tuple(int(v) for v in m.split(","))
+                for m in re.findall(r"X\(([^)]*)\)", line)]
+
+    return dict(f32=[c[:3] for c in table("GIBBS_ROWS_F32")],
+                f64=[c[:3] for c in table("GIBBS_ROWS_F64")])
+
+
+K3_CAP = _k3_capacities()
+K3_CONST = _cu_constants()
+
+
+def _k3_variant(S, P, table):
+    """The launcher's choice (gibbs_variant in csrc/thin_level.cu) as
+    (name, capacity); ``table`` is "f32" or "f64"."""
+    if (P <= K3_CONST["kFlatMaxP"] and S <= K3_CONST["kFlatMaxS"]
+            and S * P <= K3_CONST["kFlatMaxN"]):
+        return "flat", None
+    for w, r, c in K3_CAP[table]:
+        if S <= w * r and P <= 32 * c:
+            return f"rows{w}x{r}x{c}", (w, r, c)
+    return "tiled", None
+
+
+def _butterfly(t):
+    """warp_sum: the xor butterfly over the 32 lanes (last axis)."""
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        t = t + t[..., lanes ^ o]
+    return t[..., 0]
+
+
+def _k3_rows_of(hw, d):
+    """gibbs_row: wu and v = prec (wu - hw) of every row."""
+    sig = d["prec"] + d["ti"]
+    wu = (d["prec"] * hw + d["resid"]) / sig + d["z"] / torch.sqrt(sig)
+    wu = torch.where(d["rmask_f"] > 0.5, wu, 0.0)
+    return wu, d["prec"] * (wu - hw)
+
+
+def _k3_emulate_rows(d, cap):
+    """thin_gibbs_rows_kernel: warp w holds rows w, w + WARPS, ..., lane l
+    columns l, l + 32, ...; hw per lane in column order, then the butterfly;
+    msg per thread in row order, then over the warps in warp order."""
+    W, R, C = cap
+    H, wpar = d["H"], d["wpar"]
+    B, S, P = H.shape
+    Hp = torch.zeros(B, W * R, 32 * C, dtype=H.dtype)
+    Hp[:, :S, :P] = H
+    sw = torch.zeros(B, 32 * C, dtype=H.dtype)
+    sw[:, :P] = wpar
+    hw = torch.zeros(B, W * R, dtype=H.dtype)
+    for s in range(W * R):
+        t = torch.zeros(B, 32, dtype=H.dtype)
+        for c in range(C):
+            t = t + Hp[:, s, 32 * c:32 * c + 32] * sw[:, 32 * c:32 * c + 32]
+        hw[:, s] = _butterfly(t)
+    wu, v = _k3_rows_of(hw[:, :S], d)
+    vp = torch.zeros(B, W * R, dtype=H.dtype)
+    vp[:, :S] = v
+    msg = torch.zeros(B, 32 * C, dtype=H.dtype)
+    for w in range(W):
+        acc = torch.zeros(B, 32 * C, dtype=H.dtype)
+        for r in range(R):
+            acc = acc + Hp[:, w + r * W] * vp[:, w + r * W, None]
+        msg = msg + acc
+    return wu, msg[:, :P]
+
+
+def _k3_emulate_flat(d):
+    """thin_gibbs_flat_kernel: lane l copies elements l, l + 32, ... of the
+    flattened slab to (s, p) at row pitch P | 1, stepped as the kernel
+    steps them; rows summed in column order, columns in row order."""
+    H, wpar = d["H"], d["wpar"]
+    B, S, P = H.shape
+    n, PP = S * P, P | 1
+    q32, r32 = divmod(32, P)
+    es, dst = [], []
+    for lane in range(32):
+        s, p = divmod(lane, P)
+        for e in range(lane, n, 32):
+            assert divmod(e, P) == (s, p)
+            es.append(e)
+            dst.append(s * PP + p)
+            s, p = s + q32, p + r32
+            if p >= P:
+                s, p = s + 1, p - P
+    assert sorted(es) == list(range(n))  # every element copied once
+    sH = torch.full((B, S * PP), float("nan"), dtype=H.dtype)
+    sH[:, torch.tensor(dst)] = H.reshape(B, n)[:, torch.tensor(es)]
+    sH = sH.view(B, S, PP)
+    hw = torch.zeros(B, S, dtype=H.dtype)
+    for c in range(P):
+        hw = hw + sH[:, :, c] * wpar[:, None, c]
+    wu, v = _k3_rows_of(hw, d)
+    msg = torch.zeros(B, P, dtype=H.dtype)
+    for s in range(S):
+        msg = msg + sH[:, s, :P] * v[:, s, None]
+    return wu, msg
+
+
+def _k3_emulate_tiled(d):
+    """thin_gibbs_tiled_kernel: a warp per row (lane l sums columns l,
+    l + 32, ..., then the butterfly), then a thread per column in row
+    order."""
+    H, wpar = d["H"], d["wpar"]
+    B, S, P = H.shape
+    nchunk = -(-P // 32)
+    prod = torch.zeros(B, S, 32 * nchunk, dtype=H.dtype)
+    prod[:, :, :P] = H * wpar[:, None, :]
+    t = torch.zeros(B, S, 32, dtype=H.dtype)
+    for c in range(nchunk):
+        t = t + prod[:, :, 32 * c:32 * c + 32]
+    wu, v = _k3_rows_of(_butterfly(t), d)
+    msg = torch.zeros(B, P, dtype=H.dtype)
+    for s in range(S):
+        msg = msg + H[:, s] * v[:, s, None]
+    return wu, msg
+
+
+# (B, S, P, capacity table, the variant the launcher must take)
+K3_CASES = {
+    "config3": (8, 68, 293, "f32", "rows8x9x10"),
+    "config3_f64": (8, 68, 293, "f64", "rows16x5x10"),
+    # bench config 5's four thin levels (n = 1e6, limited tree), B cut
+    "config5_s23": (16, 23, 25, "f32", "flat"),
+    "config5_s29": (16, 29, 25, "f32", "flat"),
+    "config5_s37": (16, 37, 25, "f32", "flat"),
+    "config5_s57": (16, 57, 25, "f32", "flat"),
+    "config1": (16, 18, 69, "f32", "rows8x4x4"),
+    "config1_limited": (16, 18, 19, "f32", "flat"),
+    # both sides of every boundary of the choice
+    "flat_full": (3, 48, 32, "f32", "flat"),
+    "flat_s128": (3, 128, 12, "f32", "flat"),
+    "flat_p32": (3, 25, 32, "f32", "flat"),
+    "flat_over": (3, 49, 32, "f32", "rows8x9x10"),
+    "flat_even_p": (3, 40, 30, "f32", "flat"),
+    "p33": (3, 4, 33, "f32", "rows8x4x4"),
+    "s129": (3, 129, 1, "f32", "tiled"),
+    "rows_a_full": (3, 32, 128, "f32", "rows8x4x4"),
+    "rows_a_over_s": (3, 33, 128, "f32", "rows8x9x10"),
+    "rows_a_over_p": (3, 32, 129, "f32", "rows8x9x10"),
+    "rows_b_full": (3, 72, 320, "f32", "rows8x9x10"),
+    "rows_b_over_s": (3, 73, 320, "f32", "tiled"),
+    "rows_b_over_p": (3, 72, 321, "f32", "tiled"),
+    "rows_f64_full": (3, 80, 320, "f64", "rows16x5x10"),
+    "rows_f64_over": (3, 81, 320, "f64", "tiled"),
+    "s1": (4, 1, 293, "f32", "rows8x9x10"),
+    "p1": (4, 68, 1, "f32", "flat"),
+    "s1_p1": (4, 1, 1, "f32", "flat"),
+    "gate_edge": (2, 512, 1024, "f32", "tiled"),
+}
+
+
+def _gibbs_inputs(seed, B, S, P):
+    """Random K3 inputs (float64 tensors): wpar gathered from fewer parents
+    through a shuffled, repeating lp_pos, masked rows in two blocks and one
+    block masked whole."""
+    rng = np.random.default_rng(seed)
+    Bp = max(1, B // 2)
+    lp_pos = rng.integers(0, Bp, B)
+    rmask = np.ones((B, S))
+    rmask[min(1, B - 1), S // 2:] = 0.0
+    rmask[B - 1, ::3] = 0.0
+    if B > 2:
+        rmask[2] = 0.0
+    d = dict(H=rng.normal(size=(B, S, P)) / np.sqrt(P),
+             prec=rng.uniform(0.5, 2.0, size=(B, S)),
+             wpar=rng.normal(size=(Bp, P))[lp_pos],
+             z=rng.normal(size=(B, S)), ti=rng.uniform(2.0, 5.0, size=(B, S)),
+             resid=rng.normal(size=(B, S)), rmask_f=rmask)
+    return {k: _t(v) for k, v in d.items()}
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_gibbs_schedule_matches_plain(case):
+    """Each K3 variant's ownership map and summation order, step by step in
+    float64, against the plain version (rtol 1e-12 of the largest value:
+    another summation order); masked rows come out exactly 0."""
+    B, S, P, table, want = K3_CASES[case]
+    name, cap = _k3_variant(S, P, table)
+    assert name == want
+    d = _gibbs_inputs(len(case), B, S, P)
+    if name == "flat":
+        got = _k3_emulate_flat(d)
+    elif name.startswith("rows"):
+        got = _k3_emulate_rows(d, cap)
+    else:
+        got = _k3_emulate_tiled(d)
+    ref = level.thin_gibbs_level_plain(**d)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-12,
+                                   atol=1e-12 * float(r.abs().max()))
+    assert (got[0][d["rmask_f"] <= 0.5] == 0).all()
+    assert (got[0][d["rmask_f"] > 0.5] != 0).all()
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     # the checks run before any device work: meta tensors reach them
     m = dict(device="meta", dtype=torch.float32)
@@ -248,10 +459,12 @@ def test_apply_parts_thin_matches_jax():
                                        atol=1e-12)
 
 
-def _models(limited, align_min_p=128, n_loc=220, seed=3):
+def _models(limited, align_min_p=128, n_loc=220, seed=3, imbalance=None):
     """JAX and port models of one bivariate dataset (tests/test_pallas_level
     .py's, with ``align_min_p=1`` optional so that composed parts activate,
-    as tests/test_composed_sweep.py)."""
+    as tests/test_composed_sweep.py).  ``imbalance=(f0, f1)`` instead gives
+    bench config 5's kind of data (bench.make_multivariate's): each margin
+    its own uniform locations, 2 n_loc f_j of them."""
     import jax.numpy as jnp
     from spamtree_tpu.model import core as cj
     from spamtree_tpu.model import params as pj
@@ -260,8 +473,13 @@ def _models(limited, align_min_p=128, n_loc=220, seed=3):
         build_schedule as build_schedule_jax)
 
     rng = np.random.default_rng(seed)
-    coords = np.repeat(rng.uniform(size=(n_loc, 2)), 2, axis=0)
-    mv = np.tile(np.arange(2), n_loc)
+    if imbalance is None:
+        coords = np.repeat(rng.uniform(size=(n_loc, 2)), 2, axis=0)
+        mv = np.tile(np.arange(2), n_loc)
+    else:
+        nj = [int(2 * n_loc * f) for f in imbalance]
+        coords = rng.uniform(size=(sum(nj), 2))
+        mv = np.repeat(np.arange(2), nj)
     n = len(coords)
     order = np.lexsort((np.arange(n), coords[:, 1], coords[:, 0]))
     coords, mv = coords[order], mv[order]
@@ -291,14 +509,29 @@ def _ld_t(ld):
     return tuple(ct.LevelData(_t(d.H), _t(d.prec)) for d in ld)
 
 
-@pytest.fixture(scope="module", params=["full", "limited"])
+@pytest.fixture(scope="module", params=["full", "limited", "config5"])
 def tree(request):
+    """``config5``: bench config 5's structure at n = 2000 -- imbalanced
+    margins on a limited tree, four reference levels, several unaligned
+    thin levels on one parent level, several prediction buckets."""
     import jax
     import jax.numpy as jnp
     from spamtree_tpu.model import core as cj
 
-    limited = request.param == "limited"
-    ms_j, ms_t, spec, rng = _models(limited, align_min_p=1)
+    limited = request.param != "full"
+    if request.param == "config5":
+        ms_j, ms_t, spec, rng = _models(True, n_loc=1000, seed=0,
+                                        imbalance=(0.8, 0.2))
+        thin = [t for t in range(len(ms_t.levels)) if not ms_t.level_is_ref[t]]
+        assert len(thin) >= 3 and len(ms_t.pred_arrays) >= 2
+        assert len({ms_t.level_lp[t] for t in thin}) == 1
+        assert not any(ms_t.level_aligned[t] for t in thin)
+        assert set(ms_t.level_chunks) == {1}
+        # the prediction operators stay in the carried state, as at n = 1e6
+        # (12 MB there against the 256 MB threshold)
+        assert ms_t.pred_in_carry and ms_j.pred_in_carry
+    else:
+        ms_j, ms_t, spec, rng = _models(limited, align_min_p=1)
     assert ms_t.limited_tree == limited
     for f in ("serves_as_sweep_parent", "joint_pad", "level_aligned"):
         assert getattr(ms_t, f) == getattr(ms_j, f), f
@@ -382,13 +615,16 @@ def test_gibbs_w_thin_kernel_matches_jax(tree, monkeypatch):
     calls = _spy(monkeypatch, "thin_gibbs_level")
     got = ct.gibbs_w(ms_t, ld_t, _t(w), _t(ti), _t(XB), _t(z), gram=gram[0],
                      routed=gram[1])
-    assert calls
+    n_thin = sum(1 for t in range(len(ms_t.levels))
+                 if not ms_t.level_is_ref[t]
+                 and ms_t.levels[t].prows.shape[1] > 0)
+    assert len(calls) == n_thin  # K3's hook on every thin level
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-9,
                                atol=1e-9 * float(np.abs(ref).max()))
     monkeypatch.setenv("SPAMTREE_LEVEL_KERNELS", "0")
     plain = ct.gibbs_w(ms_t, ld_t, _t(w), _t(ti), _t(XB), _t(z), gram=gram[0],
                        routed=gram[1])
-    assert len(calls) == 1
+    assert len(calls) == n_thin
     np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-11,
                                atol=1e-12)
 
@@ -431,3 +667,27 @@ def test_kernels_match_plain_on_card():
         torch.cuda.synchronize()
         for k, p in ((wk, wp), (mk, mp)):
             assert ((k - p).abs() <= tol * p.abs().clamp(min=1)).all()
+
+
+@pytest.mark.cuda
+def test_gibbs_variants_on_card():
+    """K3 at every case of the schedule test, f32 and f64: the launcher's
+    choice is the one this file derives from the source, the kernel agrees
+    with the plain version, and two runs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    for case, (B, S, P, _, _) in sorted(K3_CASES.items()):
+        for dtype, table, tol in ((torch.float32, "f32", 1e-4),
+                                  (torch.float64, "f64", 1e-10)):
+            assert (level.thin_gibbs_variant(S, P, dtype)
+                    == _k3_variant(S, P, table)[0]), (case, dtype)
+            d = {k: v.to(device="cuda", dtype=dtype)
+                 for k, v in _gibbs_inputs(len(case), B, S, P).items()}
+            got = level.thin_gibbs_level(**d)
+            again = level.thin_gibbs_level(**d)
+            ref = level.thin_gibbs_level_plain(**d)
+            torch.cuda.synchronize()
+            for g, a, r in zip(got, again, ref):
+                assert torch.equal(g, a), (case, dtype)
+                assert ((g - r).abs() <= tol * r.abs().clamp(min=1)).all(), (
+                    case, dtype)
