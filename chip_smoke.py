@@ -9,9 +9,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 2. builds the kernels with nvcc for sm_90a, one nvcc per source, started
    together: K1 (csrc/inv_chol.cu) and K3/K4 (csrc/thin_level.cu); prints
    each kernel's registers, shared memory and spills;
-3. holds K1 against its plain PyTorch version at the main path's shapes and
-   more, f32 and f64, with and without L, each batch also with one non-SPD
-   block that must come out ok=False; times both at the config-3 shapes,
+3. holds K1 against its plain PyTorch version at config 3's and config 5's
+   reference-level shapes (B up to 16384 at S = 25) and more, f32 and f64,
+   with and without L, each batch also with one non-SPD block that must
+   come out ok=False; times both at the config-3 shapes,
    Linv alone (K1) and with L (the TPU's K2);
 4. runs spamtree(device="cuda") on bench config 1 (n=625) at its full
    keep=1000, burn=1000, thin=2 (the always-emit theta step);
@@ -21,10 +22,11 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    reference level with S <= 64;
 6. holds K3 (thin_gibbs) and K4 (thin_decision) against their plain
    versions, f32 and f64, at config 3's thin level (aligned), config 1's
-   (through lp_pos, repeated and shuffled parents, Bp != B), P=128 and
-   P=384 (the TPU's K5 layouts) and the gate's edge (S=512, P=1024), each
-   with a partly masked block, with and without a block forced to r <= 0
-   that both versions must flag ok=False; times both at config 3's shape,
+   (through lp_pos, repeated and shuffled parents, Bp != B), config 5's
+   four thin levels through lp_pos on its 16384 parents, P=128 and P=384
+   (the TPU's K5 layouts) and the gate's edge (S=512, P=1024), each with
+   a partly masked block, with and without a block forced to r <= 0 that
+   both versions must flag ok=False; times both at config 3's shape,
    K4 also at P=128 and P=384 with config 3's B (K5's layouts), and times
    the cuBLAS product LAi Kxc alone at config 3's shape, the yardstick of
    K4's product.  K3 also at config 5's four thin levels, wpar gathered
@@ -32,7 +34,7 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    kernel (its launcher picks a variant from S, P and the type; the variant
    is printed), each run twice to the same bits; K1, K3 and K4 are timed at
    config 5's shapes too, K3 and K4 over rotating inputs larger than the
-   L2 cache;
+   L2 cache, K3 also in f64 where its two rows capacities serve;
 7. the accept-aware theta step (MCMCConfig(accept_aware=True)) with the
    fused level kernels on (SPAMTREE_LEVEL_KERNELS=1): config 1 (keep=500,
    burn=500, thin=2), config 3 with composed factor parts on (the default)
@@ -47,7 +49,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    through spamtree().  Every level must run in one chunk; K3 launches on
    each of the four thin levels of every iteration, K4 and K1 launch; the
    record line carries every level's (B, S, P).  The kernels record takes
-   its launch counts from the accept-aware run.
+   its launch counts from the accept-aware run, and its ms, bound and
+   max_abs_err from the checks and timings at this run's level shapes;
+   config 3's stand beside them as *_config3.
 
 Kernel and plain times (the kernels record's ms and plain_ms) are CUDA
 events around eager calls of the wrappers the sweeps call, host time
@@ -77,25 +81,31 @@ import numpy as np
 
 # config-3 reference levels: (B, S) of each level's Cholesky batch
 CONFIG3_SHAPES = [(1, 50), (4, 49), (16, 50), (64, 50), (256, 50), (1024, 47)]
-CHECK_SHAPES = CONFIG3_SHAPES + [(1024, 64), (3, 7), (130, 33)]
 CONFIG3_THIN = (1024, 68, 293)  # config 3's thin level (B, S, P)
 # config 5: (B, S) of the reference levels, (B, S, P) of the thin levels,
 # which all hang on the deepest reference level through lp_pos
 CONFIG5_SHAPES = [(4 ** k, 25) for k in range(8)]
 CONFIG5_THIN = [(6235, 23, 25), (5917, 29, 25), (3678, 37, 25), (554, 57, 25)]
+CHECK_SHAPES = (CONFIG3_SHAPES + CONFIG5_SHAPES
+                + [(1024, 64), (3, 7), (130, 33)])
 # K3 once more per variant of its launcher (B, S, P): the flat variant at
 # its gate's edges, both rows capacities, the tiled variant past them
 K3_VARIANT_SHAPES = [(64, 48, 32), (64, 128, 12), (64, 1, 1), (64, 32, 128),
                      (64, 72, 320), (64, 73, 320), (64, 129, 3)]
 # K3's timed shapes beside config 5's (the flat variant): config 3's (rows,
-# the larger capacity), the smaller rows capacity and the tiled variant
-K3_TIME_SHAPES = [CONFIG3_THIN, (1024, 32, 128), (1024, 73, 320)]
+# the larger capacity), the smaller rows capacity at its edge and at config
+# 1's thin level, and the tiled variant
+K3_TIME_SHAPES = [CONFIG3_THIN, (1024, 32, 128), (16, 18, 69),
+                  (1024, 73, 320)]
 L2_BYTES = 50e6
 TOL = {"float32": 1e-4, "float64": 1e-10}  # max|dLinv| <= TOL * max|Linv|
 # the published H100 SXM peaks that bound a kernel: device memory rate and
 # the FP32 rate outside the tensor cores (TF32 is barred by the package)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_FP64_S = 34e12
+# K3 in float64, timed where its two rows capacities serve
+K3_TIME_SHAPES_F64 = [(1024, 32, 128), CONFIG3_THIN]
 
 
 def _phase(name):
@@ -122,10 +132,10 @@ def _env(**kv):
                 os.environ[k] = v
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, peak_flops=PEAK_FP32_S):
     """(ms, what bounds it): the larger of bytes over the memory rate and
-    FP32 operations over the FP32 rate."""
-    tb, tf = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_FP32_S
+    operations over their type's rate (FP32 unless given)."""
+    tb, tf = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / peak_flops
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -220,9 +230,10 @@ def _spd_batch(torch, B, S, dtype, seed):
 
 
 def check_kernel(chol, torch):
-    """K1 against inv_chol_plain; returns the largest f32 |dLinv| at the
-    main path's shapes."""
-    max_err32 = 0.0
+    """K1 against inv_chol_plain; returns the largest f32 |dLinv| at
+    config 5's and at config 3's reference-level shapes."""
+    paths = {"config5": CONFIG5_SHAPES, "config3": CONFIG3_SHAPES}
+    max_err32 = {k: 0.0 for k in paths}
     for dname in ("float32", "float64"):
         dtype = getattr(torch, dname)
         for B, S in CHECK_SHAPES:
@@ -260,11 +271,13 @@ def check_kernel(chol, torch):
                         _check(err <= TOL[dname] * scale,
                                f"K1 {what} disagrees: {dname} B={B} S={S} "
                                f"write_l={write_l} err={err} scale={scale}")
-                        if (dname == "float32" and what == "Linv"
-                                and (B, S) in CONFIG3_SHAPES):
-                            max_err32 = max(max_err32, err)
+                        if dname == "float32" and what == "Linv":
+                            for k, shapes in paths.items():
+                                if (B, S) in shapes:
+                                    max_err32[k] = max(max_err32[k], err)
             print(f"K1 ok {dname} B={B} S={S}", flush=True)
-    print(f"K1 max |dLinv| f32 at config-3 shapes: {max_err32:.3e}")
+    print("K1 max |dLinv| f32 at " + ", ".join(
+        f"{k}'s shapes: {v:.3e}" for k, v in max_err32.items()))
     return max_err32
 
 
@@ -433,7 +446,10 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
 
 def _level_inputs(torch, dtype, B, S, P, Bp, seed, bad):
     """K3 and K4 inputs at realistic magnitudes (M = LAi Kxc ~ N(0, 1),
-    hk ~ P, kdiag in (2.5 P, 4 P)): block 1 partly masked; with ``bad``
+    hk = sum_p M^2 ~ P with a heavy upper tail, kdiag = hk + (1.5 P, 3 P),
+    so that r = kdiag - hk > 0 on every row of the largest batch at small P
+    too, as on the model's path where the joint is a factor of the
+    covariance that kdiag comes from): block 1 partly masked; with ``bad``
     block B-1 gets kdiag < 0, so r <= 0 there and its ok flag must be 0."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     kw = dict(generator=g, device="cuda", dtype=dtype)
@@ -450,8 +466,9 @@ def _level_inputs(torch, dtype, B, S, P, Bp, seed, bad):
                lp_pos=lp_pos, wpar=torch.randn(B, P, **kw),
                w_r=torch.randn(B, S, **kw),
                prevH=torch.randn(B, S, P, **kw) / P ** 0.5,
-               prevprec=unif(0.5, 2.0, B, S), kdiag=unif(2.5, 4.0, B, S) * P,
-               rmask_f=rmask)
+               prevprec=unif(0.5, 2.0, B, S), rmask_f=rmask)
+    M = dec["joint"][lp_pos] @ dec["Kxc"]
+    dec["kdiag"] = torch.sum(M * M, dim=1) + unif(1.5, 3.0, B, S) * P
     if bad:
         dec["kdiag"][B - 1] = -1.0
     gib = dict(H=torch.randn(B, S, P, **kw) / P ** 0.5,
@@ -466,13 +483,16 @@ def _close(k, p, tol):
 
 
 def check_level_kernels(level, torch, thin3):
-    """K3 and K4 against their plain versions; returns the largest f32
-    |d| at config 3's shape of each (wu/msg; the per-block partials)."""
+    """K3 and K4 against their plain versions, at config 5's four thin
+    levels through lp_pos on its 16384 parents among the cases; returns the
+    largest f32 |d| of each (wu/msg; the per-block partials) at config 5's
+    levels and at config 3's, {"config5": {"k3", "k4"}, "config3": ...}."""
     B3, S3, P3 = thin3
     cases = [("config3", B3, S3, P3, None), ("config1", 16, 18, 69, 12),
              ("p128", 64, 68, 128, None), ("p384", 64, 68, 384, None),
              ("edge", 8, 512, 1024, None)]
-    err = {"k3": 0.0, "k4": 0.0}
+    cases += [("config5", *shp, CONFIG5_SHAPES[-1][0]) for shp in CONFIG5_THIN]
+    err = {path: {"k3": 0.0, "k4": 0.0} for path in ("config5", "config3")}
     for dname in ("float32", "float64"):
         dtype, tol = getattr(torch, dname), TOL[dname]
         for name, B, S, P, Bp in cases:
@@ -501,13 +521,16 @@ def check_level_kernels(level, torch, thin3):
                 _check(_close(wk, wp, tol) and _close(mk, mp, tol),
                        f"K3 disagrees: {what}")
                 _check(bool((wk[1, S // 2:] == 0).all()), f"K3 mask: {what}")
-                if dname == "float32" and name == "config3":
-                    err["k4"] = max(err["k4"], float((pk - pp).abs().max()))
-                    err["k3"] = max(err["k3"], float((wk - wp).abs().max()),
-                                    float((mk - mp).abs().max()))
-            print(f"K3/K4 ok {dname} {name} B={B} S={S} P={P}", flush=True)
-    print(f"K3 max |d| f32 at config 3: {err['k3']:.3e}; "
-          f"K4 max |d partials| f32 at config 3: {err['k4']:.3e}")
+                if dname == "float32" and name in err:
+                    e = err[name]
+                    e["k4"] = max(e["k4"], float((pk - pp).abs().max()))
+                    e["k3"] = max(e["k3"], float((wk - wp).abs().max()),
+                                  float((mk - mp).abs().max()))
+            print(f"K3/K4 ok {dname} {name} B={B} S={S} P={P} Bp={Bp}",
+                  flush=True)
+    for path, e in err.items():
+        print(f"K3 max |d| f32 at {path}: {e['k3']:.3e}; "
+              f"K4 max |d partials| f32 at {path}: {e['k4']:.3e}")
     return err
 
 
@@ -610,15 +633,18 @@ def check_gibbs_shapes(level, torch):
 
 
 def _time_shapes(torch, kname, label, shapes, make, fns, bound, note=None,
-                 reps=20):
+                 reps=20, f64=False):
     """Time a level kernel and its plain version at each (B, S, P) of
-    ``shapes``, f32: CUDA events around eager wrapper calls and the device
+    ``shapes``, f32 (or f64, as ``make`` makes them): CUDA events around
+    eager wrapper calls and the device
     ms of the same calls in a CUDA graph.  The calls take ``make(shape,
     seed)``'s input sets in turn, enough of them that a pass over them
     exceeds the L2 cache: the sweeps find these arrays cold (H was written
     at the last accepted proposal).  ``bound(shape, inputs)`` gives the
-    bytes and flops of one call.  Returns the sums over the shapes."""
+    bytes and flops of one call.  Returns the sums over the shapes, and
+    what bounds them ("bytes" if every shape is)."""
     tot = dict(ms=0.0, dev=0.0, plain=0.0, plain_dev=0.0, bound=0.0)
+    bys = set()
     for shp in shapes:
         sets = [make(shp, 0)]
         nbytes, flops = bound(shp, sets[0])
@@ -633,11 +659,14 @@ def _time_shapes(torch, kname, label, shapes, make, fns, bound, note=None,
         f = {k: (lambda fn=fn: fn(**nxt())) for k, fn in fns.items()}
         k, pl = _event_times(torch, f, reps)
         gk, gp = (_graph_ms(torch, f[n], reps) for n in ("kernel", "plain"))
-        bd, by = _bound(nbytes, flops)
+        bd, by = _bound(nbytes, flops,
+                        PEAK_FP64_S if f64 else PEAK_FP32_S)
+        bys.add(by)
         for key, v in zip(tot, (k, gk, pl, gp, bd)):
             tot[key] += v
         B, S, P = shp
-        print(f"{kname} time {label} B={B} S={S} P={P} f32"
+        print(f"{kname} time {label} B={B} S={S} P={P} "
+              f"{'f64' if f64 else 'f32'}"
               f"{note(shp) if note else ''} ({nsets} input sets): kernel "
               f"{k:.4f} ms, plain {pl:.4f} ms, bound {bd:.4f} ms ({by}); "
               f"device time in a CUDA graph: kernel {gk:.4f} ms, plain "
@@ -646,24 +675,26 @@ def _time_shapes(torch, kname, label, shapes, make, fns, bound, note=None,
           f"{tot['ms']:.4f} ms, plain {tot['plain']:.4f} ms, bound "
           f"{tot['bound']:.4f} ms; device time in a CUDA graph: kernel "
           f"{tot['dev']:.4f} ms, plain {tot['plain_dev']:.4f} ms")
+    tot["by"] = "bytes" if bys == {"bytes"} else "operations"
     return tot
 
 
-def time_gibbs_shapes(level, torch, shapes, label, Bp=None):
+def time_gibbs_shapes(level, torch, shapes, label, Bp=None, f64=False):
     """K3 at ``shapes``, with the variant its launcher takes at each.  The
     bound counts H, wpar and msg (B, P), and the five input vectors and wu
     (B, S), each once, and 4 B S P flops."""
+    dtype = torch.float64 if f64 else torch.float32
     return _time_shapes(
         torch, "K3", label, shapes,
-        lambda shp, seed: _gibbs_inputs(torch, torch.float32, *shp, seed=seed,
-                                        Bp=Bp),
+        lambda shp, seed: _gibbs_inputs(torch, dtype, *shp, seed=seed, Bp=Bp),
         {"kernel": level.thin_gibbs_level,
          "plain": level.thin_gibbs_level_plain},
-        lambda shp, _: (4 * (shp[0] * shp[1] * shp[2] + 6 * shp[0] * shp[1]
-                             + 2 * shp[0] * shp[2]),
+        lambda shp, _: (dtype.itemsize * (shp[0] * shp[1] * shp[2]
+                                          + 6 * shp[0] * shp[1]
+                                          + 2 * shp[0] * shp[2]),
                         4 * shp[0] * shp[1] * shp[2]),
-        note=lambda shp: " variant "
-        + _variant(level, shp[1], shp[2], torch.float32))
+        note=lambda shp: " variant " + _variant(level, shp[1], shp[2], dtype),
+        f64=f64)
 
 
 def time_decision_shapes(level, torch, shapes, Bp, label):
@@ -689,13 +720,15 @@ def time_decision_shapes(level, torch, shapes, Bp, label):
 
 def time_config5_kernels(chol, level, torch):
     """K1, K3 and K4 at config 5's level shapes; K3 also at config 3's and
-    at one shape of each other variant, over rotating inputs like the
-    others."""
+    at one shape of each other variant, and in f64 at both rows capacities,
+    over rotating inputs like the others."""
     Bp = CONFIG5_SHAPES[-1][0]
     return dict(
         k1=time_kernel(chol, torch, shapes=CONFIG5_SHAPES, label="config-5"),
         k3_variants=time_gibbs_shapes(level, torch, K3_TIME_SHAPES,
                                       "config-3 and per-variant"),
+        k3_f64=time_gibbs_shapes(level, torch, K3_TIME_SHAPES_F64,
+                                 "rows capacities", f64=True),
         k3=time_gibbs_shapes(level, torch, CONFIG5_THIN, "config-5", Bp=Bp),
         k4=time_decision_shapes(level, torch, CONFIG5_THIN, Bp, "config-5"))
 
@@ -769,49 +802,53 @@ def main() -> int:
     _phase("config 5, limited tree, always-emit")
     run_config(bench, chol, level, torch, 5, **kw5)
 
-    k1_bound = sum(r[4][0] for r in rows)
-    print(json.dumps({"kernels": [{
-        "name": "inv_chol",
-        "route": "cuda",
-        "source": "spamtree_tpu_torch/csrc/inv_chol.cu",
-        "replaces": "spamtree_tpu/ops/pallas_chol.py:107",
-        # from config 5's accept-aware run; config 3's always-emit beside it
-        "launches": a5["k1_launches"],
-        "launches_config3": r3["k1_launches"],
-        # one call at each config-5 reference-level shape, summed
-        "ms_config5": sum(r[2] for r in t5["k1"]),
-        "plain_ms_config5": sum(r[3] for r in t5["k1"]),
-        "bound_ms_config5": sum(r[4][0] for r in t5["k1"]),
-        "max_abs_err": max_err,
-        # one call at each config-3 reference-level shape, summed
-        "ms": sum(r[2] for r in rows),
-        "plain_ms": sum(r[3] for r in rows),
-        "bound_ms": k1_bound,
-        "bound_by": ("bytes" if all(r[4][1] == "bytes" for r in rows)
-                     else "operations"),
-        "library_ms": None,
-    }] + [{
-        "name": name,
-        "route": "cuda",
-        "source": "spamtree_tpu_torch/csrc/thin_level.cu",
-        "replaces": replaces,
-        # from config 5's accept-aware run; beside it config 3's without
-        # composed factors, and the kernel's ms summed over config 5's four
-        # thin levels (ms, plain_ms and bound_ms are at config 3's level)
-        "launches": a5[f"{key}_launches"],
-        "launches_config3": a3[f"{key}_launches"],
-        "ms_config5": t5[key]["ms"],
-        "plain_ms_config5": t5[key]["plain"],
-        "bound_ms_config5": t5[key]["bound"],
-        "max_abs_err": lerr[key],
-        "ms": ltimes[key][0],
-        "plain_ms": ltimes[key][1],
-        "bound_ms": ltimes[key][2][0],
-        "bound_by": ltimes[key][2][1],
-        "library_ms": None,
-    } for name, key, replaces in (
-        ("thin_gibbs", "k3", "spamtree_tpu/ops/pallas_level.py:306"),
-        ("thin_decision", "k4", "spamtree_tpu/ops/pallas_level.py:186"))]}))
+    # One entry per kernel.  launches, ms, plain_ms, bound_ms, bound_by and
+    # max_abs_err belong to one path, config 5's accept-aware run: ms is the
+    # mean over that path's levels of one eager call at the level's shape
+    # (each level launches its kernel equally often, so launches x ms is the
+    # run's time in the kernel), and likewise plain_ms and bound_ms.  The
+    # same for config 3's path stands beside them as *_config3 (K1's launches
+    # from the always-emit run, K3's and K4's from the accept-aware run
+    # without composed factors; at (1024, 68, 293) the yardstick of the
+    # earlier records).
+    def k1_path(rs):
+        n = len(rs)
+        return dict(ms=sum(r[2] for r in rs) / n,
+                    plain_ms=sum(r[3] for r in rs) / n,
+                    bound_ms=sum(r[4][0] for r in rs) / n,
+                    bound_by=("bytes" if all(r[4][1] == "bytes" for r in rs)
+                              else "operations"))
+
+    def level_path5(key):
+        t, n = t5[key], len(CONFIG5_THIN)
+        return dict(ms=t["ms"] / n, plain_ms=t["plain"] / n,
+                    bound_ms=t["bound"] / n, bound_by=t["by"])
+
+    def level_path3(key):
+        k, pl, (bd, by) = ltimes[key][:3]
+        return dict(ms=k, plain_ms=pl, bound_ms=bd, bound_by=by)
+
+    def entry(name, source, replaces, launches5, launches3, err5, err3,
+              path5, path3):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    path="config5", launches=launches5, max_abs_err=err5,
+                    **path5, library_ms=None, launches_config3=launches3,
+                    max_abs_err_config3=err3,
+                    **{f"{k}_config3": v for k, v in path3.items()})
+
+    level_src = "spamtree_tpu_torch/csrc/thin_level.cu"
+    print(json.dumps({"kernels": [entry(
+        "inv_chol", "spamtree_tpu_torch/csrc/inv_chol.cu",
+        "spamtree_tpu/ops/pallas_chol.py:107", a5["k1_launches"],
+        r3["k1_launches"], max_err["config5"], max_err["config3"],
+        k1_path(t5["k1"]), k1_path(rows))] + [entry(
+            name, level_src, replaces, a5[f"{key}_launches"],
+            a3[f"{key}_launches"], lerr["config5"][key], lerr["config3"][key],
+            level_path5(key), level_path3(key))
+        for name, key, replaces in (
+            ("thin_gibbs", "k3", "spamtree_tpu/ops/pallas_level.py:306"),
+            ("thin_decision", "k4", "spamtree_tpu/ops/pallas_level.py:186"))
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

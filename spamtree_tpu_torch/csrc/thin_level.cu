@@ -31,11 +31,17 @@
 //   summed per lane in column order, then a warp butterfly; lane r of the
 //   warp makes wu and v of the warp's r-th row and broadcasts v by shuffle;
 //   msg[p] is each thread's sum over its rows in row order, then the warps'
-//   sums through shared memory in warp order.
+//   sums through shared memory in warp order.  The smaller capacity is
+//   there because it measured faster on an H100 where both hold the slab:
+//   in float 0.0099 ms against 0.0157 at (1024, 32, 128) and 0.0030 against
+//   0.0039 at (16, 18, 69), bench config 1's thin level; in double 0.0157
+//   against 0.0309 at (1024, 32, 128) (device time).
 // * tiled (thin_gibbs_tiled_kernel): any S <= 512, P <= 1024 beyond those
 //   capacities.  One thread block per tree block, pass 1 a warp per row
 //   against wpar in shared memory, pass 2 a thread per column: it reads the
-//   slab twice, the second time mostly from L2.
+//   slab twice, the second time mostly from L2.  It is there for the
+//   wrapper's contract (the TPU kernel's gate); no bench configuration has
+//   a thin level beyond (72, 320).
 // In the resident variants every load of H is issued before the first use
 // and wpar and the five (B, S) vectors are staged coalesced by cp.async; in
 // the rows variant all register indices are static (loops unrolled over the
@@ -565,13 +571,24 @@ struct GibbsArgs {
   cudaStream_t stream;
 };
 
-// dynamic shared memory above 48 KB has to be asked for
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
+// Dynamic shared memory above 48 KB has to be asked for: once per kernel
+// and device, and again only for more than the most asked for so far (the
+// attribute is the device's; a race between host threads sets it twice).
+constexpr int kMaxDevices = 64;
+
+template <auto Kernel>
+cudaError_t allow_smem(size_t smem) {
+  static size_t allowed[kMaxDevices];  // 0: the 48 KB every kernel may take
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && smem <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = smem;
+  return err;
 }
 
 // Which K3 variant serves (S, P): 0 tiled, 1 flat, 10000 WARPS + 100 RPW +
@@ -594,7 +611,7 @@ template <typename T>
 int launch_gibbs_flat(const GibbsArgs<T>& a) {
   const int vstride = 32 + 6 * a.S + a.S * (a.P | 1);
   const size_t smem = sizeof(T) * kFlatWarps * vstride;
-  cudaError_t err = allow_smem(thin_gibbs_flat_kernel<T>, smem);
+  cudaError_t err = allow_smem<thin_gibbs_flat_kernel<T>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned int grid =
       static_cast<unsigned int>((a.B + kFlatWarps - 1) / kFlatWarps);
@@ -609,7 +626,7 @@ int launch_gibbs_rows(const GibbsArgs<T>& a) {
   const size_t smem =
       sizeof(T) * (32 * CPL + 5 * WARPS * RPW + WARPS * 32 * CPL);
   cudaError_t err =
-      allow_smem(thin_gibbs_rows_kernel<T, WARPS, RPW, CPL, MINB>, smem);
+      allow_smem<thin_gibbs_rows_kernel<T, WARPS, RPW, CPL, MINB>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   thin_gibbs_rows_kernel<T, WARPS, RPW, CPL, MINB>
       <<<static_cast<unsigned int>(a.B), 32 * WARPS, smem, a.stream>>>(
@@ -654,9 +671,7 @@ int launch_decision(const void* Kxc, const void* joint, const void* lp_pos,
                     const void* prevprec, const void* kdiag, const void* rmask,
                     void* part, long long B, int S, int P, void* stream) {
   const size_t smem = decision_smem<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      thin_decision_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = allow_smem<thin_decision_kernel<T>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   thin_decision_kernel<T><<<static_cast<unsigned int>(B), kDecThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(

@@ -381,7 +381,11 @@ def _gibbs_inputs(seed, B, S, P):
 def test_gibbs_schedule_matches_plain(case):
     """Each K3 variant's ownership map and summation order, step by step in
     float64, against the plain version (rtol 1e-12 of the largest value:
-    another summation order); masked rows come out exactly 0."""
+    another summation order); masked rows come out exactly 0.  This checks
+    the schedule's algebra and the launcher's choice as this file derives
+    them from the source's constants, not the compiled kernel:
+    ``test_gibbs_variants_on_card`` holds the shipped code to the same
+    cases."""
     B, S, P, table, want = K3_CASES[case]
     name, cap = _k3_variant(S, P, table)
     assert name == want
