@@ -46,12 +46,32 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 8. config 5 (n=1e6, bivariate, imbalanced margins, limited tree, chunk=50)
    at its own keep=200, burn=300, thin=1: the accept-aware step with the
    level kernels through prepare_fit / run_mcmc, then the always-emit step
-   through spamtree().  Every level must run in one chunk; K3 launches on
-   each of the four thin levels of every iteration, K4 and K1 launch; the
-   record line carries every level's (B, S, P).  The kernels record takes
-   its launch counts from the accept-aware run, and its ms, bound and
-   max_abs_err from the checks and timings at this run's level shapes;
-   config 3's stand beside them as *_config3.
+   through spamtree() with the pipelined drain.  Every level must run in
+   one chunk; K3 launches on each of the four thin levels of every
+   iteration, K4 and K1 launch; the record line carries every level's (B,
+   S, P).  The kernels record takes its launch counts from the
+   accept-aware run, and its ms, bound and max_abs_err from the checks and
+   timings at this run's level shapes; config 3's stand beside them as
+   *_config3;
+9. config 5 with collect="summary", summary_draws=20 (always-emit): 200
+   draws summed on the device, 20 kept; phase 5's checks on yhat_mean;
+10. config 5 with checkpoint_path (keep=100: the sequential drain, a save
+   after every chunk), then resume_from with keep=200: the counts resumed
+   exact, 100 more draws, RMSPE over both runs' draws; then config 1 on
+   whether two uninterrupted runs give the same bits, and if they do a
+   resumed run held bit for bit against an uninterrupted one (w, beta,
+   tausq, theta), else the same in a subprocess under
+   torch.use_deterministic_algorithms(True) (``--resume-bits``).  Each
+   config-5 run's mcmc_time is printed split into iterations, saves and
+   drains;
+11. predict_recompute held against predict at phase 8's accept-aware
+   model and final state, the same z (f32 tolerance); spamtree_predict on
+   phase 8's always-emit fit at 10^4 held-out rows' coordinates, 50 draws:
+   RMSPE < 0.5 sd(y), agreement with the fit's own prediction at those
+   rows within tests/test_predict_new.py's envelope, K1 launched once per
+   reference level that _joints_upto factors per draw (one on a limited
+   tree).  Each of phases 8-11 sets the launch counts to 0 before its run
+   and reads them after; K1 must launch in each.
 
 Kernel and plain times (the kernels record's ms and plain_ms) are CUDA
 events around eager calls of the wrappers the sweeps call, host time
@@ -60,6 +80,10 @@ graph and replayed, is printed beside them.  Every kernel's launch count
 is set to 0 just before a run and read just after it (the timing phases
 come before the runs or between them).  The line before the last is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --resume-bits
+
+runs phase 10's config-1 check alone, under deterministic algorithms.
 
     python3 chip_smoke.py --times
 
@@ -74,6 +98,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -108,8 +133,11 @@ PEAK_FP64_S = 34e12
 K3_TIME_SHAPES_F64 = [(1024, 32, 128), CONFIG3_THIN]
 
 
+_T0 = time.time()
+
+
 def _phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.time() - _T0:.1f} s)", flush=True)
 
 
 def _check(cond, msg):
@@ -316,43 +344,69 @@ def _level_shapes(levels):
     return [tuple(lv.rows.shape) + (lv.prows.shape[1],) for lv in levels]
 
 
+_DATA: dict = {}
+
+
+def _data(bench, cfg_id):
+    """A bench configuration's data, made once per process."""
+    if cfg_id not in _DATA:
+        _DATA[cfg_id] = bench.CONFIGS[cfg_id]["maker"]()
+    return _DATA[cfg_id]
+
+
 def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin,
-               chunk=200, limited=False):
-    """The always-emit theta step through spamtree()."""
+               chunk=200, limited=False, settings=None, draws=None, **kw):
+    """The always-emit theta step through spamtree(); ``settings`` over
+    dict(chunk=chunk), ``kw`` to spamtree (checkpoint_path, resume_from).
+    Checks the run (``draws`` kept w draws, default keep; with
+    collect="summary" yhat_mean stands in for the draws' mean) and returns
+    (record, thin levels (B, S, P), the fit)."""
     import spamtree_tpu_torch
 
     c = bench.CONFIGS[cfg_id]
-    y, y_full, miss, X, coords, mv = c["maker"]()
+    y, y_full, miss, X, coords, mv = _data(bench, cfg_id)
     ybar = np.nanmean(y)
+    settings = dict(chunk=chunk) | (settings or {})
+    summary = settings.get("collect") == "summary"
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(chol, level)
     t0 = time.time()
     out = spamtree_tpu_torch.spamtree(
         y - ybar, X, coords, mv_id=mv, cell_size=25,
         mcmc=dict(keep=keep, burn=burn, thin=thin),
-        settings=dict(chunk=chunk), seed=1, device="cuda",
-        limited_tree=limited)
+        settings=settings, seed=1, device="cuda",
+        limited_tree=limited, **kw)
     wall = time.time() - t0
     counts = _counts(chol, level)
     launches = counts["k1_launches"]
-    iters = out["burn_actual"] + keep * thin
+    n_kept = out["theta_mcmc"].shape[1]
+    iters = out["burn_actual"] + n_kept * thin
     order = out["order"]
-    y_post = out["yhat_mcmc"].mean(axis=0) + ybar
+    y_post = (out["yhat_mean"] if summary
+              else out["yhat_mcmc"].mean(axis=0)) + ybar
     mo = miss[order]
     rmspe = float(np.sqrt(np.mean((y_post[mo] - y_full[order][mo]) ** 2)))
     sd = float(np.nanstd(y_full))
     n_ref = sum(1 for p in out["schedule"].levels if p.is_ref and p.S <= 64)
     res = dict(config=c["name"], step="always_emit", limited_tree=limited,
-               n=len(y), iters=iters,
+               collect=settings.get("collect", "all"),
+               checkpoint="checkpoint_path" in kw,
+               resumed_at=out["resumed_at_iteration"], n=len(y), iters=iters,
                ips=iters / out["mcmc_time"], mcmc_time=out["mcmc_time"],
+               iter_s=out["iter_s"], save_s=out["save_s"],
+               drain_s=out["mcmc_time"] - out["iter_s"] - out["save_s"],
+               drain_work_s=out["drain_work_s"],
                setup_time=wall - out["mcmc_time"], rmspe=rmspe, sd_y=sd,
                accept=out["accept_ratio"], **counts, ref_levels_s64=n_ref,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                setup_breakdown=out["setup_breakdown"])
     print(json.dumps(res), flush=True)
+    draws = n_kept if draws is None else draws
     for k in ("w_mcmc", "yhat_mcmc", "beta_mcmc", "tausq_mcmc", "theta_mcmc"):
         _check(out[k].size and np.isfinite(out[k]).all(), f"finite {k}")
-    _check(out["w_mcmc"].shape == (keep, len(y)), "w_mcmc shape")
+    _check(out["w_mcmc"].shape == (draws, len(y)), "w_mcmc shape")
+    _check(not summary or out["summary_count"] == n_kept,
+           f"summary_count {out.get('summary_count')} != {n_kept} draws")
     _check(rmspe < 0.5 * sd, f"RMSPE {rmspe} >= 0.5 sd(y) {sd}")
     _check(0.05 < out["accept_ratio"] < 0.8,
            f"acceptance {out['accept_ratio']} outside (0.05, 0.8)")
@@ -360,7 +414,7 @@ def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin,
            f"K1 launches {launches} < 2 x {n_ref} ref levels x {iters} its")
     thin_lvls = [(p.B, p.S, p.P) for p in out["schedule"].levels
                  if not p.is_ref and p.P > 0]
-    return res, thin_lvls
+    return res, thin_lvls, out
 
 
 def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
@@ -372,7 +426,7 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
     from spamtree_tpu_torch.model.mcmc import run_mcmc
 
     c = bench.CONFIGS[cfg_id]
-    y, y_full, miss, X, coords, mv = c["maker"]()
+    y, y_full, miss, X, coords, mv = _data(bench, cfg_id)
     ybar = np.nanmean(y)
     with _env(SPAMTREE_LEVEL_KERNELS="1",
               SPAMTREE_COMPOSED_FACTORS="1" if composed else "0"):
@@ -441,6 +495,156 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
            f"K4 launches {k4} < {len(k4_lvls)} thin levels x {iters} its")
     _check((k4 == 0) == all_compose,
            f"K4 launches {k4} but every thin parent composes: {all_compose}")
+    return rec, (ms, res["state"])
+
+
+def run_resume(bench, chol, level, torch, kw5):
+    """Phase 10 at config 5: run A keeps 100 of the 200 draws with a
+    checkpoint after every chunk (the sequential drain), run B resumes from
+    it with keep=200 and returns the other 100.  Returns (A's record, B's
+    record, K1 launches over both)."""
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "ck.npz")
+        ra, _, fa = run_config(bench, chol, level, torch, 5,
+                               **(kw5 | dict(keep=100)), checkpoint_path=ck)
+        k1 = ra["k1_launches"]
+        rb, _, fb = run_config(bench, chol, level, torch, 5, **kw5,
+                               draws=100, resume_from=ck)
+        k1 += rb["k1_launches"]
+    it_a = ra["iters"]
+    _check(fb["resumed_at_iteration"] == it_a
+           and fb["resumed_kept_already"] == 100,
+           f"resumed at {fb['resumed_at_iteration']} (A ran {it_a}) with "
+           f"{fb['resumed_kept_already']} kept (100)")
+    _check(fb["burn_actual"] == 0 and fb["w_mcmc"].shape[0] == 100,
+           "run B repeated burn or returned another count of draws")
+    y, y_full, miss, *_ = _data(bench, 5)
+    ybar = np.nanmean(y)
+    mo = miss[fb["order"]]
+    y_post = np.concatenate([fa["yhat_mcmc"], fb["yhat_mcmc"]]).mean(0) + ybar
+    rmspe = float(np.sqrt(np.mean((y_post[mo] - y_full[fb["order"]][mo]) ** 2)))
+    sd = float(np.nanstd(y_full))
+    print(f"resume: A {it_a} iterations, B {rb['iters']}; RMSPE over A's "
+          f"and B's 200 yhat draws {rmspe:.4f} (sd(y) {sd:.4f})")
+    _check(rmspe < 0.5 * sd, f"A+B RMSPE {rmspe} >= 0.5 sd(y) {sd}")
+    return ra, rb, k1
+
+
+_KEYS = ("w_mcmc", "beta_mcmc", "tausq_mcmc", "theta_mcmc")
+
+
+def resume_bits(bench, torch):
+    """Config 1 on the card: do two uninterrupted runs give the same bits?
+    If so, hold a resumed run's w/beta/tausq/theta bit for bit against the
+    uninterrupted run's and return True; else return False."""
+    import spamtree_tpu_torch
+
+    y, _, _, X, coords, mv = _data(bench, 1)
+    kw = dict(mv_id=mv, cell_size=25, seed=1, device="cuda",
+              settings=dict(chunk=10))
+    run = lambda keep, **k: spamtree_tpu_torch.spamtree(
+        y, X, coords, mcmc=dict(keep=keep, burn=20, thin=1), **kw, **k)
+    f1, f2 = run(40), run(40)
+    same = all(np.array_equal(f1[k], f2[k]) for k in _KEYS)
+    print(f"config 1: two uninterrupted runs {'give' if same else 'differ in'}"
+          f" the same bits (deterministic algorithms "
+          f"{torch.are_deterministic_algorithms_enabled()})", flush=True)
+    if not same:
+        return False
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "ck.npz")
+        run(20, checkpoint_path=ck)
+        res = run(40, resume_from=ck)
+    for k in _KEYS:  # w (keep, n); beta (p, keep, q); tausq, theta (k, keep)
+        want = f1[k][20:] if k == "w_mcmc" else f1[k][:, 20:]
+        _check(np.array_equal(res[k], want),
+               f"config 1 resume differs from the uninterrupted run in {k}")
+    print("config 1: the resumed run equals the uninterrupted one bit for "
+          "bit (w, beta, tausq, theta)", flush=True)
+    return True
+
+
+def check_resume_bits(bench, torch):
+    """resume_bits here, or where the card's runs differ in their bits, in
+    a subprocess under torch.use_deterministic_algorithms(True) and
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 (``--resume-bits``)."""
+    if resume_bits(bench, torch):
+        return "bitwise"
+    p = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--resume-bits"],
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+        capture_output=True, text=True, timeout=600)
+    print(p.stdout[-4000:], p.stderr[-4000:], flush=True)
+    _check(p.returncode == 0, "config 1 resume under deterministic "
+           "algorithms failed")
+    return "bitwise under deterministic algorithms"
+
+
+def check_predict_recompute(torch, ms, state):
+    """predict_recompute against predict at a model and state of the
+    main path (config 5's), the same z: f32 tolerance."""
+    from spamtree_tpu_torch.model import core
+
+    g = torch.Generator(device=ms.device).manual_seed(5)
+    z = torch.randn(ms.n + 1, generator=g, device=ms.device, dtype=ms.dtype)
+    a = core.predict(ms, state.pred_data, state.w, z)
+    b = core.predict_recompute(ms, state.theta, state.w, z,
+                               core.level_coords(ms))
+    err = float((a - b).abs().max())
+    scale = float(a.abs().max())
+    print(f"predict_recompute vs predict at config 5: max |d| {err:.3e} "
+          f"(max |w| {scale:.3e})", flush=True)
+    _check(err <= TOL["float32"] * max(scale, 1.0),
+           f"predict_recompute disagrees with predict: {err}")
+    return err
+
+
+def run_predict(bench, chol, level, torch, fit, m=10_000, n_draws=50):
+    """Phase 11: spamtree_predict on phase 8's always-emit fit at m of the
+    held-out rows' coordinates."""
+    import spamtree_tpu_torch
+
+    y, y_full, miss, X, coords, mv = _data(bench, 5)
+    ybar = np.nanmean(y)
+    pick = np.sort(np.random.default_rng(0).choice(
+        np.flatnonzero(miss), size=m, replace=False))
+    _reset_counts(chol, level)
+    t0 = time.time()
+    pred = spamtree_tpu_torch.spamtree_predict(
+        fit, y - ybar, X, coords, coords_new=coords[pick], x_new=X[pick],
+        mv_id=mv, mv_id_new=mv[pick], n_draws=n_draws, seed=1,
+        device="cuda")
+    wall = time.time() - t0
+    counts = _counts(chol, level)
+    yb = pred["yhat_pred"] + ybar
+    rmspe = float(np.sqrt(np.mean((yb.mean(0) - y_full[pick]) ** 2)))
+    sd = float(np.nanstd(y_full))
+    # the fit's own in-fit prediction at the same rows
+    inv = np.empty(len(y), dtype=np.int64)
+    inv[fit["order"]] = np.arange(len(y))
+    ya = fit["yhat_mcmc"][:, inv[pick]] + ybar
+    env = np.sqrt(ya.var(0) / 40 + yb.var(0) / 40) + 0.05
+    frac_off = float(np.mean(np.abs(ya.mean(0) - yb.mean(0)) > 4 * env))
+    bd = pred["predict_breakdown"]
+    # levels _joints_upto factors per draw: the prediction parent alone on
+    # a limited tree, every reference level up to it on a full tree
+    lv = fit["schedule"].levels
+    pred_lp = fit["schedule"].pred_buckets[0].lp_level
+    per_draw = 1 if fit["fit_config"]["limited_tree"] else pred_lp + 1
+    rec = dict(phase="spamtree_predict", m=m, n_draws=n_draws, wall_s=wall,
+               s_per_draw=bd["draws_s"] / n_draws, breakdown=bd,
+               rmspe=rmspe, sd_y=sd, frac_off_envelope=frac_off,
+               ref_levels=sum(p.is_ref for p in lv),
+               k1_per_draw_expected=per_draw, **counts)
+    print(json.dumps(rec), flush=True)
+    _check(pred["w_pred"].shape == (n_draws, m)
+           and np.isfinite(pred["yhat_pred"]).all(), "spamtree_predict output")
+    _check(rmspe < 0.5 * sd, f"spamtree_predict RMSPE {rmspe} >= 0.5 sd {sd}")
+    _check(frac_off < 0.08, f"spamtree_predict off the in-fit envelope at "
+           f"{frac_off:.3f} of the rows")
+    _check(counts["k1_launches"] == per_draw * n_draws,
+           f"K1 launches {counts['k1_launches']} on the predict path, "
+           f"{per_draw} x {n_draws} draws expected")
     return rec
 
 
@@ -748,6 +952,9 @@ def main() -> int:
     card_info(torch)
     _phase("build K1, K3, K4")
     build_kernels(chol, level, _build, torch)
+    if sys.argv[1:] == ["--resume-bits"]:
+        torch.use_deterministic_algorithms(True)
+        return 0 if resume_bits(bench, torch) else 1
     if sys.argv[1:] == ["--times"]:
         _phase("K1, K2, K3, K4 times")
         time_kernel(chol, torch)
@@ -762,8 +969,8 @@ def main() -> int:
     _phase("config 1")
     run_config(bench, chol, level, torch, 1, keep=1000, burn=1000, thin=2)
     _phase("config 3")
-    r3, thin3 = run_config(bench, chol, level, torch, 3, keep=100, burn=200,
-                           thin=2)
+    r3, thin3, _ = run_config(bench, chol, level, torch, 3, keep=100,
+                              burn=200, thin=2)
     _check(len(thin3) == 1, f"config 3 thin levels {thin3}")
     _phase(f"K3/K4 vs plain (config 3 thin level {thin3[0]})")
     lerr = check_level_kernels(level, torch, thin3[0])
@@ -775,8 +982,8 @@ def main() -> int:
     _phase("config 3, accept-aware, level kernels, composed factors")
     run_accept_aware(bench, chol, level, torch, 3, keep=100, burn=200, thin=2)
     _phase("config 3, accept-aware, level kernels, no composed factors")
-    a3 = run_accept_aware(bench, chol, level, torch, 3, keep=100, burn=200,
-                          thin=2, composed=False)
+    a3, _ = run_accept_aware(bench, chol, level, torch, 3, keep=100,
+                             burn=200, thin=2, composed=False)
     _check(a3["k4_launches"] > 0, "K4 never launched at config 3")
     _phase("config 1, limited tree, accept-aware, level kernels")
     run_accept_aware(bench, chol, level, torch, 1, keep=200, burn=200, thin=1,
@@ -785,7 +992,7 @@ def main() -> int:
     kw5 = dict(keep=c5["keep"], burn=c5["burn"], thin=c5["thin"],
                chunk=c5["chunk"], limited=c5["kwargs"]["limited_tree"])
     _phase("config 5, limited tree, accept-aware, level kernels")
-    a5 = run_accept_aware(bench, chol, level, torch, 5, **kw5)
+    a5, (ms5, state5) = run_accept_aware(bench, chol, level, torch, 5, **kw5)
     lv5 = [tuple(x) for x in a5["levels"]]
     _check([x[:2] for x in lv5[:len(CONFIG5_SHAPES)]] == CONFIG5_SHAPES
            and lv5[len(CONFIG5_SHAPES):] == CONFIG5_THIN
@@ -799,8 +1006,39 @@ def main() -> int:
            and a5["k4_launches"] > 0,
            f"config 5: K3 on {a5['k3_levels']} levels, K4 on "
            f"{a5['k4_levels']}, {a5['k4_launches']} K4 launches")
-    _phase("config 5, limited tree, always-emit")
-    run_config(bench, chol, level, torch, 5, **kw5)
+    _phase("config 5, limited tree, always-emit (pipelined drain)")
+    r8, _, fit8 = run_config(bench, chol, level, torch, 5, **kw5)
+
+    # phases 9-11 at config 5's full width, each launching K1
+    _phase("config 5, collect='summary', summary_draws=20")
+    r9, _, _ = run_config(bench, chol, level, torch, 5, **kw5,
+                          settings=dict(collect="summary", summary_draws=20),
+                          draws=20)
+    _check(r9["k1_launches"] > 0, "K1 never launched in the summary run")
+    _phase("config 5, checkpoint every chunk, then resume")
+    r10a, r10b, k1_10 = run_resume(bench, chol, level, torch, kw5)
+    _phase("config 1, resume bit for bit")
+    print(f"config 1 resume: {check_resume_bits(bench, torch)}")
+    for name, r in (("always-emit, pipelined drain", r8),
+                    ("collect='summary'", r9),
+                    ("checkpointed, sequential drain (run A)", r10a),
+                    ("resumed (run B)", r10b)):
+        print(f"config 5 {name}: {r['iters']} iterations, mcmc_time "
+              f"{r['mcmc_time']:.2f} s = iterations {r['iter_s']:.2f} s + "
+              f"saves {r['save_s']:.2f} s + drains {r['drain_s']:.2f} s "
+              f"(the drains' own work {r['drain_work_s']:.2f} s), "
+              f"{r['ips']:.2f} it/s, peak {r['peak_mem_bytes'] / 1e9:.2f} GB",
+              flush=True)
+    _phase("config 5, predict_recompute vs predict; spamtree_predict")
+    check_predict_recompute(torch, ms5, state5)
+    del ms5, state5
+    r11 = run_predict(bench, chol, level, torch, fit8)
+    print(f"spamtree_predict: {r11['s_per_draw'] * 1e3:.2f} ms per draw, "
+          f"K1 launches {r11['k1_launches']} for {r11['n_draws']} draws, "
+          f"setup {r11['breakdown']}", flush=True)
+    del fit8
+    print(f"chip_smoke: every phase passed in {time.time() - _T0:.1f} s",
+          flush=True)
 
     # One entry per kernel.  launches, ms, plain_ms, bound_ms, bound_by and
     # max_abs_err belong to one path, config 5's accept-aware run: ms is the
@@ -810,7 +1048,12 @@ def main() -> int:
     # same for config 3's path stands beside them as *_config3 (K1's launches
     # from the always-emit run, K3's and K4's from the accept-aware run
     # without composed factors; at (1024, 68, 293) the yardstick of the
-    # earlier records).
+    # earlier records).  launches_paths: each kernel's launches in each run
+    # of config 5 (the four of phases 8-10 through spamtree(), run A and B
+    # of the resume together) and in spamtree_predict; K1 alone runs on
+    # the paths of phases 9-11, the level kernels being off there.
+    paths = {f"config5_{k}": r for k, r in (
+        ("always_emit", r8), ("summary", r9), ("predict", r11))}
     def k1_path(rs):
         n = len(rs)
         return dict(ms=sum(r[2] for r in rs) / n,
@@ -829,22 +1072,28 @@ def main() -> int:
         return dict(ms=k, plain_ms=pl, bound_ms=bd, bound_by=by)
 
     def entry(name, source, replaces, launches5, launches3, err5, err3,
-              path5, path3):
+              path5, path3, key):
+        lp = {"config5_accept_aware": launches5} | {
+            k: r[f"{key}_launches"] for k, r in paths.items()}
+        lp["config5_resume"] = (k1_10 if key == "k1" else
+                                r10a[f"{key}_launches"]
+                                + r10b[f"{key}_launches"])
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     path="config5", launches=launches5, max_abs_err=err5,
                     **path5, library_ms=None, launches_config3=launches3,
                     max_abs_err_config3=err3,
-                    **{f"{k}_config3": v for k, v in path3.items()})
+                    **{f"{k}_config3": v for k, v in path3.items()},
+                    launches_paths=lp)
 
     level_src = "spamtree_tpu_torch/csrc/thin_level.cu"
     print(json.dumps({"kernels": [entry(
         "inv_chol", "spamtree_tpu_torch/csrc/inv_chol.cu",
         "spamtree_tpu/ops/pallas_chol.py:107", a5["k1_launches"],
         r3["k1_launches"], max_err["config5"], max_err["config3"],
-        k1_path(t5["k1"]), k1_path(rows))] + [entry(
+        k1_path(t5["k1"]), k1_path(rows), "k1")] + [entry(
             name, level_src, replaces, a5[f"{key}_launches"],
             a3[f"{key}_launches"], lerr["config5"][key], lerr["config3"][key],
-            level_path5(key), level_path3(key))
+            level_path5(key), level_path3(key), key)
         for name, key, replaces in (
             ("thin_gibbs", "k3", "spamtree_tpu/ops/pallas_level.py:306"),
             ("thin_decision", "k4", "spamtree_tpu/ops/pallas_level.py:186"))

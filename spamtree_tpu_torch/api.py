@@ -1,8 +1,10 @@
-"""User-facing API: ``spamtree()`` fit + predict in one MCMC run.
+"""User-facing API: ``spamtree()`` fit + predict in one MCMC run, and
+``spamtree_predict()`` at new locations after a fit.
 
-Port of the main path of ``spamtree_tpu/api.py`` (reference front-end
-R/spamtree_fit.R): one chain on a full or limited tree, every kept draw
-collected, prediction at the NaN rows.  The remaining knobs of the JAX
+Port of ``spamtree_tpu/api.py`` (reference front-end R/spamtree_fit.R):
+one chain on a full or limited tree, every kept draw collected or the
+posterior moments summed on the device, prediction at the NaN rows,
+checkpoints, resume and sample sinks.  The remaining knobs of the JAX
 package raise NotImplementedError naming the knob.
 """
 
@@ -14,8 +16,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from spamtree_tpu_torch.model.core import ModelStatic
-from spamtree_tpu_torch.model.mcmc import MCMCConfig, init_state, run_mcmc
+from spamtree_tpu_torch.model.core import (
+    ModelStatic,
+    level_coords,
+    predict_recompute,
+)
+from spamtree_tpu_torch.model.mcmc import (
+    MCMCConfig,
+    chunk_sizes,
+    init_state,
+    run_mcmc,
+)
 from spamtree_tpu_torch.model.params import auto_start_theta, make_theta_spec
 from spamtree_tpu_torch.model.tuning import (
     curvature_sd_from_lls,
@@ -31,12 +42,16 @@ _NOT_PORTED = dict(
     elevation=False, start_level=0, tree_depth=np.inf,
     last_not_reference=True, cherrypick_same_margin=True,
     cherrypick_group_locations=True, mvbias=0.0, prior=None, starting=None,
-    debug=None, precompile=False, n_chains=1, checkpoint_path=None,
-    resume_from=None, sink_dir=None, devices=None, mesh=None,
+    debug=None, precompile=False, n_chains=1, devices=None, mesh=None,
 )
+_SETTINGS = dict(chunk=50, collect="all", summary_draws=0, wire_dtype=None)
+_SETTINGS_NOT_PORTED = ("adapting", "mcmcsd", "curvature_sd",
+                        "ram_reference_warmup", "const_model",
+                        "factor_dtype", "lazy_init", "tuner_overlap")
 
 
-def _check_knobs(knobs: dict, settings: dict):
+def _check_knobs(knobs: dict, settings: dict) -> dict:
+    """Reject the knobs not ported; ``settings`` over their defaults."""
     for k, v in knobs.items():
         if k not in _NOT_PORTED:
             raise TypeError(f"spamtree() got an unexpected keyword {k!r}")
@@ -44,12 +59,26 @@ def _check_knobs(knobs: dict, settings: dict):
         if not (v is d or (np.isscalar(v) and np.isscalar(d) and v == d)):
             raise NotImplementedError(f"spamtree knob {k}={v!r} is not ported")
     for k in settings:
-        if k not in ("chunk", "collect"):
+        if k in _SETTINGS_NOT_PORTED:
             raise NotImplementedError(f"spamtree settings[{k!r}] is not ported")
-    if settings.get("collect", "all") != "all":
-        raise NotImplementedError(
-            f"spamtree settings['collect']={settings['collect']!r} is not "
-            "ported (only 'all')")
+        if k not in _SETTINGS:
+            raise ValueError(f"unknown settings key {k!r}; valid: "
+                             f"{sorted(_SETTINGS)}")
+    settings = _SETTINGS | settings
+    if settings["collect"] not in ("all", "summary"):
+        raise ValueError(f"settings['collect']={settings['collect']!r}: "
+                         f"'all' or 'summary'")
+    return settings
+
+
+class Resume(NamedTuple):
+    """What a ``resume_from`` checkpoint hands the continuation."""
+
+    yhat_rngs: tuple  # (host numpy generator, device torch generator)
+    init_moments: object  # mcmc.Moments, or None
+    base_counts: tuple  # (burn_done, kept_done) of the runs before
+    at_iteration: int
+    kept_already: int  # of this call's keep
 
 
 class Fit(NamedTuple):
@@ -64,15 +93,62 @@ class Fit(NamedTuple):
     tree: object
     sched: object
     setup_breakdown: dict
+    resume: Resume | None = None
+
+
+def _resume_plan(path: str, cfg: MCMCConfig, ms: ModelStatic, it: int):
+    """The continuation of the run that wrote checkpoint ``path``: (cfg
+    with the remaining burn and keep and the writing run's chunk size
+    pinned, init_moments, base_counts, kept_already).  Counts come from the
+    checkpoint (the writing run's balanced mc can differ from this call's),
+    so burn already run is skipped exactly and kept draws are not
+    recounted."""
+    from spamtree_tpu_torch.utils.checkpoint import load_counts, load_moments
+
+    counts = load_counts(path)
+    if counts is None:
+        raise ValueError(f"{path} records no chunk geometry (geom_counts): "
+                         f"it was not written by run_mcmc")
+    mc, burn_done, kept_done, thin = counts
+    if thin != cfg.thin:
+        # iterations per chunk are mc * thin: another thin would shift
+        # burn_actual and mis-count kept draws
+        raise ValueError(
+            f"checkpoint was written with thin={thin}; resuming with "
+            f"thin={cfg.thin} would silently shift the chunk boundaries and "
+            f"mis-count kept draws -- resume with the original thin")
+    _, ipc, _, nb = chunk_sizes(cfg._replace(mc_fixed=mc))
+    rem_burn = max(nb * ipc - burn_done, 0)
+    kept_already = min(kept_done, cfg.keep)
+    if kept_already >= cfg.keep and rem_burn == 0:
+        raise ValueError(
+            f"checkpoint at iteration {it} already holds all {cfg.keep} kept "
+            f"draws for this mcmc config; nothing to resume")
+    moments = None
+    if cfg.collect == "summary":
+        moments = load_moments(path, ms)
+        if kept_already > 0 and moments is None:
+            raise ValueError(
+                f"checkpoint at iteration {it} holds {kept_already} kept "
+                f"draws but no moment accumulators (it was written by a "
+                f"collect='all' run); an exact collect='summary' "
+                f"continuation is impossible -- resume with collect='all'")
+    cfg = cfg._replace(burn=rem_burn, keep=cfg.keep - kept_already,
+                       mc_fixed=mc)
+    # the true kept_done, not the clipped kept_already: a burn extension
+    # asking for fewer keeps must not shrink the counter
+    return cfg, moments, (burn_done, kept_done), kept_already
 
 
 def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
                 settings=None, seed=1, dtype=torch.float32, verbose=False,
-                device="cuda", limited_tree=False, **knobs) -> Fit:
+                device="cuda", limited_tree=False, resume_from=None,
+                **knobs) -> Fit:
     """Tree, schedule, model, tuned proposal and initial state of a
-    ``spamtree`` run (same arguments), without running the chain."""
-    settings = dict(settings or {})
-    _check_knobs(knobs, settings)
+    ``spamtree`` run (same arguments), without running the chain; with
+    ``resume_from`` the state and generators of that checkpoint instead of
+    the tuner and the initial sweep."""
+    settings = _check_knobs(knobs, dict(settings or {}))
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but CUDA is not available")
@@ -117,6 +193,29 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     ms = ModelStatic(sched, cs, mvs, ys, xs, tspec.spec, dtype=dtype,
                      device=device)
     tb["stage_s"] = round(time.time() - t_, 2)
+    cfg = MCMCConfig(keep=mcmc["keep"], burn=mcmc["burn"], thin=mcmc["thin"],
+                     chunk=int(settings["chunk"]),
+                     collect=settings["collect"],
+                     summary_draws=int(settings["summary_draws"]),
+                     wire_dtype=settings["wire_dtype"])
+
+    if resume_from is not None:
+        # the checkpoint carries the adapted proposal and the generators:
+        # no tuner, no initial sweep (load_state rebuilds the factors)
+        from spamtree_tpu_torch.utils.checkpoint import load_rngs, load_state
+
+        t_ = time.time()
+        state = load_state(resume_from, ms)
+        gen, yhat_rngs = load_rngs(resume_from, ms.device)
+        cfg, moments, base, kept_already = _resume_plan(resume_from, cfg, ms,
+                                                        state.it)
+        tb["resume_load_s"] = round(time.time() - t_, 2)
+        if verbose:
+            print(f"[resume] iteration {state.it}: {kept_already} kept draws "
+                  f"already taken, {cfg.burn} burn + {cfg.keep} keep "
+                  f"remaining")
+        return Fit(ms, tspec.bounds, cfg, state, gen, order, tree, sched, tb,
+                   Resume(yhat_rngs, moments, base, state.it, kept_already))
 
     # curvature-scaled initial proposal covariance (see model/tuning.py):
     # with burn, from a subsampled model, like the JAX package's default
@@ -135,8 +234,7 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     if verbose:
         print(f"[tune] curvature proposal sd: "
               f"{np.array2string(np.sqrt(np.diag(mcmcsd)), precision=4)}")
-    cfg = MCMCConfig(keep=mcmc["keep"], burn=mcmc["burn"], thin=mcmc["thin"],
-                     mcmcsd=mcmcsd, chunk=int(settings.get("chunk", 50)))
+    cfg = cfg._replace(mcmcsd=mcmcsd)
     state = init_state(ms, tspec.bounds, tspec.start, cfg=cfg,
                        precomputed=precomputed)
     tb["init_s"] = round(time.time() - t_, 2)
@@ -145,7 +243,8 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
 
 def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
              settings=None, seed=1, dtype=torch.float32, verbose=False,
-             device="cuda", limited_tree=False, **knobs):
+             device="cuda", limited_tree=False, checkpoint_path=None,
+             resume_from=None, sink_dir=None, **knobs):
     """Fit a SpamTree model: fit + prediction in one MCMC run.
 
     y : (n,) response; NaN rows are predicted.
@@ -154,37 +253,273 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     mv_id : (n,) outcome/margin labels (any label set); None = univariate.
     cell_size, K : target locations per tree block; branching per axis.
     mcmc : dict(keep=1000, burn=0, thin=1).
-    settings : dict(chunk=50 kept samples per host transfer, collect="all").
-    seed : seeds the tree, the device generator and the host yhat noise.
+    settings : dict(chunk=50 kept samples per host transfer, collect="all"
+        or "summary" (posterior mean/variance summed on the device, for
+        large n), summary_draws=0 (summary mode: also keep ~this many
+        strided w/yhat draws), wire_dtype=None (device->host type of the w
+        draws: float16 for float32 models; "none" for none)).
+    seed : seeds the tree, the device generators and the host yhat noise.
     dtype : torch.float32 or torch.float64.
     device : where the model runs; "cuda" raises when CUDA is absent.
     limited_tree : each block conditions on its parent block's rows alone
         (reference make_tree.R), instead of on all its ancestors.
+    checkpoint_path : the full sampler state and every generator are saved
+        there after each chunk (the drain is then sequential).
+    resume_from : a checkpoint of an earlier run with the SAME data and
+        knobs: its state is loaded, no tuning runs, burn already run is
+        skipped and only the remaining kept draws are sampled and returned;
+        the w/beta/tausq/theta draws continue the uninterrupted run's
+        exactly (same chunk size pinned).  ``keep`` may be raised to extend
+        a finished run.
+    sink_dir : w/yhat draws stream to ``w_mcmc.f32``/``yhat_mcmc.f32``
+        there instead of host RAM (``utils.native.read_sink``); a resumed
+        run appends.
 
     Returns a dict with w_mcmc, yhat_mcmc (keep, n), beta_mcmc (p, keep, q),
     tausq_mcmc (q, keep), theta_mcmc (n_theta, keep), order (outputs are in
-    sorted-row order; order[i] is the original row), accept_ratio,
-    mcmc_time, burn_actual, paramsd, setup_breakdown, tree and schedule.
+    sorted-row order; order[i] is the original row), coords, mv_id,
+    coordsinfo, accept_ratio, mcmc_time (iter_s of it in the iterations
+    alone, save_s in the checkpoint saves, the rest in the drains;
+    drain_work_s is the drains' own work, which overlaps the iterations
+    when pipelined), burn_actual, paramsd,
+    resumed_at_iteration, resumed_kept_already, setup_breakdown, tree,
+    schedule, theta_bounds, fit_config (what spamtree_predict needs) and,
+    with collect="summary", w_mean, w_var, yhat_mean, yhat_var and
+    summary_count.
     """
     fit = prepare_fit(y, x, coords, mv_id=mv_id, cell_size=cell_size, K=K,
                       mcmc=mcmc, settings=settings, seed=seed, dtype=dtype,
                       verbose=verbose, device=device,
-                      limited_tree=limited_tree, **knobs)
+                      limited_tree=limited_tree, resume_from=resume_from,
+                      **knobs)
+    r = fit.resume
     res = run_mcmc(fit.ms, fit.bounds, fit.cfg, fit.state, fit.gen,
-                   verbose=verbose, yhat_seed=seed)
-    return {
+                   verbose=verbose, yhat_seed=seed,
+                   checkpoint_path=checkpoint_path, sink_dir=sink_dir,
+                   sink_append=r is not None,
+                   init_moments=r.init_moments if r else None,
+                   base_counts=r.base_counts if r else (0, 0),
+                   yhat_rngs=r.yhat_rngs if r else None)
+    mv_id = (np.ones(len(fit.order), dtype=np.int64) if mv_id is None
+             else np.asarray(mv_id, dtype=np.int64))
+    tree = fit.tree
+    cs = np.asarray(coords, dtype=np.float64)[fit.order]
+    out = {
+        "coords": cs,
+        "mv_id": mv_id[fit.order],
+        "order": fit.order,
+        "coordsinfo": {"coords": cs, "block": tree.block_of_row,
+                       "res": tree.res_of_row},
         "w_mcmc": res["w"],
         "yhat_mcmc": res["yhat"],
         "beta_mcmc": (np.moveaxis(res["beta"], 0, 1) if res["beta"].ndim >= 2
                       else res["beta"]),
         "tausq_mcmc": res["tausq"].T,
         "theta_mcmc": res["theta"].T,
-        "order": fit.order,
+        "n_chains": 1,
+        "paramsd": res["paramsd"],
         "accept_ratio": res["accept_ratio"],
         "mcmc_time": res["mcmc_time"],
+        "iter_s": res["iter_s"],
+        "save_s": res["save_s"],
+        "drain_work_s": res["drain_work_s"],
         "burn_actual": res["burn_actual"],
-        "paramsd": res["paramsd"],
+        "resumed_at_iteration": r.at_iteration if r else None,
+        "resumed_kept_already": r.kept_already if r else None,
         "setup_breakdown": fit.setup_breakdown,
-        "tree": fit.tree,
+        "block_ct_obs": tree.block_ct_obs,
+        "tree": tree,
         "schedule": fit.sched,
+        "theta_bounds": fit.bounds,
+        # what spamtree_predict needs to rebuild the same partition and
+        # theta packing at new locations (the JAX package's keys)
+        "fit_config": dict(
+            cell_size=cell_size, K=K, start_level=0, tree_depth=np.inf,
+            last_not_reference=True, limited_tree=limited_tree,
+            cherrypick_same_margin=True, cherrypick_group_locations=True,
+            mvbias=0.0, seed=seed, dtype=dtype,
+            mv_labels=np.unique(mv_id), btmlim=None, toplim=None, vlim=None,
+            set_unif_bounds=None),
     }
+    if fit.cfg.collect == "summary":
+        for k in ("w_mean", "w_var", "yhat_mean", "yhat_var",
+                  "summary_count"):
+            out[k] = res[k]
+    return out
+
+
+def _torch_dtype(d) -> torch.dtype:
+    """A fit's dtype (a torch dtype, or a numpy one from ``load_fit``)."""
+    return d if isinstance(d, torch.dtype) else getattr(torch, np.dtype(d).name)
+
+
+def spamtree_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
+                     mv_id_new=None, n_draws=None, seed=1, chunk=32,
+                     verbose=False, device="cuda"):
+    """Posterior-predictive draws at NEW locations after a fit, no refit.
+
+    The reference predicts only at NA rows of the original call
+    (spamtree_model.cpp:1229-1358).  This rebuilds the fit's partition over
+    the augmented data -- the tree depends on the OBSERVED rows alone, so
+    every observed block is unchanged and the new locations attach to the
+    prediction level by the same 1-NN rule -- then replays the fit's kept
+    draws through ``predict_recompute``: for each kept (theta_s, w_s) the
+    latent at the new locations is drawn from its treed-DAG conditional,
+    and yhat adds X_new beta_s and observation noise.
+
+    ``fit`` is a draw-collecting ``spamtree`` result (collect="all"),
+    possibly through ``save_fit``/``load_fit``; ``y, x, coords, mv_id`` are
+    the fit's inputs; ``coords_new (m, dd)``, ``x_new (m, p)``,
+    ``mv_id_new`` the new locations.  ``n_draws`` subsamples the kept draws
+    evenly (default all); ``chunk`` draws cross to the device per batch.
+    The conditional-normal draws come from a device generator seeded with
+    ``seed``, one (n + m + 1,) vector per draw in draw order, so the draws
+    do not depend on ``chunk``; the observation noise from a numpy
+    generator seeded with ``seed``.
+
+    Returns dict(w_pred (S, m), yhat_pred (S, m), draw_indices,
+    predict_breakdown {tree_s, stage_s, draws_s}) in the row order of
+    ``coords_new``."""
+    fc = fit.get("fit_config")
+    if fc is None:
+        raise ValueError("fit has no 'fit_config'; re-run spamtree() to use "
+                         "spamtree_predict")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but CUDA is not available")
+    if fit.get("n_chains", 1) > 1:
+        raise NotImplementedError("multi-chain fits are not ported")
+    w_draws = np.asarray(fit["w_mcmc"], dtype=np.float64)
+    # single chain: theta (n_theta, keep), beta (p, keep, q), tausq (q, keep)
+    theta_draws = np.asarray(fit["theta_mcmc"], dtype=np.float64).T
+    beta_draws = np.moveaxis(np.asarray(fit["beta_mcmc"], dtype=np.float64),
+                             1, 0)
+    tausq_draws = np.asarray(fit["tausq_mcmc"], dtype=np.float64).T
+    S_all = w_draws.shape[0]
+    if S_all == 0 or w_draws.shape[0] != theta_draws.shape[0]:
+        raise ValueError("fit holds no full w draws (collect='summary'?); "
+                         "spamtree_predict needs a draw-collecting fit")
+
+    # normalize the original inputs exactly as spamtree() does
+    y = np.asarray(y, dtype=np.float64).reshape(-1)
+    x = np.asarray(x, dtype=np.float64)
+    if x.ndim == 1:
+        x = x[:, None]
+    coords = np.asarray(coords, dtype=np.float64)
+    n, dd = coords.shape
+    if mv_id is None:
+        mv_id = np.ones(n, dtype=np.int64)
+    mv_id = np.asarray(mv_id, dtype=np.int64)
+    if w_draws.shape[-1] != n:
+        raise ValueError(f"fit draws cover {w_draws.shape[-1]} rows but "
+                         f"y/coords have {n}; pass the SAME data the fit used")
+    coords_new = np.asarray(coords_new, dtype=np.float64)
+    if coords_new.ndim == 1:
+        coords_new = coords_new[:, None]
+    m = coords_new.shape[0]
+    if coords_new.shape[1] != dd:
+        raise ValueError(f"coords_new has {coords_new.shape[1]} columns, "
+                         f"fit used {dd}")
+    x_new = np.asarray(x_new, dtype=np.float64)
+    if x_new.ndim == 1:
+        x_new = x_new[:, None]
+    if x_new.shape != (m, x.shape[1]):
+        raise ValueError(f"x_new must be ({m}, {x.shape[1]})")
+    if mv_id_new is None:
+        mv_id_new = np.ones(m, dtype=np.int64)
+    mv_id_new = np.asarray(mv_id_new, dtype=np.int64)
+    uniq = np.asarray(fc["mv_labels"])
+    if not np.isin(mv_id_new, uniq).all():
+        raise ValueError("mv_id_new contains labels the fit never saw")
+    q = len(uniq)
+
+    # augmented dataset: the new rows are NA responses appended at the end
+    y_aug = np.concatenate([y, np.full(m, np.nan)])
+    x_aug = np.vstack([x, x_new])
+    coords_aug = np.vstack([coords, coords_new])
+    mv0_aug = np.searchsorted(uniq, np.concatenate([mv_id, mv_id_new]))
+    n_aug = n + m
+    order = np.lexsort(tuple(
+        [np.arange(n_aug)] + [coords_aug[:, j] for j in range(dd - 1, -1, -1)]))
+    ys, xs, cs, mvs = (y_aug[order], x_aug[order], coords_aug[order],
+                       mv0_aug[order])
+    na_which = np.isfinite(ys)
+
+    tb = {}
+    t_ = time.time()
+    axis_size = (int(round(fc["cell_size"] ** (1.0 / dd)))
+                 if np.isscalar(fc["cell_size"])
+                 else np.asarray(fc["cell_size"]))
+    tree = make_tree(
+        cs, na_which, mvs, axis_cell_size=axis_size, K=fc["K"],
+        start_level=fc["start_level"], tree_depth=fc["tree_depth"],
+        last_not_reference=fc["last_not_reference"],
+        limited_tree=fc["limited_tree"],
+        cherrypick_same_margin=fc["cherrypick_same_margin"],
+        cherrypick_group_locations=fc["cherrypick_group_locations"],
+        mvbias=fc["mvbias"], rng=np.random.default_rng(fc["seed"]),
+        verbose=False)
+    # the observed rows, which alone drive the partition, landed in the
+    # same blocks as in the fit
+    fit_tree = fit.get("tree")
+    if fit_tree is not None:
+        obs_fit = np.isfinite(y[fit["order"]])
+        if not np.array_equal(tree.block_of_row[na_which],
+                              np.asarray(fit_tree.block_of_row)[obs_fit]):
+            raise RuntimeError(
+                "augmented partition diverged from the fit's on observed rows")
+    sched = build_schedule(tree, limited_tree=fc["limited_tree"])
+    tb["tree_s"] = round(time.time() - t_, 2)
+    tspec = make_theta_spec(
+        dd, q, btmlim=fc["btmlim"] if fc["btmlim"] is not None else 1e-3,
+        toplim=fc["toplim"] if fc["toplim"] is not None else 1e3,
+        vlim=fc["vlim"], set_unif_bounds=fc["set_unif_bounds"])
+    t_ = time.time()
+    dt = _torch_dtype(fc["dtype"])
+    ms = ModelStatic(sched, cs, mvs, ys, xs, tspec.spec, dtype=dt,
+                     device=device)
+    cc = level_coords(ms)
+    tb["stage_s"] = round(time.time() - t_, 2)
+
+    # the fit's sorted-row w draws -> augmented sorted positions (old rows
+    # only; every prediction row is redrawn by predict_recompute)
+    inv_fit_order = np.empty(n, dtype=np.int64)
+    inv_fit_order[fit["order"]] = np.arange(n)
+    old_rows = order < n  # augmented sorted rows that the fit had
+    src = inv_fit_order[order[old_rows]]
+    new_pos_sorted = np.flatnonzero(~old_rows)
+    new_pos = new_pos_sorted[np.argsort(order[~old_rows] - n)]  # caller's order
+
+    sel = (np.linspace(0, S_all - 1, int(n_draws)).round().astype(int)
+           if n_draws is not None and n_draws < S_all else np.arange(S_all))
+    S = len(sel)
+    new_pos_t = torch.as_tensor(new_pos, device=ms.device)
+    gen = torch.Generator(device=ms.device).manual_seed(seed)
+    w_pred = np.empty((S, m), dtype=np.float64)
+    t_ = time.time()
+    for lo in range(0, S, chunk):
+        idx = sel[lo: lo + chunk]
+        wb = np.zeros((len(idx), n_aug + 1))
+        wb[:, :n_aug][:, old_rows] = w_draws[idx][:, src]
+        wb_t = torch.as_tensor(wb, dtype=dt, device=ms.device)
+        th_t = torch.as_tensor(theta_draws[idx], dtype=dt, device=ms.device)
+        outs = []
+        for i in range(len(idx)):
+            z = torch.randn(n_aug + 1, generator=gen, dtype=dt,
+                            device=ms.device)
+            outs.append(predict_recompute(ms, th_t[i], wb_t[i], z,
+                                          cc)[new_pos_t])
+        w_pred[lo: lo + len(idx)] = torch.stack(outs).cpu().numpy()
+        if verbose:
+            print(f"[predict] draws {lo + len(idx)}/{S}")
+    tb["draws_s"] = round(time.time() - t_, 3)
+
+    # yhat = X_new beta_s (own margin) + w_new + tausq noise, on the host as
+    # the fit's yhat is
+    rng = np.random.default_rng(seed)
+    mvn0 = np.searchsorted(uniq, mv_id_new)
+    xb = np.einsum("np,spq->snq", x_new, beta_draws[sel])[:, np.arange(m), mvn0]
+    noise_sd = np.sqrt(tausq_draws[sel][:, mvn0])
+    yhat_pred = xb + w_pred + noise_sd * rng.standard_normal((S, m))
+    return {"w_pred": w_pred, "yhat_pred": yhat_pred, "draw_indices": sel,
+            "predict_breakdown": tb}

@@ -26,8 +26,9 @@ level hand its thin children factor parts instead of an assembled joint
 ``SPAMTREE_LEVEL_KERNELS=1`` runs thin levels through the fused kernels of
 ``ops.level`` (K4 in the decision sweep, K3 in ``gibbs_w``).
 
-Not ported (raises NotImplementedError): the prediction operators'
-recompute mode (``pred_in_carry=False``).
+Above 256 MB of prediction operators (``pred_in_carry`` False) the
+sampler carries none and ``predict_recompute`` rebuilds them for the
+current theta at each kept iteration.
 """
 
 from __future__ import annotations
@@ -78,7 +79,7 @@ class ModelStatic:
 
     def __init__(self, sched, coords: np.ndarray, mv_id: np.ndarray,
                  y: np.ndarray, X: np.ndarray, spec: CovModel,
-                 dtype=torch.float32, device="cpu", chunk_bytes: float = 512e6,
+                 dtype=torch.float32, device="cuda", chunk_bytes: float = 512e6,
                  use_kernel: bool = True):
         n = sched.n
         self.limited_tree = sched.limited_tree
@@ -253,16 +254,14 @@ class ModelStatic:
         if self.pred_lp >= 0:
             # the prediction operators are built after the level loop
             self.last_consumer[self.pred_lp] = len(sched.levels)
+        # the prediction operators ride the sampler state up to 256 MB;
+        # above, predict_recompute rebuilds them at each kept iteration
         if pred_buckets:
             pH = sum(p.rows.shape[0] * p.rows.shape[1] * p.prows.shape[1]
                      for p in pred_buckets) * itemsize
             self.pred_in_carry = pH <= 256e6
         else:
             self.pred_in_carry = True
-        if not self.pred_in_carry:
-            raise NotImplementedError(
-                "prediction operators above 256 MB (pred_in_carry=False, "
-                "predict_recompute) are not ported")
 
         # Gibbs-message routing: segment a of child level t targets parent
         # level seg_level[t][a]; anc_pos[(t, a)] is each child's parent
@@ -748,9 +747,10 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
     if decision_only:
         return logdet, ok, qn, qc
     # prediction operators for the all-missing blocks, from the deepest
-    # reference joint factor while it is live
+    # reference joint factor while it is live (none carried when they are
+    # too big: predict_recompute rebuilds them)
     pred_data = None
-    if ms.pred_arrays is not None and build_pred:
+    if ms.pred_arrays is not None and ms.pred_in_carry and build_pred:
         pj = joints.get(ms.pred_lp)
         pred_data = pj if emit_pred_joint else _pred_operators(
             ms, params, pj, coords_cache)
@@ -1012,6 +1012,94 @@ def predict(ms: ModelStatic, pred_data, w, z):
         w[lvl.rows] = torch.where(lvl.rmask,
                                   mean + torch.sqrt(pd.prec) * z[lvl.rows],
                                   0.0)
+    return w
+
+
+def _joints_upto(ms: ModelStatic, params, upto: int, coords_cache=None):
+    """The joint inverse-Cholesky factor of reference level ``upto`` alone,
+    re-propagated through the reference levels 0..upto (no H, prec or
+    loglik) -- for predict_recompute.  On a limited tree a level's factor
+    is that of its own Kcc, so only level ``upto`` is factored (the JAX
+    package's loop over the ancestors is dead code there, which XLA
+    drops)."""
+    use_k = ms.use_kernel
+    joints = {}
+    for t in ([upto] if ms.limited_tree else range(upto + 1)):
+        assert ms.level_is_ref[t], "prediction ancestors must be ref levels"
+        lvl_full = ms.levels[t]
+        P = lvl_full.prows.shape[1] if not ms.limited_tree else 0
+        gc = ms.level_group_c[t]
+        parent_joint = joints.get(ms.level_lp[t]) if P > 0 else None
+        if coords_cache is not None:
+            cx = coords_cache[0][t]
+        else:
+            cx = (ms.coords[lvl_full.rows], ms.mv[lvl_full.rows],
+                  ms.coords[lvl_full.prows] if P > 0 else None,
+                  ms.mv[lvl_full.prows] if P > 0 else None)
+
+        def body(carry, args, P=P, parent_joint=parent_joint, gc=gc,
+                 al=ms.level_aligned[t], jpad=ms.joint_pad[t]):
+            lvl, cxr, mvr, cxp, mvp = args
+            S = lvl.rows.shape[1]
+            k = use_k and S <= MAX_S
+            Kcc = _bcov(ms, params, cxr, mvr, cxr, mvr)
+            if ms.limited_tree:
+                _, J, _ = chol_inv_masked(Kcc, lvl.rmask, k)
+                return carry, (J,)
+            Rcc = identity_pad(Kcc, lvl.rmask)
+            LAi = H = None
+            if P > 0:
+                Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr)
+                Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
+                M, H, LAi = _apply_parent_factor(parent_joint, lvl.lp_pos,
+                                                 Kxc, gc, al)
+                Rcc = Rcc - torch.einsum("bps,bpt->bst", M, M)
+            _, Rinv, _ = chol_inv_masked(Rcc, lvl.rmask, k)
+            return carry, (_assemble_joint(LAi, Rinv, H, P, S, gc, pad=jpad),)
+
+        _, (J,) = _run_level((lvl_full, *cx), ms.level_chunks[t], None, body)
+        joints[t] = J
+        if ms.level_lp[t] >= 0:
+            joints.pop(ms.level_lp[t], None)
+    return joints[upto]
+
+
+def predict_recompute(ms: ModelStatic, theta, w, z, coords_cache=None):
+    """Prediction without carried operators (pred_in_carry False): the
+    reference-level factors are re-propagated for ``theta`` and the
+    prediction operators rebuilt slab by slab with the draw fused in, so
+    the (B, S, P) operators of all buckets never exist at once.  ``z`` is
+    the (n+1,) standard-normal draw, as in ``predict``; returns a new w."""
+    if ms.pred_arrays is None:
+        return w
+    params = unpack_theta(theta.to(ms.dtype), ms.spec)
+    parent_joint = _joints_upto(ms, params, ms.pred_lp, coords_cache)
+    w = w.clone()
+    wjs = _w_joints(ms, w, _wj_pred_need(ms))
+
+    def body(carry, args, al=False):
+        lvl, cxr, mvr, cxp, mvp = args
+        Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr)
+        Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
+        _, H, _ = _apply_parent_factor(parent_joint, lvl.lp_pos, Kxc, 1, al)
+        kdiag = pairwise_cov_diag(cxr, mvr, params, ms.spec)
+        r = kdiag - torch.einsum("bsp,bps->bs", H, Kxc)
+        r = torch.where(torch.isfinite(r) & (r > 0), r, 0.0)
+        wpar = _wpar_from(wjs[ms.pred_lp], lvl.lp_pos, al, 1)
+        mean = torch.einsum("bsp,bp->bs", H, wpar)
+        return carry, (torch.where(lvl.rmask, mean + torch.sqrt(r)
+                                   * z[lvl.rows], 0.0),)
+
+    for bi, (plvl, nc, al) in enumerate(
+            zip(ms.pred_arrays, ms.pred_chunks, ms.pred_aligned)):
+        if coords_cache is not None:
+            cx = coords_cache[1][bi]
+        else:
+            cx = (ms.coords[plvl.rows], ms.mv[plvl.rows],
+                  ms.coords[plvl.prows], ms.mv[plvl.prows])
+        _, (wu,) = _run_level((plvl, *cx), nc, None,
+                              lambda c, a, al=al: body(c, a, al))
+        w[plvl.rows] = wu
     return w
 
 

@@ -16,10 +16,21 @@ makes one from a ``torch.Generator`` on the model's device.  The accept
 decision is read on the host (one device sync per iteration; the
 accept-aware step reads the rebuild's ok flag too, on accepted iterations
 only).
+
+``run_mcmc`` keeps draws in chunks.  ``collect="all"`` copies each chunk's
+w draws (f16 on the wire for f32 models) into a pinned host buffer and
+drains them -- f16 decode, the host's yhat, sinks -- on a worker thread up
+to two chunks behind the sampling loop; ``collect="summary"`` accumulates
+posterior moments on the device instead, yhat noise from a second device
+generator, so both modes follow the same chain.  With ``checkpoint_path``
+the drain is sequential and the sampler state, every generator and the
+moments are saved after each chunk (``utils.checkpoint``).
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from typing import NamedTuple
 
@@ -34,6 +45,7 @@ from spamtree_tpu_torch.model.core import (
     level_coords,
     pred_operators_from_joint,
     predict,
+    predict_recompute,
     sweep,
     tausq_shape,
 )
@@ -75,6 +87,20 @@ class MCMCConfig(NamedTuple):
     # the factor-emitting rebuild runs on accept only; None resolves to
     # False, as in the JAX package
     accept_aware: object = None
+    # "all" keeps every kept draw of w/yhat; "summary" accumulates running
+    # mean/variance sums on the device and ships only O(n) totals at the
+    # end (beta/tausq/theta draws are always kept)
+    collect: str = "all"
+    # summary mode only: also keep ~this many strided w/yhat draws, for
+    # quantiles (see _subsample_plan); 0 = moments only
+    summary_draws: int = 0
+    # device->host type of the w draws: None = float16 for float32 models,
+    # no cast otherwise; "none" disables the cast; or a dtype (name)
+    wire_dtype: object = None
+    # resume only: pin the chunk size to the writing run's mc, so burn
+    # rounding and the summary subsample land where the uninterrupted run
+    # puts them; 0 = balanced from keep and chunk
+    mc_fixed: int = 0
 
 
 class StepDraws(NamedTuple):
@@ -206,7 +232,11 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
                            accept_count=ram.accept_count + float(accepted))
 
         if predicting:
-            w = predict(ms, pred_data, w, draws.z_pred)
+            # above 256 MB of prediction operators (pred_in_carry False)
+            # they are rebuilt for the current theta at each kept iteration
+            w = (predict(ms, pred_data, w, draws.z_pred) if ms.pred_in_carry
+                 else predict_recompute(ms, theta, w, draws.z_pred,
+                                        coords_cache))
         tausq_inv, beta, XB = gibbs_beta_tausq(
             ms, w, state.XB, draws.g, draws.z_beta, cfg.tausq_ab, Vi, Vim)
         return MCMCState(w=w, beta=beta, tausq_inv=tausq_inv, XB=XB,
@@ -219,22 +249,143 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
 def chunk_sizes(cfg: MCMCConfig):
     """The balanced chunk geometry (mc, ipc, n_keep_chunks, n_burn_chunks):
     mc kept samples (mc * thin iterations) per chunk, burn rounded up to
-    whole chunks, as in the JAX package."""
+    whole chunks, as in the JAX package.  ``cfg.mc_fixed`` pins mc (resumed
+    runs, burn-only continuations included)."""
     if cfg.keep > 0:
-        n_keep_chunks = -(-cfg.keep // min(cfg.chunk, cfg.keep))
-        mc = -(-cfg.keep // n_keep_chunks)
+        if cfg.mc_fixed:
+            mc = int(cfg.mc_fixed)
+            n_keep_chunks = -(-cfg.keep // mc)
+        else:
+            n_keep_chunks = -(-cfg.keep // min(cfg.chunk, cfg.keep))
+            mc = -(-cfg.keep // n_keep_chunks)
     else:
         n_keep_chunks = 0
-        mc = cfg.chunk
+        mc = int(cfg.mc_fixed) if cfg.mc_fixed else cfg.chunk
     ipc = mc * cfg.thin
     n_burn_chunks = int(np.ceil(cfg.burn / ipc)) if cfg.burn > 0 else 0
     return mc, ipc, n_keep_chunks, n_burn_chunks
 
 
+class Moments(NamedTuple):
+    """Device-side running sums of summary collection: O(n) output
+    whatever keep is.  ``count`` (kept draws summed) is a host number."""
+
+    count: float
+    w_sum: torch.Tensor  # (n,)
+    w_sq: torch.Tensor
+    yh_sum: torch.Tensor
+    yh_sq: torch.Tensor
+
+
+def _resolve_wire(cfg: MCMCConfig, ms: ModelStatic):
+    """Device->host dtype of the w draws (None = ship at the model dtype)."""
+    wd = cfg.wire_dtype
+    if wd is None:  # auto: half the bytes for f32 models
+        return torch.float16 if ms.dtype == torch.float32 else None
+    if wd in (False, "none", "off"):
+        return None
+    d = getattr(torch, wd) if isinstance(wd, str) else wd
+    if not isinstance(d, torch.dtype):
+        raise ValueError(f"wire_dtype {wd!r} is not a torch dtype")
+    return None if d == ms.dtype else d
+
+
+def _moments_zero(ms: ModelStatic) -> Moments:
+    z = lambda: torch.zeros(ms.n, dtype=ms.dtype, device=ms.device)
+    return Moments(0.0, z(), z(), z(), z())
+
+
+def _moments_add(ms: ModelStatic, acc: Moments, state: MCMCState,
+                 z: torch.Tensor) -> Moments:
+    """Add one kept draw: yh = XB + w + tau z (reference: spamtree_fit.cpp:
+    384) with ``z`` the (n,) standard-normal noise, and the five sums."""
+    n = ms.n
+    w_k = state.w[:n]
+    yh = state.XB[:n] + w_k + torch.sqrt(1.0 / state.tausq_inv)[ms.mv[:n]] * z
+    acc.w_sum.add_(w_k)
+    acc.w_sq.addcmul_(w_k, w_k)
+    acc.yh_sum.add_(yh)
+    acc.yh_sq.addcmul_(yh, yh)
+    return acc._replace(count=acc.count + 1.0)
+
+
+def make_yhat_rngs(ms: ModelStatic, seed: int):
+    """The yhat noise streams of a run: a numpy generator for the host's
+    yhat of collect="all", a device generator for summary collection.
+    Neither is the chain's generator, so both modes draw the same chain."""
+    dev_seed = int(np.random.SeedSequence([seed, 1]).generate_state(1)[0])
+    return (np.random.default_rng(seed),
+            torch.Generator(device=ms.device).manual_seed(dev_seed))
+
+
+def _subsample_plan(cfg: MCMCConfig, mc: int, summary: bool):
+    """Summary-mode quantile subsample (``summary_draws``): every
+    ``sub_stride``-th kept draw of a chunk (local indices 0, s, 2s, ...) of
+    every ``chunk_stride``-th chunk is kept, so ~summary_draws draws are
+    kept for any chunk geometry (a chunk-local stride alone cannot keep
+    fewer than one draw per chunk).  Returns (sub_stride, chunk_stride);
+    sub_stride 0 = subsample off."""
+    if not (summary and cfg.summary_draws > 0 and cfg.keep > 0):
+        return 0, 1
+    g = max(1, int(np.ceil(cfg.keep / cfg.summary_draws)))  # global stride
+    if g <= mc:
+        return g, 1
+    return mc, max(1, int(round(g / mc)))
+
+
+def _out_keys(summary: bool, sub_stride: int):
+    """Host-side collection keys."""
+    if not summary:
+        return ("w", "yhat", "beta", "tausq", "theta")
+    return ("beta", "tausq", "theta") + (("w", "yhat") if sub_stride else ())
+
+
+class _Reporter:
+    """Rolling-window and cumulative acceptance reports (reference:
+    RAMAdapt::print/print_summary, mh_adapt.h:137-148, printed from
+    spamtree_fit.cpp:334-372); theta and tausq too with verbose >= 2."""
+
+    def __init__(self, t0, verbose):
+        self.t0, self.verbose = t0, int(verbose)
+        self.prev = dict(acc=0.0, prop=0.0, t=t0, it=0)
+
+    def snap(self, st):
+        """The report's fields of ``st`` as host values."""
+        parts = (st.ram.accept_count, st.ram.propos_count)
+        if self.verbose >= 2:
+            parts += (st.theta.cpu().numpy(),
+                      (1.0 / st.tausq_inv).cpu().numpy())
+        return parts
+
+    def report(self, phase, done, total, snap, iters_done):
+        p = self.prev
+        acc, prop = float(snap[0]), float(snap[1])
+        now = time.time()
+        roll = (acc - p["acc"]) / max(prop - p["prop"], 1.0)
+        ms_it = 1e3 * (now - p["t"]) / max(iters_done - p["it"], 1)
+        print(f"[{phase}] {done}/{total}, {now - self.t0:.2f}s, "
+              f"{ms_it:.1f}ms/iter, accept {roll:.2%} (window) "
+              f"{acc / max(prop, 1.0):.2%} (cumulative)")
+        if self.verbose >= 2 and len(snap) > 2:
+            print(f"  theta = {np.array2string(snap[2], precision=4)}")
+            print(f"  tausq = {np.array2string(snap[3], precision=5)}")
+        self.prev = dict(acc=acc, prop=prop, t=now, it=iters_done)
+
+    def printall(self, theta_s, tausq_s, base):
+        """verbose == 3: every kept iteration's theta and tausq, printed at
+        drain time (the reference's printall, spamtree_fit.cpp:344-350)."""
+        if self.verbose == 3:
+            for i in range(theta_s.shape[0]):
+                print(f"    it {base + i + 1}: theta="
+                      f"{np.array2string(theta_s[i], precision=4)} tausq="
+                      f"{np.array2string(tausq_s[i], precision=5)}")
+
+
 def _make_yhat_host(ms: ModelStatic, rng: np.random.Generator):
     """Host posterior-predictive reconstruction yhat = X beta + w + tau z
     (reference: spamtree_fit.cpp:384) from the (m, n) w draws, (m, p, q)
-    beta and (m, q) tausq draws, with host RNG for z."""
+    beta and (m, q) tausq draws, with host RNG for z.  One covariate at a
+    time, so the largest temporary has the output's shape."""
     X_h = ms.X.cpu().numpy()
     mv_h = ms.mv[: ms.n].cpu().numpy()
 
@@ -249,66 +400,359 @@ def _make_yhat_host(ms: ModelStatic, rng: np.random.Generator):
     return _yhat_host
 
 
+_QUEUE_DEPTH = 2  # chunks queued for the drain thread
+
+
+class HostRing:
+    """Host buffers for the chunk copies, reused: pinned when the model
+    runs on CUDA, where allocating a 100 MB pinned buffer per chunk would
+    cost more than the copy.
+
+    ``copy(tensors)`` takes a free slot (blocking while every slot is in
+    use), fills it from the device tensors with non-blocking copies on the
+    current stream and records an event after them; it returns (slot,
+    {name: host view}, event or None).  ``release(slot)`` hands the slot
+    back once its reader is done with it.  A slot's buffers are sized at
+    first use to ``rows`` draws, or to the tensor when that is longer."""
+
+    def __init__(self, n_slots: int, device: torch.device, rows: int):
+        self.pinned = device.type == "cuda"
+        self.rows = rows
+        self.free: queue.Queue = queue.Queue()
+        for _ in range(n_slots):
+            self.free.put({})
+        self.allocations = 0
+
+    def copy(self, tensors: dict):
+        slot = self.free.get()
+        views = {}
+        for k, t in tensors.items():
+            buf = slot.get(k)
+            if (buf is None or buf.dtype != t.dtype
+                    or buf.shape[1:] != t.shape[1:]
+                    or buf.shape[0] < t.shape[0]):
+                buf = slot[k] = torch.empty(
+                    (max(self.rows, t.shape[0]),) + tuple(t.shape[1:]),
+                    dtype=t.dtype, pin_memory=self.pinned)
+                self.allocations += 1
+            views[k] = buf[: t.shape[0]]
+            views[k].copy_(t, non_blocking=self.pinned)
+        event = None
+        if self.pinned:
+            event = torch.cuda.Event()
+            event.record()
+        return slot, views, event
+
+    def release(self, slot):
+        self.free.put(slot)
+
+
+def _drain_samples(host, m_take, *, summary, wire, sinks, outs, yhat_host):
+    """Store one chunk's host copies (``host``: torch tensors in pinned or
+    host buffers that are reused, so everything kept is copied out):
+    decode the w wire type, rebuild yhat, route w/yhat to the sinks or to
+    RAM, keep the small parameters.  Raises on a non-finite theta draw
+    (reference aborts on a NaN loglik, spamtree_fit.cpp:234-237).  Returns
+    (theta_s, tausq_s, beta_s)."""
+    beta_s, tausq_s, theta_s = (host[k][:m_take].numpy().copy()
+                                for k in ("beta", "tausq", "theta"))
+    if not summary:
+        w_t = host["w"][:m_take]
+        w_s = (w_t.to(torch.float32) if wire is not None
+               else w_t.clone()).numpy()
+        yhat_s = yhat_host(w_s, beta_s, tausq_s)
+        if sinks is not None:
+            sinks["w"].push(w_s.astype(np.float32, copy=False))
+            sinks["yhat"].push(yhat_s.astype(np.float32, copy=False))
+        else:
+            outs["w"].append(w_s)
+            outs["yhat"].append(yhat_s)
+    outs["beta"].append(beta_s)
+    outs["tausq"].append(tausq_s)
+    outs["theta"].append(theta_s)
+    if not np.isfinite(theta_s).all():
+        raise FloatingPointError(
+            "non-finite theta in chain; aborting (NaN loglik guard)")
+    return theta_s, tausq_s, beta_s
+
+
+def _drain_subsample(w_sub, m_take, stride, beta_s, tausq_s, *, wire, outs,
+                     yhat_host):
+    """Summary-mode quantile subsample: store the chunk's strided w draws
+    (only these were copied) and their yhat."""
+    sub_take = -(-m_take // stride)  # kept draws at local indices 0, s, ..
+    w_t = w_sub[:sub_take]
+    w_s = (w_t.to(torch.float32) if wire is not None else w_t.clone()).numpy()
+    pos = np.arange(sub_take) * stride
+    outs["w"].append(w_s)
+    outs["yhat"].append(yhat_host(w_s, beta_s[pos], tausq_s[pos]))
+
+
+def _make_sinks(sink_dir, summary, sink_append):
+    """Sample sinks for the row-indexed draws (w, yhat): stream them to disk
+    on the native writer thread instead of holding them in host RAM (n ~
+    1e6).  ``sink_append`` continues existing files (resumed runs)."""
+    if sink_dir is None or summary:
+        return None
+    import os
+
+    from spamtree_tpu_torch.utils.native import SampleSink
+
+    os.makedirs(sink_dir, exist_ok=True)
+    return {k: SampleSink(os.path.join(sink_dir, f"{k}_mcmc.f32"),
+                          append=sink_append)
+            for k in ("w", "yhat")}
+
+
+def _drain_loop(n_keep_chunks, dispatch, drain, pipeline):
+    """The chunked keep loop.  ``dispatch(ki)`` runs chunk ki and returns
+    the drain payload (host copies in flight); ``drain(*payload)`` waits for
+    them and stores the samples.
+
+    Pipelined, the drains run on a worker thread at most ``_QUEUE_DEPTH``
+    chunks behind, so the host's drain work overlaps the next chunks'
+    iterations.  Not when checkpointing: a saved state must never run ahead
+    of the drained samples.
+
+    KeyboardInterrupt keeps partial results, as the reference's
+    checkInterrupt polling does (spamtree_fit.cpp:336,355-360); chunks
+    already run are drained, and a further interrupt while they flush does
+    not drop them.  A drain's error -- the non-finite-theta guard included
+    -- is raised after the worker has stopped: up to two chunks late when
+    pipelined."""
+    if not pipeline:
+        try:
+            for ki in range(n_keep_chunks):
+                drain(*dispatch(ki))
+        except KeyboardInterrupt:
+            print("MCMC interrupted; returning partial results.")
+        return
+
+    q: queue.Queue = queue.Queue(maxsize=_QUEUE_DEPTH)
+    fail: list = []
+    done = threading.Event()
+
+    def _worker():
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                drain(*item)
+        except BaseException as e:  # raised by the main thread after join
+            fail.append(e)
+        finally:
+            done.set()
+
+    def _put(item) -> bool:
+        # never block forever on a dead worker (a failed drain stops it)
+        while not fail:
+            try:
+                q.put(item, timeout=1.0)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    t = threading.Thread(target=_worker, name="spamtree-drain", daemon=True)
+    t.start()
+    interrupted = False
+    try:
+        for ki in range(n_keep_chunks):
+            if fail or not _put(dispatch(ki)):
+                break
+    except KeyboardInterrupt:
+        interrupted = True
+    finally:
+        # flush what is queued even under further interrupts: each queued
+        # chunk's iterations already ran and its draws exist nowhere else.
+        # (An interrupted Thread.join marks a live thread as stopped, so
+        # the wait is on an event the worker sets as it ends.)
+        sent = False
+        while True:
+            try:
+                sent = sent or _put(None)
+                done.wait()
+                break
+            except KeyboardInterrupt:
+                interrupted = True
+                print("MCMC interrupted again; still draining the chunks "
+                      "already run.")
+        t.join()
+    if interrupted:
+        print("MCMC interrupted; returning partial results.")
+    if fail:
+        raise fail[0]
+
+
+def _summary_result(res, acc: Moments, empty_shape):
+    """Summary collection's outputs: the running sums as posterior
+    mean/variance fields; the draw arrays stay empty unless the quantile
+    subsample (summary_draws) filled them."""
+    cnt = max(acc.count, 1.0)
+    h = lambda a: a.cpu().numpy()
+    w_mean = h(acc.w_sum) / cnt
+    yh_mean = h(acc.yh_sum) / cnt
+    res["w_mean"] = w_mean
+    res["w_var"] = np.maximum(h(acc.w_sq) / cnt - w_mean**2, 0.0)
+    res["yhat_mean"] = yh_mean
+    res["yhat_var"] = np.maximum(h(acc.yh_sq) / cnt - yh_mean**2, 0.0)
+    res["summary_count"] = cnt
+    if "w" not in res or res["w"].size == 0:
+        res["w"] = np.zeros(empty_shape)
+        res["yhat"] = np.zeros(empty_shape)
+
+
 def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
              state: MCMCState, gen: torch.Generator, verbose: bool = False,
-             yhat_seed: int = 0) -> dict:
+             yhat_seed: int = 0, checkpoint_path: str | None = None,
+             sink_dir: str | None = None, sink_append: bool = False,
+             init_moments: Moments | None = None, base_counts=(0, 0),
+             yhat_rngs=None) -> dict:
     """Burn, then keep in chunks; returns host-side sample arrays.
 
     Burn runs ``n_burn_chunks * mc * thin`` iterations (``burn_actual``)
     without prediction.  Each kept sample is the last of ``thin`` iterations
-    and the only one that predicts.  A chunk's draws cross to the host in
-    one transfer, where yhat is rebuilt."""
+    and the only one that predicts; the last chunk runs only the kept
+    samples still missing.  ``gen`` is the chain's generator;
+    ``yhat_rngs`` (default ``make_yhat_rngs(ms, yhat_seed)``) the yhat
+    noise streams.
+
+    ``checkpoint_path``: the sampler state, the generators, the moments and
+    (mc, burn_done, kept_done, thin) are saved there after every chunk;
+    ``base_counts`` = (burn_done, kept_done) of the runs this one continues
+    and ``init_moments`` their moments (``api.spamtree``'s resume).
+    ``sink_dir``: w/yhat draws stream to files there instead of RAM
+    (``sink_append`` continues them)."""
+    if cfg.collect not in ("all", "summary"):
+        raise ValueError(f"collect={cfg.collect!r}: 'all' or 'summary'")
     n = ms.n
+    wire = _resolve_wire(cfg, ms)
+    summary = cfg.collect == "summary"
     mc, ipc, n_keep_chunks, n_burn_chunks = chunk_sizes(cfg)
     burn_actual = n_burn_chunks * ipc
+    sub_stride, sub_cstride = _subsample_plan(cfg, mc, summary)
     step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms))
     nt = state.theta.shape[0]
     shape = tausq_shape(ms, cfg.tausq_ab)
-    yhat_host = _make_yhat_host(ms, np.random.default_rng(yhat_seed))
+    if yhat_rngs is None:
+        yhat_rngs = make_yhat_rngs(ms, yhat_seed)
+    host_rng, gen_yhat = yhat_rngs
+    yhat_host = _make_yhat_host(ms, host_rng)
+    acc = ((init_moments if init_moments is not None else _moments_zero(ms))
+           if summary else None)
+    burn_done0, kept_done0 = base_counts
 
     def one(s, predicting):
         return step(s, draw_step(ms, gen, nt, shape), predicting)
 
-    def report(phase, done, total, s):
-        if verbose:
-            print(f"[{phase}] {done}/{total}, {time.time() - t0:.2f}s, "
-                  f"accept {s.ram.accept_count / max(s.ram.propos_count, 1):.2%}")
+    def save(burn_done, kept_done):
+        nonlocal save_s
+        from spamtree_tpu_torch.utils.checkpoint import save_state
+
+        t_s = time.time()
+        save_state(checkpoint_path, state, gen, yhat_rngs, moments=acc,
+                   counts=(mc, burn_done, kept_done, cfg.thin))
+        save_s += time.time() - t_s
 
     if ms.device.type == "cuda":
         torch.cuda.synchronize(ms.device)
     t0 = time.time()
+    rep = _Reporter(t0, verbose)
+    # host seconds in the iterations alone (each syncs once, on the accept
+    # decision), in the checkpoint saves, and in the drains' own work (on
+    # the worker thread when pipelined, so overlapping the iterations)
+    iter_s = save_s = drain_work_s = 0.0
     for bi in range(n_burn_chunks):
+        t_it = time.time()
         for _ in range(ipc):
             state = one(state, False)
-        report("burn", (bi + 1) * ipc, burn_actual, state)
+        iter_s += time.time() - t_it
+        if checkpoint_path:
+            save(burn_done0 + (bi + 1) * ipc, kept_done0)
+        if verbose:
+            rep.report("burn", (bi + 1) * ipc, burn_actual, rep.snap(state),
+                       (bi + 1) * ipc)
 
-    outs = {k: [] for k in ("w", "yhat", "beta", "tausq", "theta")}
-    kept = 0
-    for ki in range(n_keep_chunks):
-        draws = []
-        for _ in range(min(mc, cfg.keep - ki * mc)):
+    sinks = _make_sinks(sink_dir, summary, sink_append)
+    outs = {k: [] for k in _out_keys(summary, sub_stride)}
+    drained = 0
+    # pipelined drain (see _drain_loop); sequential when checkpointing, so
+    # the saved state never runs ahead of the drained samples
+    pipeline = checkpoint_path is None
+    ring = HostRing(_QUEUE_DEPTH + 1 if pipeline else 1, ms.device, mc)
+
+    def _dispatch(ki):
+        nonlocal state, acc, iter_s
+        take = min(mc, cfg.keep - ki * mc)
+        # skipped chunks' subsample draws are never copied
+        use_sub = bool(sub_stride) and ki % sub_cstride == 0
+        small, ws = [], []
+        t_it = time.time()
+        for j in range(take):
             for i in range(cfg.thin):
                 state = one(state, i == cfg.thin - 1)
-            draws.append((state.w[:n], state.beta, 1.0 / state.tausq_inv,
-                          state.theta))
-        w_s, beta_s, tausq_s, theta_s = (
-            torch.stack(d).cpu().numpy() for d in zip(*draws))
-        if not np.isfinite(theta_s).all():
-            raise FloatingPointError(
-                "non-finite theta in chain; aborting (NaN loglik guard)")
-        outs["w"].append(w_s)
-        outs["yhat"].append(yhat_host(w_s, beta_s, tausq_s))
-        outs["beta"].append(beta_s)
-        outs["tausq"].append(tausq_s)
-        outs["theta"].append(theta_s)
-        kept += len(draws)
-        report("keep", kept, cfg.keep, state)
+            if summary:
+                acc = _moments_add(ms, acc, state, torch.randn(
+                    n, generator=gen_yhat, dtype=ms.dtype, device=ms.device))
+            small.append((state.beta, 1.0 / state.tausq_inv, state.theta))
+            if not summary or (use_sub and j % sub_stride == 0):
+                ws.append(state.w[:n])
+        iter_s += time.time() - t_it
+        dev = {k: torch.stack(v)
+               for k, v in zip(("beta", "tausq", "theta"), zip(*small))}
+        if ws:
+            w_dev = torch.stack(ws)
+            dev["w"] = w_dev.to(wire) if wire is not None else w_dev
+        slot, host, event = ring.copy(dev)
+        # dev stays referenced until the drain has waited for its copies
+        return (slot, host, event, dev, take, use_sub,
+                rep.snap(state) if verbose else None)
+
+    def _drain(slot, host, event, dev, m_take, use_sub, rep_snap):
+        nonlocal drained, drain_work_s
+        try:
+            if event is not None:
+                event.synchronize()
+            t_d = time.time()
+            theta_s, tausq_s, beta_s = _drain_samples(
+                host, m_take, summary=summary, wire=wire, sinks=sinks,
+                outs=outs, yhat_host=yhat_host)
+            if use_sub:
+                _drain_subsample(host["w"], m_take, sub_stride, beta_s,
+                                 tausq_s, wire=wire, outs=outs,
+                                 yhat_host=yhat_host)
+        finally:
+            del dev
+            ring.release(slot)
+        drain_work_s += time.time() - t_d
+        drained += m_take
+        if checkpoint_path:
+            # sequential drain: the live state is the just-drained chunk's
+            save(burn_done0 + burn_actual, kept_done0 + drained)
+        if verbose:
+            rep.report("keep", drained, cfg.keep, rep_snap,
+                       burn_actual + drained * cfg.thin)
+        rep.printall(theta_s, tausq_s, drained - theta_s.shape[0])
+
+    _drain_loop(n_keep_chunks, _dispatch, _drain, pipeline)
+
+    if sinks is not None:
+        for sk in sinks.values():
+            sk.close()
     if ms.device.type == "cuda":
         torch.cuda.synchronize(ms.device)
     res = {k: (np.concatenate(v) if v else np.zeros((0,)))
            for k, v in outs.items()}
+    if sinks is not None:
+        res["sink_files"] = {k: sk.path for k, sk in sinks.items()}
+    if summary:
+        _summary_result(res, acc, (0, n))
     res["burn_actual"] = burn_actual
     res["mcmc_time"] = time.time() - t0
+    res["iter_s"] = iter_s
+    res["save_s"] = save_s
+    res["drain_work_s"] = drain_work_s
     res["paramsd"] = state.ram.paramsd.cpu().numpy()
     res["accept_ratio"] = state.ram.accept_count / max(state.ram.propos_count, 1)
     res["state"] = state

@@ -180,11 +180,12 @@ def pairwise_cov_diag(cx, mv, params: CovParams, spec: CovModel):
 
 
 def cross_covariance_ag10(coords1, mv1, coords2, mv2, ai1, ai2, phi_i,
-                          thetamv, Dmat, device="cpu",
+                          thetamv, Dmat, device="cuda",
                           dtype=torch.float64) -> torch.Tensor:
     """Public AG10 cross-covariance builder for data generation (reference
     ``CrossCovarianceAG10``, covariance_functions.cpp:301-355).  ``mv*``
-    are 1-based margin ids, as in the reference's user-facing API."""
+    are 1-based margin ids, as in the reference's user-facing API.  Runs
+    on ``device`` (pass "cpu" where there is no card)."""
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     coords1, coords2, Dmat = t(coords1), t(coords2), t(Dmat)
     q = Dmat.shape[0]

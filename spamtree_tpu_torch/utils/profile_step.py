@@ -1,7 +1,7 @@
 """Where one MCMC iteration's time goes, on one CUDA card.
 
     python -m spamtree_tpu_torch.utils.profile_step [--config 3] [--iters 20]
-        [--ab k1|step]
+        [--ab k1|step|drain]
 
 Run from the repository root (it takes its data and the configuration's
 own keywords, such as config 5's ``limited_tree=True``, from ``bench.py``).
@@ -16,7 +16,16 @@ with the variants of ``--ab`` in turns on the same chain:
   fused level kernels K3/K4 on (``SPAMTREE_LEVEL_KERNELS=1``), five rounds
   of (always-emit, accept-aware, accept-aware + kernels, and back).
 
-Then it traces ``--iters`` iterations of each variant with
+* ``drain``: whole ``run_mcmc`` runs at the configuration's own keep,
+  burn, thin and chunk instead of single iterations, all from one prepared
+  chain and the same generator seed (so the same chain): collect="all"
+  with the pipelined drain, the same with ``checkpoint_path`` (the
+  sequential drain and a save after every chunk), and collect="summary";
+  in turns (pipelined, sequential, summary, and back).  Each run
+  prints a JSON line with mcmc_time and its split (iter_s, save_s, the
+  drains' share and the drains' own work), then the medians; no trace.
+
+Otherwise it traces ``--iters`` iterations of each variant with
 ``torch.profiler`` and prints JSON lines: median ms per iteration of each
 variant (untraced) and every run's, and per variant the device-busy ms per
 iteration summed over the traced kernels, the device idle share (1 - busy /
@@ -48,8 +57,10 @@ def main():
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=30)
     ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--ab", choices=("k1", "step"), default="k1")
+    ap.add_argument("--ab", choices=("k1", "step", "drain"), default="k1")
     args = ap.parse_args()
+    if args.ab == "drain":
+        return drain_ab(args.config)
 
     import bench
     from spamtree_tpu_torch.api import prepare_fit
@@ -141,6 +152,48 @@ def main():
     for name, us, count in rows[: args.top]:
         print(json.dumps(dict(kernel=name[:90], ms_per_iter=us / 1e3 / args.iters,
                               calls_per_iter=count / args.iters)))
+
+
+def drain_ab(config: int):
+    """``--ab drain`` (see the module docstring)."""
+    import tempfile
+
+    import bench
+    from spamtree_tpu_torch.api import prepare_fit
+    from spamtree_tpu_torch.model.mcmc import run_mcmc
+
+    c = bench.CONFIGS[config]
+    y, _, _, X, coords, mv = c["maker"]()
+    fit = prepare_fit(y - np.nanmean(y), X, coords, mv_id=mv,
+                      mcmc=dict(keep=c["keep"], burn=c["burn"],
+                                thin=c["thin"]),
+                      settings=dict(chunk=c.get("chunk", 50)), device="cuda",
+                      **c.get("kwargs", {}))
+    names = ["pipelined", "sequential", "summary"]
+    runs = {k: [] for k in names}
+    with tempfile.TemporaryDirectory() as d:
+        for name in names + names[::-1]:
+            cfg = fit.cfg._replace(
+                collect="summary" if name == "summary" else "all")
+            gen = torch.Generator(device=fit.ms.device).manual_seed(1)
+            ck = os.path.join(d, "ck.npz") if name == "sequential" else None
+            r = run_mcmc(fit.ms, fit.bounds, cfg, fit.state, gen,
+                         checkpoint_path=ck)
+            rec = dict(mode=name, mcmc_time=r["mcmc_time"],
+                       iter_s=r["iter_s"], save_s=r["save_s"],
+                       drain_s=r["mcmc_time"] - r["iter_s"] - r["save_s"],
+                       drain_work_s=r["drain_work_s"],
+                       accept=r["accept_ratio"])
+            runs[name].append(rec)
+            print(json.dumps(rec), flush=True)
+            del r
+    print(json.dumps(dict(
+        config=config, n=fit.ms.n, ab="drain", keep=c["keep"], burn=c["burn"],
+        chunk=c.get("chunk", 50),
+        **{f"{k}_{name}": float(np.median([r[k] for r in runs[name]]))
+           for name in names
+           for k in ("mcmc_time", "iter_s", "save_s", "drain_s",
+                     "drain_work_s")})))
 
 
 if __name__ == "__main__":

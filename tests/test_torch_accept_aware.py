@@ -55,7 +55,7 @@ def _models(limited, jax_too=True):
         build_schedule(make_tree(coords, np.isfinite(y), mv,
                                  rng=np.random.default_rng(0), **kw),
                        limited_tree=limited),
-        coords, mv, y, X, tspec.spec, dtype=torch.float64)
+        coords, mv, y, X, tspec.spec, dtype=torch.float64, device="cpu")
     ms_j = cj.ModelStatic(
         build_schedule_jax(make_tree_jax(coords, np.isfinite(y), mv,
                                          rng=np.random.default_rng(0), **kw),

@@ -50,7 +50,8 @@ def _models(case):
     ms_j = cj.ModelStatic(build_schedule_jax(tree_j), coords, mv, y, X, spec,
                           dtype=jnp.float64, chunk_bytes=chunk_bytes)
     ms_t = ct.ModelStatic(build_schedule(tree_t), coords, mv, y, X, spec,
-                          dtype=torch.float64, chunk_bytes=chunk_bytes)
+                          dtype=torch.float64, chunk_bytes=chunk_bytes,
+                          device="cpu")
     return ms_j, ms_t, rng
 
 

@@ -65,6 +65,7 @@ def test_covariance_matches_jax(model, q, dd):
         tmv = theta[3 * q:3 * q + spec_j.n_cbase]
         D = np.array(pj.Dmat)
         args = (c1[0], m1[0] + 1, c2[0], m2[0] + 1, ai1, ai2, phi, tmv, D)
-        np.testing.assert_allclose(ct.cross_covariance_ag10(*args).numpy(),
+        np.testing.assert_allclose(ct.cross_covariance_ag10(
+                                       *args, device="cpu").numpy(),
                                    np.asarray(cj.cross_covariance_ag10(*args)),
                                    rtol=RTOL)

@@ -502,7 +502,7 @@ def _models(limited, align_min_p=128, n_loc=220, seed=3, imbalance=None):
         build_schedule(make_tree(coords, na, mv,
                                  rng=np.random.default_rng(0), **kw),
                        limited_tree=limited, align_min_p=align_min_p),
-        coords, mv, y, X, spec.spec, dtype=torch.float64)
+        coords, mv, y, X, spec.spec, dtype=torch.float64, device="cpu")
     thin = [t for t in range(len(ms_t.levels))
             if not ms_t.level_is_ref[t] and ms_t.levels[t].prows.shape[1] > 0]
     assert thin, "the model must have a thin level with parents"

@@ -75,7 +75,7 @@ def test_steps_match_jax_across_accept_and_reject():
     ms_t = ct.ModelStatic(
         build_schedule(make_tree(coords, na, mv,
                                  rng=np.random.default_rng(0), **kw)),
-        coords, mv, y, X, tspec.spec, dtype=torch.float64)
+        coords, mv, y, X, tspec.spec, dtype=torch.float64, device="cpu")
 
     # per-dimension proposal: ai1[1]'s support is (-1e3, 1e3), so its
     # logit-scale step must be far smaller for proposals to be accepted
