@@ -14,8 +14,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    with and without L, each batch also with one non-SPD block that must
    come out ok=False; times both at the config-3 shapes,
    Linv alone (K1) and with L (the TPU's K2);
-4. runs spamtree(device="cuda") on bench config 1 (n=625) at its full
-   keep=1000, burn=1000, thin=2 (the always-emit theta step);
+4. runs spamtree(device="cuda") on bench config 1 (n=625) at keep=500,
+   burn=500, thin=2 (the always-emit theta step; the bench's keep=1000,
+   burn=1000 cut to keep the whole run near half its time limit);
 5. runs config 3 (n=1e5, bivariate AG10) with burn=200, keep=100, thin=2.
    Both runs must give finite draws, RMSPE < 0.5 sd(y) on the held-out rows,
    acceptance in (0.05, 0.8), and K1 launched twice per iteration on every
@@ -36,8 +37,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    config 5's shapes too, K3 and K4 over rotating inputs larger than the
    L2 cache, K3 also in f64 where its two rows capacities serve;
 7. the accept-aware theta step (MCMCConfig(accept_aware=True)) with the
-   fused level kernels on (SPAMTREE_LEVEL_KERNELS=1): config 1 (keep=500,
-   burn=500, thin=2), config 3 with composed factor parts on (the default)
+   fused level kernels on (SPAMTREE_LEVEL_KERNELS=1): config 1 (keep=250,
+   burn=250, thin=2), config 3 with composed factor parts on (the default)
    and off (burn=200, keep=100, thin=2), and config 1 on the limited tree
    (keep=200, burn=200, thin=1).  Each must meet phase 5's checks, launch
    K3 on every thin level of every iteration, and K4 on every thin level
@@ -70,8 +71,24 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    RMSPE < 0.5 sd(y), agreement with the fit's own prediction at those
    rows within tests/test_predict_new.py's envelope, K1 launched once per
    reference level that _joints_upto factors per draw (one on a limited
-   tree).  Each of phases 8-11 sets the launch counts to 0 before its run
-   and reads them after; K1 must launch in each.
+   tree).  Each of phases 8-15 sets the launch counts to 0 before its run
+   and reads them after; K1 must launch in each;
+12. bench config 2 (n=1e4, univariate, deep tree) at its own keep=500,
+   burn=500, thin=2, the always-emit step: phase 5's checks, and RMSPE
+   within 15 % of the JAX package's on the same data (JAX_RMSPE);
+13. bench config 4 (n=6e4, q=3, imbalanced misaligned margins,
+   mvbias=1.0) at keep=300, burn=500, thin=2, always-emit: the same;
+14. config 4 with the accept-aware step, the level kernels on and no
+   composed factor parts: K3 and K4 are first held against their plain
+   versions, f32 and f64, at the model's own thin levels through its own
+   lp_pos (K3's variant printed per shape), then the run must meet phase
+   7's and 12's checks and launch K3 and K4 on every thin level of every
+   iteration; after it K1, K3 and K4 are timed at its level shapes;
+15. the oracle chain: tests/test_torch_oracle.py's univariate_parity, the
+   port's float64 chain on the card against the dense NumPy oracle of the
+   reference sampler on the host, with the assertions of
+   tests/test_reference_oracle.py::test_posterior_parity_vs_dense_oracle;
+   K1 must launch (in float64).
 
 Kernel and plain times (the kernels record's ms and plain_ms) are CUDA
 events around eager calls of the wrappers the sweeps call, host time
@@ -122,6 +139,9 @@ K3_VARIANT_SHAPES = [(64, 48, 32), (64, 128, 12), (64, 1, 1), (64, 32, 128),
 # 1's thin level, and the tiled variant
 K3_TIME_SHAPES = [CONFIG3_THIN, (1024, 32, 128), (16, 18, 69),
                   (1024, 73, 320)]
+# the JAX package's held-out RMSPE and sd(y) at bench configs 2 and 4 on
+# the same data (BENCH_RESULTS.md:61, :63); the port must come within 15 %
+JAX_RMSPE = {2: (0.324, 1.53), 4: (0.369, 0.93)}
 L2_BYTES = 50e6
 TOL = {"float32": 1e-4, "float64": 1e-10}  # max|dLinv| <= TOL * max|Linv|
 # the published H100 SXM peaks that bound a kernel: device memory rate and
@@ -412,15 +432,35 @@ def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin,
            f"acceptance {out['accept_ratio']} outside (0.05, 0.8)")
     _check(n_ref > 0 and launches >= 2 * n_ref * iters,
            f"K1 launches {launches} < 2 x {n_ref} ref levels x {iters} its")
+    _check_reference(cfg_id, rmspe, sd)
     thin_lvls = [(p.B, p.S, p.P) for p in out["schedule"].levels
                  if not p.is_ref and p.P > 0]
     return res, thin_lvls, out
 
 
+def _check_reference(cfg_id, rmspe, sd):
+    """RMSPE within 15 % of the JAX package's at the configs it recorded
+    (the same data: sd(y) must match to 1 %)."""
+    if cfg_id not in JAX_RMSPE:
+        return
+    r_ref, sd_ref = JAX_RMSPE[cfg_id]
+    print(f"config {cfg_id}: RMSPE {rmspe:.4f} / sd(y) {sd:.4f} against the "
+          f"JAX package's {r_ref} / {sd_ref}", flush=True)
+    _check(abs(sd - sd_ref) < 0.01 * sd_ref,
+           f"config {cfg_id}: sd(y) {sd} is not the reference data's {sd_ref}")
+    _check(abs(rmspe - r_ref) < 0.15 * r_ref,
+           f"config {cfg_id}: RMSPE {rmspe} not within 15 % of {r_ref}")
+
+
 def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
-                     composed=True, limited=False, chunk=200):
-    """prepare_fit, then run_mcmc with the accept-aware theta step and the
-    fused level kernels on; returns the run's record."""
+                     composed=True, limited=False, chunk=200, knobs=None,
+                     check_levels=False):
+    """prepare_fit (``knobs`` to it), then run_mcmc with the accept-aware
+    theta step and the fused level kernels on; with ``check_levels`` K3
+    and K4 are first held against their plain versions at the model's own
+    thin levels and parent positions (lp_pos).  Returns the run's record
+    (with ``level_err``, the check's f32 errors, when checked) and the
+    model and final state."""
     from spamtree_tpu_torch.api import prepare_fit
     from spamtree_tpu_torch.model import core
     from spamtree_tpu_torch.model.mcmc import run_mcmc
@@ -435,7 +475,7 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
         fit = prepare_fit(y - ybar, X, coords, mv_id=mv, cell_size=25,
                           mcmc=dict(keep=keep, burn=burn, thin=thin),
                           settings=dict(chunk=chunk), seed=1, device="cuda",
-                          limited_tree=limited)
+                          limited_tree=limited, **(knobs or {}))
         setup = time.time() - t0
         ms = fit.ms
         L = len(ms.levels)
@@ -454,6 +494,20 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
         k4_lvls = [t for t in k3_lvls if ms.level_group_c[t] <= 1
                    and not compose[ms.level_lp[t]]]
         all_compose = all(compose[ms.level_lp[t]] for t in thin_lvls)
+        level_err = None
+        if check_levels:
+            cases = []
+            for t in thin_lvls:
+                lv = ms.levels[t]
+                B, S = lv.rows.shape
+                al = ms.level_aligned[t]
+                cases.append((f"{c['name']} thin level {t}", B, S,
+                              lv.prows.shape[1], None if al else
+                              ms.levels[ms.level_lp[t]].rows.shape[0],
+                              None if al else lv.lp_pos))
+            err = check_level_kernels(level, torch, cases=cases)
+            level_err = {k: max(e[k] for e in err.values())
+                         for k in ("k3", "k4")}
         _reset_counts(chol, level)
         res = run_mcmc(ms, fit.bounds, fit.cfg._replace(accept_aware=True),
                        fit.state, fit.gen, yhat_seed=1)
@@ -476,6 +530,8 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
                pred_in_carry=ms.pred_in_carry,
                thin_levels=_level_shapes(ms.levels[t] for t in thin_lvls),
                k3_levels=len(k3_lvls), k4_levels=len(k4_lvls),
+               level_aligned=[ms.level_aligned[t] for t in thin_lvls],
+               level_err=level_err,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                setup_breakdown=fit.setup_breakdown)
     print(json.dumps(rec), flush=True)
@@ -495,6 +551,7 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
            f"K4 launches {k4} < {len(k4_lvls)} thin levels x {iters} its")
     _check((k4 == 0) == all_compose,
            f"K4 launches {k4} but every thin parent composes: {all_compose}")
+    _check_reference(cfg_id, rmspe, sd)
     return rec, (ms, res["state"])
 
 
@@ -648,13 +705,34 @@ def run_predict(bench, chol, level, torch, fit, m=10_000, n_draws=50):
     return rec
 
 
-def _level_inputs(torch, dtype, B, S, P, Bp, seed, bad):
+def run_oracle(chol, level, torch):
+    """Phase 15: tests/test_torch_oracle.py's univariate_parity -- the
+    dense NumPy oracle of the reference sampler on the host, the port's
+    float64 chain (prior, starting values, tree and thresholds of
+    tests/test_reference_oracle.py::test_posterior_parity_vs_dense_oracle)
+    on the card, that test's assertions.  K1 must launch (in float64)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from test_torch_oracle import univariate_parity
+
+    _reset_counts(chol, level)
+    t0 = time.time()
+    res = univariate_parity(device="cuda")
+    rec = dict(phase="oracle_f64", dtype="float64", wall_s=time.time() - t0,
+               **res, **_counts(chol, level))
+    print(json.dumps(rec), flush=True)
+    _check(rec["k1_launches"] > 0, "K1 never launched in the f64 oracle run")
+    return rec
+
+
+def _level_inputs(torch, dtype, B, S, P, Bp, seed, bad, lp_pos=None):
     """K3 and K4 inputs at realistic magnitudes (M = LAi Kxc ~ N(0, 1),
     hk = sum_p M^2 ~ P with a heavy upper tail, kdiag = hk + (1.5 P, 3 P),
     so that r = kdiag - hk > 0 on every row of the largest batch at small P
     too, as on the model's path where the joint is a factor of the
     covariance that kdiag comes from): block 1 partly masked; with ``bad``
-    block B-1 gets kdiag < 0, so r <= 0 there and its ok flag must be 0."""
+    block B-1 gets kdiag < 0, so r <= 0 there and its ok flag must be 0.
+    ``lp_pos`` (into Bp parents) is drawn at random unless given."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     kw = dict(generator=g, device="cuda", dtype=dtype)
 
@@ -663,8 +741,9 @@ def _level_inputs(torch, dtype, B, S, P, Bp, seed, bad):
 
     rmask = torch.ones(B, S, device="cuda", dtype=dtype)
     rmask[1, S // 2:] = 0.0
-    lp_pos = (torch.arange(B, device="cuda") if Bp is None else
-              torch.randint(0, Bp, (B,), generator=g, device="cuda"))
+    if lp_pos is None:
+        lp_pos = (torch.arange(B, device="cuda") if Bp is None else
+                  torch.randint(0, Bp, (B,), generator=g, device="cuda"))
     dec = dict(Kxc=torch.randn(B, P, S, **kw),
                joint=torch.randn(B if Bp is None else Bp, P, P, **kw) / P ** 0.5,
                lp_pos=lp_pos, wpar=torch.randn(B, P, **kw),
@@ -686,23 +765,30 @@ def _close(k, p, tol):
     return bool(((k - p).abs() <= tol * p.abs().clamp(min=1.0)).all())
 
 
-def check_level_kernels(level, torch, thin3):
-    """K3 and K4 against their plain versions, at config 5's four thin
-    levels through lp_pos on its 16384 parents among the cases; returns the
-    largest f32 |d| of each (wu/msg; the per-block partials) at config 5's
-    levels and at config 3's, {"config5": {"k3", "k4"}, "config3": ...}."""
-    B3, S3, P3 = thin3
-    cases = [("config3", B3, S3, P3, None), ("config1", 16, 18, 69, 12),
-             ("p128", 64, 68, 128, None), ("p384", 64, 68, 384, None),
-             ("edge", 8, 512, 1024, None)]
-    cases += [("config5", *shp, CONFIG5_SHAPES[-1][0]) for shp in CONFIG5_THIN]
-    err = {path: {"k3": 0.0, "k4": 0.0} for path in ("config5", "config3")}
+def check_level_kernels(level, torch, thin3=None, cases=None):
+    """K3 and K4 against their plain versions, f32 and f64, at ``cases``
+    [(name, B, S, P, Bp or None when aligned, lp_pos or None)]; by default
+    config 3's thin level ``thin3``, config 1's, the K5 layouts, the gate's
+    edge and config 5's four thin levels through lp_pos on its 16384
+    parents.  Returns the largest f32 |d| of each (wu/msg; the per-block
+    partials) per case name, {"config5": {"k3", "k4"}, "config3": ...}."""
+    if cases is None:
+        B3, S3, P3 = thin3
+        cases = [("config3", B3, S3, P3, None, None),
+                 ("config1", 16, 18, 69, 12, None),
+                 ("p128", 64, 68, 128, None, None),
+                 ("p384", 64, 68, 384, None, None),
+                 ("edge", 8, 512, 1024, None, None)]
+        cases += [("config5", *shp, CONFIG5_SHAPES[-1][0], None)
+                  for shp in CONFIG5_THIN]
+    err = {}
     for dname in ("float32", "float64"):
         dtype, tol = getattr(torch, dname), TOL[dname]
-        for name, B, S, P, Bp in cases:
+        for name, B, S, P, Bp, lp_pos in cases:
             for bad in (False, True):
                 dec, gib = _level_inputs(torch, dtype, B, S, P, Bp,
-                                         seed=B + S + P, bad=bad)
+                                         seed=B + S + P, bad=bad,
+                                         lp_pos=lp_pos)
                 aligned = Bp is None
                 pk = level.thin_decision_partials(**dec, aligned=aligned)
                 pp = level.thin_decision_partials_plain(**dec, aligned=aligned)
@@ -725,13 +811,13 @@ def check_level_kernels(level, torch, thin3):
                 _check(_close(wk, wp, tol) and _close(mk, mp, tol),
                        f"K3 disagrees: {what}")
                 _check(bool((wk[1, S // 2:] == 0).all()), f"K3 mask: {what}")
-                if dname == "float32" and name in err:
-                    e = err[name]
+                if dname == "float32":
+                    e = err.setdefault(name, {"k3": 0.0, "k4": 0.0})
                     e["k4"] = max(e["k4"], float((pk - pp).abs().max()))
                     e["k3"] = max(e["k3"], float((wk - wp).abs().max()),
                                   float((mk - mp).abs().max()))
-            print(f"K3/K4 ok {dname} {name} B={B} S={S} P={P} Bp={Bp}",
-                  flush=True)
+            print(f"K3/K4 ok {dname} {name} B={B} S={S} P={P} Bp={Bp}, K3 "
+                  f"variant {_variant(level, S, P, dtype)}", flush=True)
     for path, e in err.items():
         print(f"K3 max |d| f32 at {path}: {e['k3']:.3e}; "
               f"K4 max |d partials| f32 at {path}: {e['k4']:.3e}")
@@ -967,7 +1053,9 @@ def main() -> int:
     rows = time_kernel(chol, torch)
     time_kernel(chol, torch, write_l=True)
     _phase("config 1")
-    run_config(bench, chol, level, torch, 1, keep=1000, burn=1000, thin=2)
+    # cut from the bench's keep=1000, burn=1000 (3200 iterations) to keep
+    # the whole run near half its time limit
+    run_config(bench, chol, level, torch, 1, keep=500, burn=500, thin=2)
     _phase("config 3")
     r3, thin3, _ = run_config(bench, chol, level, torch, 3, keep=100,
                               burn=200, thin=2)
@@ -978,7 +1066,7 @@ def main() -> int:
     check_gibbs_shapes(level, torch)
     t5 = time_config5_kernels(chol, level, torch)
     _phase("config 1, accept-aware, level kernels")
-    run_accept_aware(bench, chol, level, torch, 1, keep=500, burn=500, thin=2)
+    run_accept_aware(bench, chol, level, torch, 1, keep=250, burn=250, thin=2)
     _phase("config 3, accept-aware, level kernels, composed factors")
     run_accept_aware(bench, chol, level, torch, 3, keep=100, burn=200, thin=2)
     _phase("config 3, accept-aware, level kernels, no composed factors")
@@ -1037,6 +1125,31 @@ def main() -> int:
           f"K1 launches {r11['k1_launches']} for {r11['n_draws']} draws, "
           f"setup {r11['breakdown']}", flush=True)
     del fit8
+
+    c2, c4 = bench.CONFIGS[2], bench.CONFIGS[4]
+    _phase("config 2, always-emit")
+    r2, _, _ = run_config(bench, chol, level, torch, 2, keep=c2["keep"],
+                          burn=c2["burn"], thin=c2["thin"])
+    kw4 = dict(keep=c4["keep"], burn=c4["burn"], thin=c4["thin"])
+    _phase(f"config 4 ({c4['kwargs']}), always-emit")
+    r4, thin4, _ = run_config(bench, chol, level, torch, 4, **kw4,
+                              **c4["kwargs"])
+    _phase(f"config 4 ({c4['kwargs']}), accept-aware, level kernels, no "
+           f"composed factors; K3/K4 vs plain at its thin levels {thin4}")
+    a4, _ = run_accept_aware(bench, chol, level, torch, 4, **kw4,
+                             composed=False, knobs=c4["kwargs"],
+                             check_levels=True)
+    _check(a4["thin_levels"] == thin4 and a4["k3_levels"]
+           == a4["k4_levels"] == len(thin4) > 0,
+           f"config 4: K3 on {a4['k3_levels']} and K4 on {a4['k4_levels']} "
+           f"of the thin levels {a4['thin_levels']} ({thin4})")
+    t4 = dict(k1=time_kernel(chol, torch, shapes=[
+        (b, s) for b, s, p in a4["levels"] if (b, s, p) not in thin4],
+        label="config-4"),
+        k3=time_gibbs_shapes(level, torch, thin4, "config-4"),
+        k4=time_decision_shapes(level, torch, thin4, None, "config-4"))
+    _phase("oracle chain, float64, on the card")
+    ro = run_oracle(chol, level, torch)
     print(f"chip_smoke: every phase passed in {time.time() - _T0:.1f} s",
           flush=True)
 
@@ -1050,10 +1163,15 @@ def main() -> int:
     # without composed factors; at (1024, 68, 293) the yardstick of the
     # earlier records).  launches_paths: each kernel's launches in each run
     # of config 5 (the four of phases 8-10 through spamtree(), run A and B
-    # of the resume together) and in spamtree_predict; K1 alone runs on
-    # the paths of phases 9-11, the level kernels being off there.
-    paths = {f"config5_{k}": r for k, r in (
-        ("always_emit", r8), ("summary", r9), ("predict", r11))}
+    # of the resume together), in spamtree_predict, and in the runs of
+    # phases 12-15; K1 alone runs on the paths of phases 9-13 and 15, the
+    # level kernels being off there.  *_config4: config 4's accept-aware
+    # run (phase 14): its launches, K3's and K4's f32 errors at its thin
+    # levels, and each kernel's mean ms, plain ms and bound per launch at
+    # its level shapes, timed after the run.
+    paths = {"config5_always_emit": r8, "config5_summary": r9,
+             "config5_predict": r11, "config2": r2, "config4": r4,
+             "config4_accept_aware": a4, "oracle_f64": ro}
     def k1_path(rs):
         n = len(rs)
         return dict(ms=sum(r[2] for r in rs) / n,
@@ -1062,17 +1180,19 @@ def main() -> int:
                     bound_by=("bytes" if all(r[4][1] == "bytes" for r in rs)
                               else "operations"))
 
-    def level_path5(key):
-        t, n = t5[key], len(CONFIG5_THIN)
+    def level_path(t, n):
         return dict(ms=t["ms"] / n, plain_ms=t["plain"] / n,
                     bound_ms=t["bound"] / n, bound_by=t["by"])
+
+    def level_path5(key):
+        return level_path(t5[key], len(CONFIG5_THIN))
 
     def level_path3(key):
         k, pl, (bd, by) = ltimes[key][:3]
         return dict(ms=k, plain_ms=pl, bound_ms=bd, bound_by=by)
 
     def entry(name, source, replaces, launches5, launches3, err5, err3,
-              path5, path3, key):
+              path5, path3, key, path4, err4=None):
         lp = {"config5_accept_aware": launches5} | {
             k: r[f"{key}_launches"] for k, r in paths.items()}
         lp["config5_resume"] = (k1_10 if key == "k1" else
@@ -1083,6 +1203,10 @@ def main() -> int:
                     **path5, library_ms=None, launches_config3=launches3,
                     max_abs_err_config3=err3,
                     **{f"{k}_config3": v for k, v in path3.items()},
+                    launches_config4=a4[f"{key}_launches"],
+                    **({} if err4 is None else
+                       {"max_abs_err_config4": err4}),
+                    **{f"{k}_config4": v for k, v in path4.items()},
                     launches_paths=lp)
 
     level_src = "spamtree_tpu_torch/csrc/thin_level.cu"
@@ -1090,10 +1214,11 @@ def main() -> int:
         "inv_chol", "spamtree_tpu_torch/csrc/inv_chol.cu",
         "spamtree_tpu/ops/pallas_chol.py:107", a5["k1_launches"],
         r3["k1_launches"], max_err["config5"], max_err["config3"],
-        k1_path(t5["k1"]), k1_path(rows), "k1")] + [entry(
+        k1_path(t5["k1"]), k1_path(rows), "k1", k1_path(t4["k1"]))] + [entry(
             name, level_src, replaces, a5[f"{key}_launches"],
             a3[f"{key}_launches"], lerr["config5"][key], lerr["config3"][key],
-            level_path5(key), level_path3(key), key)
+            level_path5(key), level_path3(key), key,
+            level_path(t4[key], len(thin4)), a4["level_err"][key])
         for name, key, replaces in (
             ("thin_gibbs", "k3", "spamtree_tpu/ops/pallas_level.py:306"),
             ("thin_decision", "k4", "spamtree_tpu/ops/pallas_level.py:186"))

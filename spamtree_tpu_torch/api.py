@@ -4,8 +4,9 @@
 Port of ``spamtree_tpu/api.py`` (reference front-end R/spamtree_fit.R):
 one chain on a full or limited tree, every kept draw collected or the
 posterior moments summed on the device, prediction at the NaN rows,
-checkpoints, resume and sample sinks.  The remaining knobs of the JAX
-package raise NotImplementedError naming the knob.
+checkpoints, resume and sample sinks, with the JAX package's prior,
+starting, debug, settings, tree-shape and elevation knobs.  Multiple
+chains and devices raise NotImplementedError naming the knob.
 """
 
 from __future__ import annotations
@@ -36,35 +37,54 @@ from spamtree_tpu_torch.model.tuning import (
 from spamtree_tpu_torch.tree.partition import make_tree
 from spamtree_tpu_torch.tree.schedule import build_schedule
 
+# spamtree_tpu.spamtree's knob dicts over their defaults
+_MCMC = dict(keep=1000, burn=0, thin=1)
+_SETTINGS = dict(
+    adapting=True, mcmcsd=None, curvature_sd=True, ram_reference_warmup=False,
+    const_model=None, collect="all", wire_dtype=None, summary_draws=0,
+    factor_dtype=None, lazy_init=None, chunk=50, tuner_overlap=None)
+_PRIOR = dict(set_unif_bounds=None, btmlim=None, toplim=None, vlim=None,
+              beta=None, tausq=None, theta=None)
+_STARTING = dict(beta=None, tausq=None, theta=None, w=None)
+_DEBUG = dict(sample_beta=True, sample_tausq=True, sample_theta=True,
+              sample_w=True, sample_predicts=True)
+# settings that choose how the JAX package compiles or stores its programs:
+# the values this port runs (the reference's defaults; eager, nothing to
+# compile).  Any other value raises naming itself.
+_SETTINGS_FIXED = dict(const_model=(None,),
+                       factor_dtype=(None, False, "none", "off"),
+                       lazy_init=(None, False), tuner_overlap=(None,))
 # knobs of spamtree_tpu.spamtree that this port does not run yet, with the
-# default value it does run
-_NOT_PORTED = dict(
-    elevation=False, start_level=0, tree_depth=np.inf,
-    last_not_reference=True, cherrypick_same_margin=True,
-    cherrypick_group_locations=True, mvbias=0.0, prior=None, starting=None,
-    debug=None, precompile=False, n_chains=1, devices=None, mesh=None,
-)
-_SETTINGS = dict(chunk=50, collect="all", summary_draws=0, wire_dtype=None)
-_SETTINGS_NOT_PORTED = ("adapting", "mcmcsd", "curvature_sd",
-                        "ram_reference_warmup", "const_model",
-                        "factor_dtype", "lazy_init", "tuner_overlap")
+# value it does run
+_NOT_PORTED = dict(n_chains=1, devices=None, mesh=None)
 
 
-def _check_knobs(knobs: dict, settings: dict) -> dict:
-    """Reject the knobs not ported; ``settings`` over their defaults."""
+def _merge(name: str, defaults: dict, given) -> dict:
+    """``given`` over ``defaults``; an unknown key raises ValueError (a
+    typo'd knob must not run silently with the defaults)."""
+    unknown = set(given or {}) - set(defaults)
+    if unknown:
+        raise ValueError(f"unknown {name} key(s) {sorted(unknown)}; "
+                         f"valid: {sorted(defaults)}")
+    return defaults | dict(given or {})
+
+
+def _check_knobs(knobs: dict, settings) -> dict:
+    """Reject the knobs not ported; ``settings`` over their defaults, each
+    JAX-only setting at a value this port runs."""
     for k, v in knobs.items():
         if k not in _NOT_PORTED:
             raise TypeError(f"spamtree() got an unexpected keyword {k!r}")
         d = _NOT_PORTED[k]
         if not (v is d or (np.isscalar(v) and np.isscalar(d) and v == d)):
             raise NotImplementedError(f"spamtree knob {k}={v!r} is not ported")
-    for k in settings:
-        if k in _SETTINGS_NOT_PORTED:
-            raise NotImplementedError(f"spamtree settings[{k!r}] is not ported")
-        if k not in _SETTINGS:
-            raise ValueError(f"unknown settings key {k!r}; valid: "
-                             f"{sorted(_SETTINGS)}")
-    settings = _SETTINGS | settings
+    settings = _merge("settings", _SETTINGS, settings)
+    for k, ok in _SETTINGS_FIXED.items():
+        v = settings[k]
+        if not any(v is d or (isinstance(v, str) and v == d) for d in ok):
+            raise NotImplementedError(
+                f"spamtree settings[{k!r}]={v!r} is not ported; this "
+                f"package runs {' or '.join(map(repr, ok))}")
     if settings["collect"] not in ("all", "summary"):
         raise ValueError(f"settings['collect']={settings['collect']!r}: "
                          f"'all' or 'summary'")
@@ -93,6 +113,7 @@ class Fit(NamedTuple):
     tree: object
     sched: object
     setup_breakdown: dict
+    fit_config: dict  # what spamtree_predict needs (spamtree's "fit_config")
     resume: Resume | None = None
 
 
@@ -143,22 +164,28 @@ def _resume_plan(path: str, cfg: MCMCConfig, ms: ModelStatic, it: int):
 def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
                 settings=None, seed=1, dtype=torch.float32, verbose=False,
                 device="cuda", limited_tree=False, resume_from=None,
+                elevation=False, start_level=0, tree_depth=np.inf,
+                last_not_reference=True, cherrypick_same_margin=True,
+                cherrypick_group_locations=True, mvbias=0.0, prior=None,
+                starting=None, debug=None, precompile=False,
                 **knobs) -> Fit:
     """Tree, schedule, model, tuned proposal and initial state of a
     ``spamtree`` run (same arguments), without running the chain; with
     ``resume_from`` the state and generators of that checkpoint instead of
-    the tuner and the initial sweep."""
-    settings = _check_knobs(knobs, dict(settings or {}))
+    the tuner and the initial sweep.  ``precompile`` is accepted and does
+    nothing: the eager port compiles no program."""
+    del precompile
+    settings = _check_knobs(knobs, settings)
+    mcmc = _merge("mcmc", _MCMC, mcmc)
+    prior = _merge("prior", _PRIOR, prior)
+    starting = _merge("starting", _STARTING, starting)
+    debug = _merge("debug", _DEBUG, debug)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but CUDA is not available")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be torch.float32 or torch.float64, "
                          f"got {dtype}")
-    unknown = set(mcmc or {}) - {"keep", "burn", "thin"}
-    if unknown:
-        raise ValueError(f"unknown mcmc key(s) {sorted(unknown)}")
-    mcmc = dict(keep=1000, burn=0, thin=1) | (mcmc or {})
 
     y = np.asarray(y, dtype=np.float64).reshape(-1)
     x = np.asarray(x, dtype=np.float64)
@@ -166,6 +193,9 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         x = x[:, None]
     coords = np.asarray(coords, dtype=np.float64)
     n, dd = coords.shape
+    if elevation and dd != 3:
+        raise ValueError(f"elevation=True needs 3 coordinate columns (x, y, "
+                         f"elevation); got dd={dd}")
     if mv_id is None:
         mv_id = np.ones(n, dtype=np.int64)
     mv_id = np.asarray(mv_id, dtype=np.int64)
@@ -179,25 +209,57 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     ys, xs, cs, mvs = y[order], x[order], coords[order], mv0[order]
     axis_size = (int(round(cell_size ** (1.0 / dd))) if np.isscalar(cell_size)
                  else np.asarray(cell_size))
+    # what spamtree_predict needs to rebuild the same partition and theta
+    # packing at new locations (the JAX package's keys, and elevation)
+    fit_config = dict(
+        cell_size=cell_size, K=K, start_level=start_level,
+        tree_depth=tree_depth, last_not_reference=last_not_reference,
+        limited_tree=limited_tree,
+        cherrypick_same_margin=cherrypick_same_margin,
+        cherrypick_group_locations=cherrypick_group_locations,
+        mvbias=mvbias, seed=seed, dtype=dtype, mv_labels=uniq,
+        btmlim=prior["btmlim"], toplim=prior["toplim"], vlim=prior["vlim"],
+        set_unif_bounds=prior["set_unif_bounds"], elevation=bool(elevation))
 
     tb = {}  # setup breakdown: seconds per pre-MCMC phase
     t_ = time.time()
     tree = make_tree(cs, np.isfinite(ys), mvs, axis_cell_size=axis_size, K=K,
+                     start_level=start_level, tree_depth=tree_depth,
+                     last_not_reference=last_not_reference,
                      limited_tree=limited_tree,
-                     rng=np.random.default_rng(seed), verbose=verbose)
+                     cherrypick_same_margin=cherrypick_same_margin,
+                     cherrypick_group_locations=cherrypick_group_locations,
+                     mvbias=mvbias, rng=np.random.default_rng(seed),
+                     verbose=verbose)
     sched = build_schedule(tree, limited_tree=limited_tree)
     tb["tree_s"] = round(time.time() - t_, 2)
-    tspec = make_theta_spec(dd, q, start_theta=auto_start_theta(
-        dd, q, cs, ys, mvs))
+    start_theta = starting["theta"]
+    if start_theta is None:
+        start_theta = auto_start_theta(dd, q, cs, ys, mvs,
+                                       elevation=bool(elevation))
+    tspec = make_theta_spec(
+        dd, q, btmlim=1e-3 if prior["btmlim"] is None else prior["btmlim"],
+        toplim=1e3 if prior["toplim"] is None else prior["toplim"],
+        vlim=prior["vlim"], elevation=bool(elevation),
+        set_unif_bounds=prior["set_unif_bounds"], start_theta=start_theta)
     t_ = time.time()
     ms = ModelStatic(sched, cs, mvs, ys, xs, tspec.spec, dtype=dtype,
                      device=device)
     tb["stage_s"] = round(time.time() - t_, 2)
-    cfg = MCMCConfig(keep=mcmc["keep"], burn=mcmc["burn"], thin=mcmc["thin"],
-                     chunk=int(settings["chunk"]),
-                     collect=settings["collect"],
-                     summary_draws=int(settings["summary_draws"]),
-                     wire_dtype=settings["wire_dtype"])
+    cfg = MCMCConfig(
+        keep=mcmc["keep"], burn=mcmc["burn"], thin=mcmc["thin"],
+        adapting=settings["adapting"],
+        tausq_ab=((2.01, 1.0) if prior["tausq"] is None
+                  else tuple(prior["tausq"])),
+        beta_Vi=0.01 if prior["beta"] is None else prior["beta"],
+        sample_beta=debug["sample_beta"], sample_tausq=debug["sample_tausq"],
+        sample_theta=debug["sample_theta"], sample_w=debug["sample_w"],
+        sample_predicts=debug["sample_predicts"],
+        ram_reference_warmup=settings["ram_reference_warmup"],
+        theta_prior=prior["theta"], chunk=int(settings["chunk"]),
+        collect=settings["collect"],
+        summary_draws=int(settings["summary_draws"]),
+        wire_dtype=settings["wire_dtype"])
 
     if resume_from is not None:
         # the checkpoint carries the adapted proposal and the generators:
@@ -215,30 +277,54 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
                   f"already taken, {cfg.burn} burn + {cfg.keep} keep "
                   f"remaining")
         return Fit(ms, tspec.bounds, cfg, state, gen, order, tree, sched, tb,
+                   fit_config,
                    Resume(yhat_rngs, moments, base, state.it, kept_already))
 
-    # curvature-scaled initial proposal covariance (see model/tuning.py):
-    # with burn, from a subsampled model, like the JAX package's default
-    # path; without, from the full model together with the initial sweep
+    # the initial proposal covariance (see model/tuning.py), as the JAX
+    # package picks it: settings["mcmcsd"] if given; else, with
+    # curvature_sd and theta sampled, the curvature-scaled diagonal -- from
+    # a subsampled model where the JAX package initializes lazily (burn and
+    # theta sampled), else from the full model together with the initial
+    # sweep; else the isotropic scale-aware fallback
+    mcmcsd = settings["mcmcsd"]
+    do_curv = bool(mcmcsd is None and settings["curvature_sd"]
+                   and debug["sample_theta"])
+    start_tausq = 0.1 if starting["tausq"] is None else float(starting["tausq"])
+    lazy = settings["lazy_init"]
+    if lazy is None:
+        lazy = mcmc["burn"] > 0 and debug["sample_theta"]
     gen = torch.Generator(device=ms.device).manual_seed(seed)
     t_ = time.time()
-    if mcmc["burn"] > 0:
-        precomputed = None
+    precomputed = None
+    if lazy and do_curv:
         mcmcsd = subsample_curvature_sd(
             cs, mvs, ys, xs, tspec.spec, tspec.bounds, tspec.start,
-            axis_cell_size=axis_size, K=K, device=ms.device, seed=seed,
-            timings=tb)
-    else:
-        precomputed, lls = prepare_chain(ms, tspec.bounds, tspec.start, gen)
-        mcmcsd = curvature_sd_from_lls(lls, tspec.n_theta)
-    if verbose:
+            axis_cell_size=axis_size, K=K, device=ms.device,
+            start_tausq=start_tausq, seed=seed, timings=tb)
+    elif not lazy:
+        precomputed, lls = prepare_chain(ms, tspec.bounds, tspec.start, gen,
+                                         do_curvature=do_curv,
+                                         start_tausq=start_tausq)
+        if do_curv:
+            mcmcsd = curvature_sd_from_lls(lls, tspec.n_theta)
+    if mcmcsd is None:
+        # the theta posterior contracts like 1/sqrt(n): the reference's
+        # fixed 0.01 logit-scale proposal is far too wide at large n
+        mcmcsd = min(0.01, 1.0 / (tspec.n_theta
+                                  * np.sqrt(max(np.isfinite(ys).sum(), 1))))
+    elif do_curv and verbose:
         print(f"[tune] curvature proposal sd: "
               f"{np.array2string(np.sqrt(np.diag(mcmcsd)), precision=4)}")
     cfg = cfg._replace(mcmcsd=mcmcsd)
-    state = init_state(ms, tspec.bounds, tspec.start, cfg=cfg,
-                       precomputed=precomputed)
+    start_w = starting["w"]
+    if start_w is not None:
+        start_w = np.asarray(start_w, dtype=np.float64).reshape(-1)[order]
+    state = init_state(ms, tspec.bounds, tspec.start,
+                       start_beta=starting["beta"], start_tausq=start_tausq,
+                       start_w=start_w, cfg=cfg, precomputed=precomputed)
     tb["init_s"] = round(time.time() - t_, 2)
-    return Fit(ms, tspec.bounds, cfg, state, gen, order, tree, sched, tb)
+    return Fit(ms, tspec.bounds, cfg, state, gen, order, tree, sched, tb,
+               fit_config)
 
 
 def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
@@ -257,7 +343,30 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         or "summary" (posterior mean/variance summed on the device, for
         large n), summary_draws=0 (summary mode: also keep ~this many
         strided w/yhat draws), wire_dtype=None (device->host type of the w
-        draws: float16 for float32 models; "none" for none)).
+        draws: float16 for float32 models; "none" for none), adapting=True
+        (RAM adapts the theta proposal), mcmcsd=None (initial proposal
+        covariance, scalar s -> s*I or a matrix; None = tuned),
+        curvature_sd=True (None mcmcsd: curvature-scaled diagonal; False:
+        the isotropic min(0.01, 1/(n_theta sqrt(n_obs)))),
+        ram_reference_warmup=False).  The JAX package's const_model,
+        factor_dtype, lazy_init and tuner_overlap are taken at their
+        defaults (lazy_init=False also: the tuner then runs on the full
+        model); another value raises.
+    elevation : with dd = 3 coordinates, the third column is elevation and
+        the covariance is AG10 with elevation (model 2).
+    start_level, tree_depth, last_not_reference, cherrypick_same_margin,
+        cherrypick_group_locations, mvbias : the tree-shape and knot
+        selection knobs of the reference's make_tree.R.
+    prior : dict(btmlim=, toplim=, vlim=, set_unif_bounds=, beta=, tausq=,
+        theta=): theta's uniform box, beta's Normal prior precision (scalar
+        s -> s*I or a (p, p) matrix; 0.01), tausq's inverse-Gamma (a, b)
+        ((2.01, 1)), an informative theta prior (model/priors.py; None =
+        flat).
+    starting : dict(beta=, tausq=, theta=, w=) starting values (w in the
+        caller's row order).
+    debug : dict(sample_beta=, sample_tausq=, sample_theta=, sample_w=,
+        sample_predicts=) switch each sampler off.
+    precompile : accepted and ignored (the port compiles no program).
     seed : seeds the tree, the device generators and the host yhat noise.
     dtype : torch.float32 or torch.float64.
     device : where the model runs; "cuda" raises when CUDA is absent.
@@ -331,15 +440,7 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         "tree": tree,
         "schedule": fit.sched,
         "theta_bounds": fit.bounds,
-        # what spamtree_predict needs to rebuild the same partition and
-        # theta packing at new locations (the JAX package's keys)
-        "fit_config": dict(
-            cell_size=cell_size, K=K, start_level=0, tree_depth=np.inf,
-            last_not_reference=True, limited_tree=limited_tree,
-            cherrypick_same_margin=True, cherrypick_group_locations=True,
-            mvbias=0.0, seed=seed, dtype=dtype,
-            mv_labels=np.unique(mv_id), btmlim=None, toplim=None, vlim=None,
-            set_unif_bounds=None),
+        "fit_config": fit.fit_config,
     }
     if fit.cfg.collect == "summary":
         for k in ("w_mean", "w_var", "yhat_mean", "yhat_var",
@@ -473,7 +574,8 @@ def spamtree_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
     tspec = make_theta_spec(
         dd, q, btmlim=fc["btmlim"] if fc["btmlim"] is not None else 1e-3,
         toplim=fc["toplim"] if fc["toplim"] is not None else 1e3,
-        vlim=fc["vlim"], set_unif_bounds=fc["set_unif_bounds"])
+        vlim=fc["vlim"], set_unif_bounds=fc["set_unif_bounds"],
+        elevation=bool(fc.get("elevation", False)))
     t_ = time.time()
     dt = _torch_dtype(fc["dtype"])
     ms = ModelStatic(sched, cs, mvs, ys, xs, tspec.spec, dtype=dt,

@@ -8,7 +8,9 @@ the B-axis slab loop and every branch are plain Python:
 * likelihood sweep  -> ``sweep``        (get_loglik_comps_w_std, .cpp:834-998)
 * latent w Gibbs    -> ``gibbs_w``      (gibbs_sample_w_std, .cpp:1011-1226)
 * prediction        -> ``predict``      (predict_std, .cpp:1234-1358)
-* beta/tausq Gibbs  -> ``gibbs_beta_tausq`` (.cpp:1364-1417)
+* beta/tausq Gibbs  -> ``gibbs_beta_tausq`` (.cpp:1364-1417), or
+                       ``gibbs_tausq`` / ``gibbs_beta`` when one is off
+* prior draw of w   -> ``prior_sample_w`` (Geweke test, forward simulation)
 
 Cholesky failure never raises: validity flags are carried and a failed
 theta proposal is rejected.  Random draws come in as arguments (the
@@ -1103,6 +1105,29 @@ def predict_recompute(ms: ModelStatic, theta, w, z, coords_cache=None):
     return w
 
 
+def prior_sample_w(ms: ModelStatic, leveldata, z):
+    """A draw of w from the treed-DAG prior SpamTree_G(0, C_theta), root to
+    leaf: w_u = H_u w_par + L_u z_u with L_u L_u' = R_u, from the stored
+    conditional precisions (reference levels: L_u = chol(prec)^-T; thin
+    levels: sqrt(1 / prec)).  ``z`` is the (n+1,) standard-normal draw;
+    returns a new (n+1,) w.  Used by the Geweke test and for forward
+    simulation from a fitted tree."""
+    w = z.new_zeros(ms.n + 1)
+    for t, lvl in enumerate(ms.levels):
+        data = leveldata[t]
+        zt = z[lvl.rows]
+        mean = (torch.einsum("bsp,bp->bs", data.H, w[lvl.prows])
+                if lvl.prows.shape[1] > 0 else torch.zeros_like(zt))
+        if ms.level_is_ref[t]:
+            # Lp Lp' = prec = R^-1, so L = Lp^-T and the draw solves Lp' x = z
+            Lp, _ = chol_masked(data.prec, lvl.rmask)
+            draw = tri_solve(Lp, zt[..., None], trans=True)[..., 0]
+        else:
+            draw = zt / torch.sqrt(data.prec)
+        w[lvl.rows] = torch.where(lvl.rmask, mean + draw, 0.0)
+    return w
+
+
 def _small_spd_sample(Si, rhs, z):
     """Batched N(Si^{-1} rhs, Si^{-1}) draw for tiny p by an unrolled
     Cholesky and substitutions.  Si (q, p, p) SPD, rhs (q, p), z (q, p)
@@ -1175,3 +1200,33 @@ def gibbs_beta_tausq(ms: ModelStatic, w, XB, g, z_beta, tausq_ab, beta_Vi,
     beta = bj.T  # (p, q)
     XBn = torch.sum((ms.X @ beta) * ms.mv_onehot, dim=1)
     return tausq_inv, beta, torch.cat([XBn, XBn.new_zeros(1)])
+
+
+def gibbs_tausq(ms: ModelStatic, w, XB, g, tausq_ab, y=None):
+    """Conjugate Gamma update of the noise precisions per margin (reference:
+    gibbs_sample_tausq, spamtree_model.cpp:1393-1417); ``g`` (q,) are
+    standard-gamma draws with shape ``tausq_shape``.  Returns tausq_inv."""
+    if y is None:
+        y = ms.y
+    resid = y[: ms.n] - XB[: ms.n] - w[: ms.n]
+    r2 = (resid * resid) @ ms.mv_onehot_obs
+    return g / (tausq_ab[1] + 0.5 * r2)
+
+
+def gibbs_beta(ms: ModelStatic, w, tausq_inv, z_beta, beta_Vi, beta_Vim,
+               y=None):
+    """Conjugate Normal update of the regression coefficients per margin
+    (reference: gibbs_sample_beta, spamtree_model.cpp:1364-1391); ``z_beta``
+    (p, q) standard normals.  Returns (beta, XB)."""
+    if y is None:
+        y = ms.y
+    yw = y[: ms.n] - w[: ms.n]
+    Xty = ms.X.T @ (yw[:, None] * ms.mv_onehot_obs)  # (p, q)
+    Si = tausq_inv[:, None, None] * ms.XtX + beta_Vi  # (q, p, p)
+    L = chol_nan(Si)
+    rhs = (beta_Vim[None, :] + tausq_inv[:, None] * Xty.T)[..., None]
+    mu = tri_solve(L, tri_solve(L, rhs), trans=True)[..., 0]
+    bj = mu + tri_solve(L, z_beta.T[..., None], trans=True)[..., 0]
+    beta = bj.T  # (p, q)
+    XBn = torch.sum((ms.X @ beta) * ms.mv_onehot, dim=1)
+    return beta, torch.cat([XBn, XBn.new_zeros(1)])

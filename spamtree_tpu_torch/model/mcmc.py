@@ -39,7 +39,9 @@ import torch
 
 from spamtree_tpu_torch.model.core import (
     ModelStatic,
+    gibbs_beta,
     gibbs_beta_tausq,
+    gibbs_tausq,
     gibbs_w,
     gram_full,
     level_coords,
@@ -77,9 +79,17 @@ class MCMCConfig(NamedTuple):
     keep: int = 1000
     burn: int = 100
     thin: int = 1
+    adapting: bool = True  # RAM adapts the theta proposal
     mcmcsd: object = 0.01  # initial proposal covariance: scalar s (s*I) or matrix
     tausq_ab: tuple = (2.01, 1.0)
     beta_Vi: object = 0.01  # prior precision for beta: scalar s (Vi = s*I) or (p,p)
+    # per-sampler switches (api's debug=); a sampler switched off leaves its
+    # field as it is.  Prediction needs sample_w too.
+    sample_beta: bool = True
+    sample_tausq: bool = True
+    sample_theta: bool = True
+    sample_w: bool = True
+    sample_predicts: bool = True
     chunk: int = 50  # kept samples per device->host transfer
     theta_prior: object = None  # see model/priors.py; None = flat
     ram_reference_warmup: bool = False
@@ -104,7 +114,8 @@ class MCMCConfig(NamedTuple):
 
 
 class StepDraws(NamedTuple):
-    """The random numbers of one iteration."""
+    """The random numbers of one iteration (every field, whichever samplers
+    are switched on, so one seed gives one stream of draws)."""
 
     z_w: torch.Tensor  # (n+1,) normal: gibbs_w
     U: torch.Tensor  # (n_theta,) normal: theta proposal
@@ -135,11 +146,14 @@ def _as_matrix(v, k: int) -> np.ndarray:
 
 
 def init_state(ms: ModelStatic, bounds: np.ndarray, start_theta: np.ndarray,
-               start_tausq: float = 0.1, cfg: MCMCConfig = MCMCConfig(),
+               start_beta: np.ndarray | None = None, start_tausq: float = 0.1,
+               start_w: np.ndarray | None = None,
+               cfg: MCMCConfig = MCMCConfig(),
                precomputed: tuple | None = None) -> MCMCState:
-    """The initial sampler state -- w = 0, beta = 0 -- with the initial
-    likelihood sweep run eagerly (or taken from ``precomputed`` =
-    tuning.prepare_chain's (leveldata, pred_data, logdet, ok, gram))."""
+    """The initial sampler state -- ``start_beta`` (p,) for every margin
+    (default 0), ``start_w`` (n,) in sorted-row order (default 0) -- with
+    the initial likelihood sweep run eagerly (or taken from ``precomputed``
+    = tuning.prepare_chain's (leveldata, pred_data, logdet, ok, gram))."""
     n, p, q = ms.n, ms.p, ms.q
     b = np.asarray(bounds, dtype=np.float64)
     st = np.asarray(start_theta, dtype=np.float64)
@@ -148,8 +162,10 @@ def init_state(ms: ModelStatic, bounds: np.ndarray, start_theta: np.ndarray,
             f"starting theta outside its bounds: theta={st}, bounds={b.tolist()}")
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=ms.dtype,
                                   device=ms.device)
-    beta = t(np.zeros((p, q)))
-    w = t(np.zeros(n + 1))
+    beta0 = np.zeros(p) if start_beta is None else np.asarray(start_beta)
+    beta = t(np.repeat(beta0.reshape(p, 1), q, axis=1))
+    w = t(np.zeros(n + 1) if start_w is None
+          else np.append(np.asarray(start_w, dtype=np.float64), 0.0))
     theta = t(st)
     XB = torch.cat([torch.sum((ms.X @ beta) * ms.mv_onehot, dim=1),
                     w.new_zeros(1)])
@@ -181,12 +197,11 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     prior_fn = make_theta_prior(cfg.theta_prior)
     accept_aware = bool(cfg.accept_aware)  # None -> False
 
-    def step(state: MCMCState, draws: StepDraws, predicting: bool) -> MCMCState:
+    def theta_step(state: MCMCState, w, draws: StepDraws):
+        """The theta Metropolis step: (theta, logdetCi, leveldata, gram,
+        pred_data, ram)."""
         theta, logdetCi, leveldata = state.theta, state.logdetCi, state.leveldata
         gram, pred_data, ram = state.gram, state.pred_data, state.ram
-        w = gibbs_w(ms, leveldata, state.w, state.tausq_inv, state.XB,
-                    draws.z_w, gram=gram[0], routed=gram[1])
-
         U = draws.U
         prop = transf_back(transf_fwd(theta, bnds) + ram.paramsd @ U, bnds)
         prop, _ = clamp_bounds(prop, bnds)
@@ -224,21 +239,43 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
             if pred_data is not None:
                 pred_data = pred_operators_from_joint(ms, prop, new_pj,
                                                       coords_cache)
-        alpha = torch.where(ok & finite,
-                            torch.clamp(torch.exp(logaccept), max=1.0), 0.0)
-        ram = ram_adapt(ram, U, alpha, state.it,
-                        reference_warmup=cfg.ram_reference_warmup)
+        if cfg.adapting:
+            alpha = torch.where(ok & finite,
+                                torch.clamp(torch.exp(logaccept), max=1.0), 0.0)
+            ram = ram_adapt(ram, U, alpha, state.it,
+                            reference_warmup=cfg.ram_reference_warmup)
         ram = ram._replace(propos_count=ram.propos_count + 1.0,
                            accept_count=ram.accept_count + float(accepted))
+        return theta, logdetCi, leveldata, gram, pred_data, ram
 
-        if predicting:
+    def step(state: MCMCState, draws: StepDraws, predicting: bool) -> MCMCState:
+        w = state.w
+        if cfg.sample_w:
+            w = gibbs_w(ms, state.leveldata, w, state.tausq_inv, state.XB,
+                        draws.z_w, gram=state.gram[0], routed=state.gram[1])
+        if cfg.sample_theta:
+            theta, logdetCi, leveldata, gram, pred_data, ram = theta_step(
+                state, w, draws)
+        else:
+            theta, logdetCi, leveldata = (state.theta, state.logdetCi,
+                                          state.leveldata)
+            gram, pred_data, ram = state.gram, state.pred_data, state.ram
+
+        if predicting and cfg.sample_predicts and cfg.sample_w:
             # above 256 MB of prediction operators (pred_in_carry False)
             # they are rebuilt for the current theta at each kept iteration
             w = (predict(ms, pred_data, w, draws.z_pred) if ms.pred_in_carry
                  else predict_recompute(ms, theta, w, draws.z_pred,
                                         coords_cache))
-        tausq_inv, beta, XB = gibbs_beta_tausq(
-            ms, w, state.XB, draws.g, draws.z_beta, cfg.tausq_ab, Vi, Vim)
+        tausq_inv, beta, XB = state.tausq_inv, state.beta, state.XB
+        if cfg.sample_tausq and cfg.sample_beta:
+            tausq_inv, beta, XB = gibbs_beta_tausq(
+                ms, w, state.XB, draws.g, draws.z_beta, cfg.tausq_ab, Vi, Vim)
+        else:
+            if cfg.sample_tausq:
+                tausq_inv = gibbs_tausq(ms, w, state.XB, draws.g, cfg.tausq_ab)
+            if cfg.sample_beta:
+                beta, XB = gibbs_beta(ms, w, tausq_inv, draws.z_beta, Vi, Vim)
         return MCMCState(w=w, beta=beta, tausq_inv=tausq_inv, XB=XB,
                          theta=theta, leveldata=leveldata, pred_data=pred_data,
                          logdetCi=logdetCi, ram=ram, it=state.it + 1, gram=gram)

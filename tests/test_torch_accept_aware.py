@@ -33,6 +33,16 @@ from spamtree_tpu_torch.utils.convert import (
 from test_torch_mcmc import _close_tree
 
 
+# small eager models: one intra-op thread runs them as fast, and keeps the
+# test workers from oversubscribing the cores
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _data(q=2, n_per_q=300, seed=0):
     """tests/test_accept_aware.py's dataset (n = 600, 12% missing)."""
     rng = np.random.default_rng(seed)

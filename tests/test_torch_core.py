@@ -26,18 +26,26 @@ RTOL = 1e-9
 
 
 def _models(case):
-    """JAX and port models of one dataset with missing rows."""
+    """JAX and port models of one dataset with missing rows; "elevation":
+    a third coordinate column, covariance model 2 (AG10 with elevation)."""
     q = 2 if case.startswith("biv") else 1
     chunk_bytes = 2e4 if case.endswith("chunked") else 512e6
+    elevation = case == "elevation"
     rng = np.random.default_rng(3)
     n = 360
-    if q == 1:
+    if elevation:
+        coords = np.column_stack([rng.uniform(size=(n, 2)),
+                                  0.3 * rng.uniform(size=n)])
+        mv = np.zeros(n, dtype=np.int64)
+    elif q == 1:
         coords = rng.uniform(size=(n, 2))
         mv = np.zeros(n, dtype=np.int64)
     else:
         coords = np.repeat(rng.uniform(size=(n // 2, 2)), 2, axis=0)
         mv = np.tile(np.arange(2), n // 2)
-    order = np.lexsort((np.arange(n), coords[:, 1], coords[:, 0]))
+    order = np.lexsort((np.arange(n),)
+                       + tuple(coords[:, j] for j in range(coords.shape[1] - 1,
+                                                            -1, -1)))
     coords, mv = coords[order], mv[order]
     na = rng.uniform(size=n) > 0.15
     y = rng.normal(size=n)
@@ -46,7 +54,7 @@ def _models(case):
     kw = dict(axis_cell_size=3, K=2)
     tree_j = make_tree_jax(coords, na, mv, rng=np.random.default_rng(0), **kw)
     tree_t = make_tree(coords, na, mv, rng=np.random.default_rng(0), **kw)
-    spec = make_theta_spec(2, q).spec
+    spec = make_theta_spec(coords.shape[1], q, elevation=elevation).spec
     ms_j = cj.ModelStatic(build_schedule_jax(tree_j), coords, mv, y, X, spec,
                           dtype=jnp.float64, chunk_bytes=chunk_bytes)
     ms_t = ct.ModelStatic(build_schedule(tree_t), coords, mv, y, X, spec,
@@ -55,8 +63,10 @@ def _models(case):
     return ms_j, ms_t, rng
 
 
-def _theta(q, rng):
-    if q == 1:
+def _theta(case, q, rng):
+    if case == "elevation":
+        th = np.array([1.2, 0.4, 4.0, 6.0, 2.0])  # ..., d_elevation
+    elif q == 1:
         th = np.array([1.2, 0.4, 4.0, 6.0])  # ai1, ai2, phi_i, thetamv
     else:
         th = np.array([1.1, 0.7, 0.3, 0.2, 5.0, 4.0, 6.0, 0.8])
@@ -79,7 +89,7 @@ def _close(got, ref, what, rtol=RTOL):
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol, err_msg=what)
 
 
-CASES = ["univariate", "bivariate", "bivariate_chunked"]
+CASES = ["univariate", "bivariate", "bivariate_chunked", "elevation"]
 TAUSQ_AB = (2.01, 1.0)
 
 
@@ -87,7 +97,9 @@ def _jax_reference(ms_j, th0, th1, w, tausq_inv, XB, key):
     """Every JAX-package result the tests compare with, as ONE jitted
     program (eager JAX compiles each op separately: ~20 s per case)."""
     kw, kp, kq, kb = jax.random.split(key, 4)
+    kz = jax.random.fold_in(key, 1)
     p = ms_j.p
+    Vi = 0.01 * jnp.eye(p)
 
     def run(m, th0, th1, w, tausq_inv, XB):
         ld0, pd0, _, ok0 = cj.sweep(m, th0, w)
@@ -98,13 +110,20 @@ def _jax_reference(ms_j, th0, th1, w, tausq_inv, XB, key):
                             routed=g0[1])
         w_plain = cj.gibbs_w(m, ld0, w, tausq_inv, XB, kw)
         w_pred = cj.predict(m, pd0, w_gram, kp)
-        tail = cj.gibbs_beta_tausq(m, w_pred, XB, kq, kb, TAUSQ_AB,
-                                   0.01 * jnp.eye(p), jnp.zeros(p))
+        tail = cj.gibbs_beta_tausq(m, w_pred, XB, kq, kb, TAUSQ_AB, Vi,
+                                   jnp.zeros(p))
+        tinv_sep = cj.gibbs_tausq(m, w_pred, XB, kq, TAUSQ_AB)
+        y2 = 0.5 * m.y + XB
+        beta_sep = cj.gibbs_beta(m, w_pred, tinv_sep, kb, Vi, jnp.zeros(p),
+                                 y=y2)
         return dict(
             ld0=ld0, pd0=pd0, ok0=ok0, ld1=ld1, pj1=pj1, lg1=lg1, ok1=ok1,
             qn1=qn1, qc1=qc1, routed0=g0[1],
             po1=cj.pred_operators_from_joint(m, th1, pj1),
             w_gram=w_gram, w_plain=w_plain, w_pred=w_pred, tail=tail,
+            tinv_sep=tinv_sep, y2=y2, beta_sep=beta_sep,
+            w_prior=cj.prior_sample_w(m, ld0, kz),
+            z_prior=jax.random.normal(kz, w.shape, dtype=w.dtype),
             z_w=jax.random.normal(kw, w.shape, dtype=w.dtype),
             z_p=jax.random.normal(kp, w.shape, dtype=w.dtype),
             g=jax.random.gamma(kq, TAUSQ_AB[0] + m.n_obs_by_q / 2.0,
@@ -122,7 +141,8 @@ def _jax_reference(ms_j, th0, th1, w, tausq_inv, XB, key):
 def setup(request):
     ms_j, ms_t, rng = _models(request.param)
     q = ms_t.q
-    th0, th1 = _theta(q, rng), _theta(q, rng)
+    th0, th1 = (_theta(request.param, q, rng),
+                _theta(request.param, q, rng))
     w = rng.normal(size=ms_t.n + 1)
     w[-1] = 0.0
     tausq_inv = rng.uniform(2.0, 8.0, size=q)
@@ -215,3 +235,22 @@ def test_gibbs_w_predict_and_tail_match(setup, carried_gram):
         _t(0.01 * np.eye(p)), torch.zeros(p, dtype=torch.float64))
     for got, r, what in zip(out_t, ref["tail"], ("tausq_inv", "beta", "XB")):
         _close(got, r, what)
+
+
+def test_prior_draw_and_separate_tail_match(setup):
+    """prior_sample_w (the Geweke tests' forward draw of w from the treed
+    prior) and the separate gibbs_tausq / gibbs_beta (the tail when debug
+    switches one of the two off; beta with a given y) on the same draws."""
+    ms_t, ref = setup["ms_t"], setup["ref"]
+    w_t = ct.prior_sample_w(ms_t, _ld_t(ref["ld0"]), _t(ref["z_prior"]))
+    _close(w_t, ref["w_prior"], "prior_sample_w")
+    assert w_t[ms_t.n] == 0.0
+    wp, XB, p = _t(ref["w_pred"]), _t(setup["XB"]), ms_t.p
+    tinv = ct.gibbs_tausq(ms_t, wp, XB, _t(ref["g"]), TAUSQ_AB)
+    _close(tinv, ref["tinv_sep"], "gibbs_tausq")
+    beta, XBn = ct.gibbs_beta(ms_t, wp, tinv, _t(ref["zb"]),
+                              _t(0.01 * np.eye(p)),
+                              torch.zeros(p, dtype=torch.float64),
+                              y=_t(ref["y2"]))
+    _close(beta, ref["beta_sep"][0], "gibbs_beta beta")
+    _close(XBn, ref["beta_sep"][1], "gibbs_beta XB")

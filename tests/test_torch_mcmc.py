@@ -9,6 +9,7 @@ import sys
 
 import numpy as np
 import jax
+import pytest
 import jax.numpy as jnp
 import torch
 
@@ -31,6 +32,16 @@ from test_e2e import _sim_univariate
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
+# small eager models: one intra-op thread runs them as fast, and keeps the
+# test workers from oversubscribing the cores
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close_tree(got, ref, what, rtol):
     if isinstance(ref, dict):
         for k in ref:
@@ -48,12 +59,23 @@ def _close_tree(got, ref, what, rtol):
                                    rtol=rtol, atol=atol, err_msg=what)
 
 
-def test_steps_match_jax_across_accept_and_reject():
-    """JAX init_state -> convert -> five port steps, with each step's draws
-    taken from the JAX key exactly as the JAX step splits it, against five
-    JAX steps.  rtol 1e-8 (atol 1e-8 x max|x|) in float64: per-step
-    differences are summation-order rounding (~1e-12), compounded over five
-    steps of Gibbs + Metropolis."""
+# debug= / settings= switches of make_step, each off in turn
+STEP_FLAGS = [dict(), dict(adapting=False), dict(sample_theta=False),
+              dict(sample_w=False), dict(sample_beta=False),
+              dict(sample_tausq=False)]
+
+
+@pytest.mark.parametrize("flags", STEP_FLAGS, ids=[
+    "defaults", "adapting_off", "sample_theta_off", "sample_w_off",
+    "sample_beta_off", "sample_tausq_off"])
+def test_steps_match_jax_across_accept_and_reject(flags):
+    """JAX init_state (from a given beta and w) -> convert -> five port
+    steps, with each step's draws taken from the JAX key exactly as the
+    JAX step splits it, against five JAX steps, with one sampler (or RAM
+    adaptation) switched off in both; the port's own init_state from the
+    same start equals the JAX package's.  rtol 1e-8 (atol 1e-8 x max|x|) in
+    float64: per-step differences are summation-order rounding (~1e-12),
+    compounded over five steps of Gibbs + Metropolis."""
     rng = np.random.default_rng(12)
     n = 320
     coords = np.repeat(rng.uniform(size=(n // 2, 2)), 2, axis=0)
@@ -80,9 +102,15 @@ def test_steps_match_jax_across_accept_and_reject():
     # per-dimension proposal: ai1[1]'s support is (-1e3, 1e3), so its
     # logit-scale step must be far smaller for proposals to be accepted
     sd = np.diag([3e-4, 3e-9] + [3e-4] * 6)
-    cfg_j = mj.MCMCConfig(mcmcsd=sd)
-    cfg_t = mt.MCMCConfig(mcmcsd=sd)
-    st_j = mj.init_state(ms_j, tspec.bounds, tspec.start, cfg=cfg_j, seed=0)
+    cfg_j = mj.MCMCConfig(mcmcsd=sd, **flags)
+    cfg_t = mt.MCMCConfig(mcmcsd=sd, **flags)
+    start = dict(start_beta=np.array([0.4, -0.8]), start_tausq=0.2,
+                 start_w=0.3 * rng.normal(size=n))
+    st_j = mj.init_state(ms_j, tspec.bounds, tspec.start, cfg=cfg_j, seed=0,
+                         **start)
+    _close_tree(model_state_to_numpy(mt.init_state(
+        ms_t, tspec.bounds, tspec.start, cfg=cfg_t, **start)),
+        model_state_to_numpy(st_j), "init_state", rtol=1e-9)
     st_t = model_state_from_numpy(ms_t, model_state_to_numpy(st_j))
     step_j = jax.jit(mj.make_step(ms_j, tspec.bounds, cfg_j),
                      static_argnums=2)
@@ -107,7 +135,11 @@ def test_steps_match_jax_across_accept_and_reject():
         _close_tree(model_state_to_numpy(st_t), model_state_to_numpy(st_j),
                     f"step {i}", rtol=1e-8)
         assert st_t.w[ms_t.n] == 0.0
-    assert True in accepted and False in accepted, accepted
+    if flags.get("sample_theta", True):
+        assert True in accepted and False in accepted, accepted
+    else:
+        assert st_t.ram.propos_count == 0
+        assert torch.equal(st_t.theta, torch.as_tensor(tspec.start))
 
 
 def test_spamtree_readme_config_recovers():
