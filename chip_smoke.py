@@ -88,7 +88,24 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    port's float64 chain on the card against the dense NumPy oracle of the
    reference sampler on the host, with the assertions of
    tests/test_reference_oracle.py::test_posterior_parity_vs_dense_oracle;
-   K1 must launch (in float64).
+   K1 must launch (in float64);
+16. chains: K1 first held against its plain version at the batched
+   chains' shapes -- config 3's and config 5's reference levels at C = 4
+   built as contiguous (C, B, S, S) batches and folded to (C*B, S, S)
+   views, (65536, 25) included, f32 and f64, one non-SPD block in one
+   chain's slice that alone must come out ok=False -- and timed there
+   against its bound; then configs 1 (keep=150, burn=150, thin=2: 600
+   iterations) and 3 (keep=100, burn=200, thin=2) through
+   spamtree(n_chains=C) at C = 1, 2 and 4, the always-emit step (C > 1:
+   the batched step, every chain's accept resolved on the device).  Each
+   chain must give finite draws, RMSPE < 0.5 sd(y) and acceptance in
+   (0.05, 0.8), theta_rhat must be finite, and K1's launches must be the
+   same at every C (one launch per level for all chains); each run prints
+   its aggregate chain-iterations per second, ms per iteration, K1
+   launches per iteration and peak memory.  Last, whether two batched
+   runs of config 1 at C = 2 give the same bits (printed, not checked),
+   after utils.diagnostics.time_phases' table at config 3 for one chain
+   and for four.
 
 Kernel and plain times (the kernels record's ms and plain_ms) are CUDA
 events around eager calls of the wrappers the sweeps call, host time
@@ -101,6 +118,10 @@ kernels' JSON record; the last line is {"ok": true, "device": {...}}.
     python3 chip_smoke.py --resume-bits
 
 runs phase 10's config-1 check alone, under deterministic algorithms.
+
+    python3 chip_smoke.py --chains
+
+runs phases 1-2 and phase 16 alone (~2 min).
 
     python3 chip_smoke.py --times
 
@@ -725,6 +746,180 @@ def run_oracle(chol, level, torch):
     return rec
 
 
+CHAINS = (1, 2, 4)
+K1_FOLD_C = 4  # the chain count K1's folded shapes are checked and timed at
+
+
+def check_folded_k1(chol, torch, C=K1_FOLD_C):
+    """Phase 16's K1 check at the batched chains' shapes: config 3's and
+    config 5's reference levels with C chains, built as contiguous (C, B,
+    S, S) batches and folded to (C*B, S, S) views (config 5's deepest level
+    gives (65536, 25) at C = 4), f32 and f64, one non-SPD block in one
+    chain's slice, which alone must come out ok=False.  Returns the largest
+    f32 |dLinv| over config 3's and over config 5's shapes."""
+    err32 = {"config3": 0.0, "config5": 0.0}
+    for dname in ("float32", "float64"):
+        dtype = getattr(torch, dname)
+        for label, shapes in (("config3", CONFIG3_SHAPES),
+                              ("config5", CONFIG5_SHAPES)):
+            for B, S in shapes:
+                A = _spd_batch(torch, C * B, S, dtype,
+                               seed=B * 100 + S).reshape(C, B, S, S)
+                bad_c = C // 2
+                A[bad_c, B // 2, 0, 1] = A[bad_c, B // 2, 1, 0] = 10.0 * S
+                good = torch.ones(C, B, dtype=torch.bool, device="cuda")
+                good[bad_c, B // 2] = False
+                folded = A.reshape(C * B, S, S)
+                _check(folded.data_ptr() == A.data_ptr(),
+                       "the (C, B) fold copied")
+                k = chol.inv_chol(folded)
+                p = chol.inv_chol_plain(folded)
+                torch.cuda.synchronize()
+                for x in (k, p):
+                    d = torch.diagonal(x, dim1=-2, dim2=-1)
+                    ok = torch.all(torch.isfinite(d) & (d > 0), dim=-1)
+                    _check(torch.equal(ok.reshape(C, B), good),
+                           f"folded K1 ok flags: {dname} C={C} B={B} S={S}")
+                g = good.reshape(-1)
+                err = float((k[g] - p[g]).abs().max())
+                scale = float(p[g].abs().max())
+                _check(err <= TOL[dname] * scale,
+                       f"folded K1 disagrees: {dname} C={C} B={B} S={S} "
+                       f"err={err} scale={scale}")
+                if dname == "float32":
+                    err32[label] = max(err32[label], err)
+        print(f"K1 folded ok {dname} at C={C}: (C*B, S) = " + ", ".join(
+            f"({C * B}, {S})" for B, S in CONFIG3_SHAPES + CONFIG5_SHAPES),
+            flush=True)
+    print(f"K1 folded max |dLinv| f32: {err32}", flush=True)
+    return err32
+
+
+def run_chains(bench, chol, level, torch, cfg_id, C, keep, burn, thin,
+               chunk=200):
+    """spamtree(n_chains=C), the always-emit step (C = 1: the single-chain
+    run; C > 1: run_mcmc_chains, every chain's accept on the device).
+    Checks each chain: finite draws, RMSPE < 0.5 sd(y) on the held-out
+    rows, acceptance in (0.05, 0.8); theta_rhat finite for C > 1.  Returns
+    the record (K1's launches counted from 0 just before the call)."""
+    import spamtree_tpu_torch
+
+    c = bench.CONFIGS[cfg_id]
+    y, y_full, miss, X, coords, mv = _data(bench, cfg_id)
+    ybar = np.nanmean(y)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(chol, level)
+    t0 = time.time()
+    out = spamtree_tpu_torch.spamtree(
+        y - ybar, X, coords, mv_id=mv, cell_size=25,
+        mcmc=dict(keep=keep, burn=burn, thin=thin),
+        settings=dict(chunk=chunk), seed=1, device="cuda", n_chains=C)
+    wall = time.time() - t0
+    counts = _counts(chol, level)
+    iters = out["burn_actual"] + keep * thin
+    # one chain: w/yhat (keep, n), theta (nt, keep); chains (keep, C, ...)
+    yhat = out["yhat_mcmc"][:, None] if C == 1 else out["yhat_mcmc"]
+    acc = (np.array([out["accept_ratio"]]) if C == 1
+           else np.asarray(out["accept_by_chain"]))
+    order = out["order"]
+    mo = miss[order]
+    sd = float(np.nanstd(y_full))
+    rmspe = [float(np.sqrt(np.mean(((yhat[:, k].mean(0) + ybar)[mo]
+                                    - y_full[order][mo]) ** 2)))
+             for k in range(C)]
+    rec = dict(phase="chains", config=c["name"], chains=C, n=len(y),
+               iters=iters, keep=keep, burn=burn, thin=thin,
+               chain_it_per_s=C * iters / out["mcmc_time"],
+               ms_per_iter=1e3 * out["mcmc_time"] / iters,
+               mcmc_time=out["mcmc_time"], iter_s=out["iter_s"],
+               drain_work_s=out["drain_work_s"],
+               setup_time=wall - out["mcmc_time"], rmspe=rmspe, sd_y=sd,
+               accept_by_chain=acc.tolist(), **counts,
+               k1_per_iter=counts["k1_launches"] / iters,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               theta_rhat=(out["theta_rhat"].tolist() if C > 1 else None))
+    print(json.dumps(rec), flush=True)
+    for k in ("w_mcmc", "yhat_mcmc", "beta_mcmc", "tausq_mcmc", "theta_mcmc"):
+        _check(out[k].size and np.isfinite(out[k]).all(),
+               f"config {cfg_id} C={C}: finite {k}")
+    _check(yhat.shape == (keep, C, len(y)),
+           f"config {cfg_id} C={C}: yhat shape {yhat.shape}")
+    for k in range(C):
+        _check(rmspe[k] < 0.5 * sd, f"config {cfg_id} chain {k} of {C}: "
+               f"RMSPE {rmspe[k]} >= 0.5 sd(y) {sd}")
+        _check(0.05 < acc[k] < 0.8, f"config {cfg_id} chain {k} of {C}: "
+               f"acceptance {acc[k]} outside (0.05, 0.8)")
+    _check(C == 1 or np.isfinite(out["theta_rhat"]).all(),
+           f"config {cfg_id} C={C}: theta_rhat {out.get('theta_rhat')}")
+    _check(counts["k1_launches"] > 0, f"config {cfg_id} C={C}: K1 idle")
+    return rec
+
+
+def chains_phase(bench, chol, level, torch):
+    """Phase 16: K1 at the folded shapes, then configs 1 and 3 at C = 1, 2
+    and 4; K1's launches must not grow with C (one launch per level for
+    all chains); time_phases' table at config 3; then whether two batched
+    runs give the same bits."""
+    import spamtree_tpu_torch
+
+    err = check_folded_k1(chol, torch)
+    times = {label: time_kernel(
+        chol, torch, shapes=[(K1_FOLD_C * B, S) for B, S in shapes],
+        label=f"{label} x {K1_FOLD_C} chains folded")
+        for label, shapes in (("config3", CONFIG3_SHAPES),
+                              ("config5", CONFIG5_SHAPES))}
+    runs = {}
+    # config 1 cut from the bench's 3200 iterations to 600, config 3 at
+    # phase 5's depth, to keep the phase near two minutes
+    for cfg_id, kw in ((1, dict(keep=150, burn=150, thin=2)),
+                       (3, dict(keep=100, burn=200, thin=2))):
+        for C in CHAINS:
+            _phase(f"chains: config {cfg_id}, n_chains={C}")
+            runs[(cfg_id, C)] = run_chains(bench, chol, level, torch, cfg_id,
+                                           C, **kw)
+        k1 = {C: runs[(cfg_id, C)]["k1_launches"] for C in CHAINS}
+        _check(all(k1[C] == k1[1] for C in CHAINS),
+               f"config {cfg_id}: K1 launches by chain count {k1} (they "
+               f"must not grow with C)")
+    for cfg_id in (1, 3):
+        for C in CHAINS:
+            r = runs[(cfg_id, C)]
+            print(f"chains table: config {cfg_id} C={C}: "
+                  f"{r['chain_it_per_s']:.2f} chain-it/s, "
+                  f"{r['ms_per_iter']:.2f} ms/it, K1 "
+                  f"{r['k1_per_iter']:.2f}/it, peak "
+                  f"{r['peak_mem_bytes'] / 1e9:.2f} GB, accept "
+                  f"{np.round(r['accept_by_chain'], 3).tolist()}", flush=True)
+    # the per-phase table (utils.diagnostics) at config 3, one chain and
+    # four chains batched
+    from spamtree_tpu_torch.api import prepare_fit
+    from spamtree_tpu_torch.utils.diagnostics import time_phases
+
+    y, _, _, X, coords, mv = _data(bench, 3)
+    fit = prepare_fit(y - np.nanmean(y), X, coords, mv_id=mv, cell_size=25,
+                      mcmc=dict(keep=1, burn=0), seed=1, device="cuda",
+                      n_chains=4)
+    st = fit.state
+    one = st._replace(theta=st.theta[0], w=st.w[0],
+                      tausq_inv=st.tausq_inv[0], XB=st.XB[0])
+    phases = {C: time_phases(fit.ms, s, iters=5) for C, s in ((1, one),
+                                                              (4, st))}
+    print(json.dumps(dict(phase="time_phases", config=3, ms=phases)),
+          flush=True)
+    _check(all(np.isfinite(v) and v > 0 for t in phases.values()
+               for v in t.values()), f"time_phases: {phases}")
+    del fit, st, one
+    y, _, _, X, coords, mv = _data(bench, 1)
+    two = [spamtree_tpu_torch.spamtree(
+        y, X, coords, mv_id=mv, cell_size=25, mcmc=dict(keep=40, burn=20),
+        settings=dict(chunk=10), seed=1, device="cuda", n_chains=2)
+        for _ in range(2)]
+    same = all(np.array_equal(two[0][k], two[1][k]) for k in _KEYS)
+    print(f"config 1, two batched runs at n_chains=2: "
+          f"{'the same bits' if same else 'different bits'}", flush=True)
+    return dict(err=err, times=times, runs=runs, same_bits=same)
+
+
 def _level_inputs(torch, dtype, B, S, P, Bp, seed, bad, lp_pos=None):
     """K3 and K4 inputs at realistic magnitudes (M = LAi Kxc ~ N(0, 1),
     hk = sum_p M^2 ~ P with a heavy upper tail, kdiag = hk + (1.5 P, 3 P),
@@ -1041,6 +1236,9 @@ def main() -> int:
     if sys.argv[1:] == ["--resume-bits"]:
         torch.use_deterministic_algorithms(True)
         return 0 if resume_bits(bench, torch) else 1
+    if sys.argv[1:] == ["--chains"]:
+        chains_phase(bench, chol, level, torch)
+        return 0
     if sys.argv[1:] == ["--times"]:
         _phase("K1, K2, K3, K4 times")
         time_kernel(chol, torch)
@@ -1150,6 +1348,8 @@ def main() -> int:
         k4=time_decision_shapes(level, torch, thin4, None, "config-4"))
     _phase("oracle chain, float64, on the card")
     ro = run_oracle(chol, level, torch)
+    _phase("chains: K1 at the folded (C*B, S) shapes")
+    ch = chains_phase(bench, chol, level, torch)
     print(f"chip_smoke: every phase passed in {time.time() - _T0:.1f} s",
           flush=True)
 
@@ -1171,7 +1371,8 @@ def main() -> int:
     # its level shapes, timed after the run.
     paths = {"config5_always_emit": r8, "config5_summary": r9,
              "config5_predict": r11, "config2": r2, "config4": r4,
-             "config4_accept_aware": a4, "oracle_f64": ro}
+             "config4_accept_aware": a4, "oracle_f64": ro} | {
+                 f"config{i}_chains{C}": r for (i, C), r in ch["runs"].items()}
     def k1_path(rs):
         n = len(rs)
         return dict(ms=sum(r[2] for r in rs) / n,
@@ -1210,11 +1411,19 @@ def main() -> int:
                     launches_paths=lp)
 
     level_src = "spamtree_tpu_torch/csrc/thin_level.cu"
-    print(json.dumps({"kernels": [entry(
+    k1 = entry(
         "inv_chol", "spamtree_tpu_torch/csrc/inv_chol.cu",
         "spamtree_tpu/ops/pallas_chol.py:107", a5["k1_launches"],
         r3["k1_launches"], max_err["config5"], max_err["config3"],
-        k1_path(t5["k1"]), k1_path(rows), "k1", k1_path(t4["k1"]))] + [entry(
+        k1_path(t5["k1"]), k1_path(rows), "k1", k1_path(t4["k1"]))
+    # phase 16: K1 at config 3's and config 5's reference levels folded
+    # over K1_FOLD_C chains (mean per level, as above), and its launches
+    # in the batched runs of config 3
+    for label in ("config3", "config5"):
+        k1.update({f"{k}_{label}_c{K1_FOLD_C}": v for k, v in
+                   k1_path(ch["times"][label]).items()})
+        k1[f"max_abs_err_{label}_c{K1_FOLD_C}"] = ch["err"][label]
+    print(json.dumps({"kernels": [k1] + [entry(
             name, level_src, replaces, a5[f"{key}_launches"],
             a3[f"{key}_launches"], lerr["config5"][key], lerr["config3"][key],
             level_path5(key), level_path3(key), key,

@@ -2,11 +2,11 @@
 ``spamtree_predict()`` at new locations after a fit.
 
 Port of ``spamtree_tpu/api.py`` (reference front-end R/spamtree_fit.R):
-one chain on a full or limited tree, every kept draw collected or the
-posterior moments summed on the device, prediction at the NaN rows,
-checkpoints, resume and sample sinks, with the JAX package's prior,
-starting, debug, settings, tree-shape and elevation knobs.  Multiple
-chains and devices raise NotImplementedError naming the knob.
+one chain or C chains in one batched step on a full or limited tree,
+every kept draw collected or the posterior moments summed on the device,
+prediction at the NaN rows, checkpoints, resume and sample sinks, with the
+JAX package's prior, starting, debug, settings, tree-shape and elevation
+knobs.  Devices and meshes raise NotImplementedError naming the knob.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from spamtree_tpu_torch.model.mcmc import (
     chunk_sizes,
     init_state,
     run_mcmc,
+    run_mcmc_chains,
+    stack_chain_states,
 )
 from spamtree_tpu_torch.model.params import auto_start_theta, make_theta_spec
 from spamtree_tpu_torch.model.tuning import (
@@ -56,7 +58,7 @@ _SETTINGS_FIXED = dict(const_model=(None,),
                        lazy_init=(None, False), tuner_overlap=(None,))
 # knobs of spamtree_tpu.spamtree that this port does not run yet, with the
 # value it does run
-_NOT_PORTED = dict(n_chains=1, devices=None, mesh=None)
+_NOT_PORTED = dict(devices=None, mesh=None)
 
 
 def _merge(name: str, defaults: dict, given) -> dict:
@@ -107,8 +109,8 @@ class Fit(NamedTuple):
     ms: ModelStatic
     bounds: np.ndarray
     cfg: MCMCConfig
-    state: object  # model.mcmc.MCMCState
-    gen: torch.Generator
+    state: object  # model.mcmc.MCMCState, with a chain axis for n_chains > 1
+    gen: object  # torch.Generator, or one per chain for n_chains > 1
     order: np.ndarray
     tree: object
     sched: object
@@ -167,15 +169,21 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
                 elevation=False, start_level=0, tree_depth=np.inf,
                 last_not_reference=True, cherrypick_same_margin=True,
                 cherrypick_group_locations=True, mvbias=0.0, prior=None,
-                starting=None, debug=None, precompile=False,
+                starting=None, debug=None, precompile=False, n_chains=1,
                 **knobs) -> Fit:
     """Tree, schedule, model, tuned proposal and initial state of a
     ``spamtree`` run (same arguments), without running the chain; with
     ``resume_from`` the state and generators of that checkpoint instead of
     the tuner and the initial sweep.  ``precompile`` is accepted and does
-    nothing: the eager port compiles no program."""
+    nothing: the eager port compiles no program.  ``n_chains > 1``: the
+    tuner runs once and every chain starts from its state and proposal
+    (``mcmc.stack_chain_states``), chain c's generator seeded ``seed +
+    c``."""
     del precompile
     settings = _check_knobs(knobs, settings)
+    n_chains = int(n_chains)
+    if n_chains < 1:
+        raise ValueError(f"n_chains must be >= 1, got {n_chains}")
     mcmc = _merge("mcmc", _MCMC, mcmc)
     prior = _merge("prior", _PRIOR, prior)
     starting = _merge("starting", _STARTING, starting)
@@ -219,7 +227,8 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         cherrypick_group_locations=cherrypick_group_locations,
         mvbias=mvbias, seed=seed, dtype=dtype, mv_labels=uniq,
         btmlim=prior["btmlim"], toplim=prior["toplim"], vlim=prior["vlim"],
-        set_unif_bounds=prior["set_unif_bounds"], elevation=bool(elevation))
+        set_unif_bounds=prior["set_unif_bounds"], elevation=bool(elevation),
+        n_chains=n_chains)
 
     tb = {}  # setup breakdown: seconds per pre-MCMC phase
     t_ = time.time()
@@ -264,8 +273,16 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     if resume_from is not None:
         # the checkpoint carries the adapted proposal and the generators:
         # no tuner, no initial sweep (load_state rebuilds the factors)
-        from spamtree_tpu_torch.utils.checkpoint import load_rngs, load_state
+        from spamtree_tpu_torch.utils.checkpoint import (
+            load_chains,
+            load_rngs,
+            load_state,
+        )
 
+        ck_chains = load_chains(resume_from)
+        if ck_chains != n_chains:
+            raise ValueError(f"checkpoint holds {ck_chains} chain(s); "
+                             f"n_chains={n_chains} was requested")
         t_ = time.time()
         state = load_state(resume_from, ms)
         gen, yhat_rngs = load_rngs(resume_from, ms.device)
@@ -322,6 +339,8 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     state = init_state(ms, tspec.bounds, tspec.start,
                        start_beta=starting["beta"], start_tausq=start_tausq,
                        start_w=start_w, cfg=cfg, precomputed=precomputed)
+    if n_chains > 1:
+        state, gen = stack_chain_states(state, seed + np.arange(n_chains))
     tb["init_s"] = round(time.time() - t_, 2)
     return Fit(ms, tspec.bounds, cfg, state, gen, order, tree, sched, tb,
                fit_config)
@@ -330,7 +349,7 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
 def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
              settings=None, seed=1, dtype=torch.float32, verbose=False,
              device="cuda", limited_tree=False, checkpoint_path=None,
-             resume_from=None, sink_dir=None, **knobs):
+             resume_from=None, sink_dir=None, n_chains=1, **knobs):
     """Fit a SpamTree model: fit + prediction in one MCMC run.
 
     y : (n,) response; NaN rows are predicted.
@@ -383,6 +402,13 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     sink_dir : w/yhat draws stream to ``w_mcmc.f32``/``yhat_mcmc.f32``
         there instead of host RAM (``utils.native.read_sink``); a resumed
         run appends.
+    n_chains : C > 1 runs C chains as one batched step from the same tuned
+        start, chain c's generator seeded ``seed + c``; the outputs carry
+        the chain axis after the sample axis, as the JAX package's: w_mcmc,
+        yhat_mcmc (keep, C, n), beta_mcmc (keep, C, p, q), tausq_mcmc
+        (keep, C, q), theta_mcmc (keep, C, n_theta), with theta_rhat and
+        theta_ess (from 4 kept draws) and accept_by_chain; summary moments
+        are (C, n).
 
     Returns a dict with w_mcmc, yhat_mcmc (keep, n), beta_mcmc (p, keep, q),
     tausq_mcmc (q, keep), theta_mcmc (n_theta, keep), order (outputs are in
@@ -400,15 +426,16 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
                       mcmc=mcmc, settings=settings, seed=seed, dtype=dtype,
                       verbose=verbose, device=device,
                       limited_tree=limited_tree, resume_from=resume_from,
-                      **knobs)
+                      n_chains=n_chains, **knobs)
     r = fit.resume
-    res = run_mcmc(fit.ms, fit.bounds, fit.cfg, fit.state, fit.gen,
-                   verbose=verbose, yhat_seed=seed,
-                   checkpoint_path=checkpoint_path, sink_dir=sink_dir,
-                   sink_append=r is not None,
-                   init_moments=r.init_moments if r else None,
-                   base_counts=r.base_counts if r else (0, 0),
-                   yhat_rngs=r.yhat_rngs if r else None)
+    chains = fit.fit_config["n_chains"] > 1
+    res = (run_mcmc_chains if chains else run_mcmc)(
+        fit.ms, fit.bounds, fit.cfg, fit.state, fit.gen, verbose=verbose,
+        yhat_seed=seed, checkpoint_path=checkpoint_path, sink_dir=sink_dir,
+        sink_append=r is not None,
+        init_moments=r.init_moments if r else None,
+        base_counts=r.base_counts if r else (0, 0),
+        yhat_rngs=r.yhat_rngs if r else None)
     mv_id = (np.ones(len(fit.order), dtype=np.int64) if mv_id is None
              else np.asarray(mv_id, dtype=np.int64))
     tree = fit.tree
@@ -419,13 +446,15 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         "order": fit.order,
         "coordsinfo": {"coords": cs, "block": tree.block_of_row,
                        "res": tree.res_of_row},
+        # one chain: the reference's layouts; chains: (keep, C, ...)
         "w_mcmc": res["w"],
         "yhat_mcmc": res["yhat"],
-        "beta_mcmc": (np.moveaxis(res["beta"], 0, 1) if res["beta"].ndim >= 2
+        "beta_mcmc": (np.moveaxis(res["beta"], 0, 1)
+                      if not chains and res["beta"].ndim >= 2
                       else res["beta"]),
-        "tausq_mcmc": res["tausq"].T,
-        "theta_mcmc": res["theta"].T,
-        "n_chains": 1,
+        "tausq_mcmc": res["tausq"] if chains else res["tausq"].T,
+        "theta_mcmc": res["theta"] if chains else res["theta"].T,
+        "n_chains": fit.fit_config["n_chains"],
         "paramsd": res["paramsd"],
         "accept_ratio": res["accept_ratio"],
         "mcmc_time": res["mcmc_time"],
@@ -446,6 +475,14 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         for k in ("w_mean", "w_var", "yhat_mean", "yhat_var",
                   "summary_count"):
             out[k] = res[k]
+    if chains:
+        out["accept_by_chain"] = res["accept_by_chain"]
+        if res["theta"].ndim == 3 and res["theta"].shape[0] >= 4:
+            # split-Rhat and bulk ESS of the (keep, C, n_theta) draws
+            from spamtree_tpu_torch.utils.summaries import ess, rhat
+
+            out["theta_rhat"] = rhat(res["theta"])
+            out["theta_ess"] = ess(res["theta"])
     return out
 
 
@@ -488,14 +525,23 @@ def spamtree_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but CUDA is not available")
-    if fit.get("n_chains", 1) > 1:
-        raise NotImplementedError("multi-chain fits are not ported")
     w_draws = np.asarray(fit["w_mcmc"], dtype=np.float64)
-    # single chain: theta (n_theta, keep), beta (p, keep, q), tausq (q, keep)
-    theta_draws = np.asarray(fit["theta_mcmc"], dtype=np.float64).T
-    beta_draws = np.moveaxis(np.asarray(fit["beta_mcmc"], dtype=np.float64),
-                             1, 0)
-    tausq_draws = np.asarray(fit["tausq_mcmc"], dtype=np.float64).T
+    theta_draws = np.asarray(fit["theta_mcmc"], dtype=np.float64)
+    beta_draws = np.asarray(fit["beta_mcmc"], dtype=np.float64)
+    tausq_draws = np.asarray(fit["tausq_mcmc"], dtype=np.float64)
+    if fit.get("n_chains", 1) > 1:
+        # every chain targets the posterior: (keep, C, ...) folds into
+        # keep * C draws, as in the JAX package
+        w_draws = w_draws.reshape(-1, w_draws.shape[-1])
+        theta_draws = theta_draws.reshape(-1, theta_draws.shape[-1])
+        beta_draws = beta_draws.reshape(-1, *beta_draws.shape[2:])
+        tausq_draws = tausq_draws.reshape(-1, tausq_draws.shape[-1])
+    else:
+        # single chain: theta (n_theta, keep), beta (p, keep, q), tausq
+        # (q, keep)
+        theta_draws = theta_draws.T
+        beta_draws = np.moveaxis(beta_draws, 1, 0)
+        tausq_draws = tausq_draws.T
     S_all = w_draws.shape[0]
     if S_all == 0 or w_draws.shape[0] != theta_draws.shape[0]:
         raise ValueError("fit holds no full w draws (collect='summary'?); "

@@ -31,6 +31,15 @@ level hand its thin children factor parts instead of an assembled joint
 Above 256 MB of prediction operators (``pred_in_carry`` False) the
 sampler carries none and ``predict_recompute`` rebuilds them for the
 current theta at each kept iteration.
+
+Batched chains: ``sweep`` (full, not decision-only), ``gibbs_w`` (Gram
+blocks formed in place), ``pred_operators_from_joint``, ``predict``,
+``predict_recompute``, ``quad_loglik`` and the conjugate tail also take a
+leading chain axis C -- theta (C, n_theta), w and XB (C, n+1), tausq_inv
+(C, q), every level's H/prec (C, B, ...) -- and return one logdet, ok flag
+and quadratic form per chain.  Static level arrays have no chain axis;
+each reference level's Cholesky batch is folded to (C*B, S, S), one K1
+launch for all chains.
 """
 
 from __future__ import annotations
@@ -296,9 +305,10 @@ class ModelStatic:
             self.seg_level.append(segs)
 
     def tausq_long(self, tausq_inv):
-        """(n+1,) per-row noise precision; sentinel slot = 0."""
-        t = tausq_inv[self.mv]
-        t[self.n] = 0.0
+        """(n+1,) per-row noise precision ((C, n+1) for (C, q) chains);
+        sentinel slot = 0."""
+        t = tausq_inv[..., self.mv]
+        t[..., self.n] = 0.0
         return t
 
 
@@ -314,22 +324,48 @@ def _tree_map(fn, *xs):
     return fn(*xs)
 
 
-def _run_level(args, nc: int, carry, body):
+def _chains(x, nd: int) -> int:
+    """Number of leading chain dimensions (0 or 1) of ``x``, whose
+    single-chain rank is ``nd``."""
+    return x.dim() - nd
+
+
+def _bsel(x, idx, cb: int):
+    """Gather along the block axis, which follows ``cb`` chain dims."""
+    return x[(slice(None),) * cb + (idx,)]
+
+
+def _csum(x, cb: int):
+    """Total of ``x`` per chain (over everything for one chain)."""
+    return torch.sum(x) if cb == 0 else x.flatten(cb).sum(-1)
+
+
+def _call(x, cb: int):
+    """All of ``x`` per chain: one chain's failed block rejects that
+    chain's proposal alone."""
+    return torch.all(x) if cb == 0 else x.flatten(cb).all(-1)
+
+
+def _run_level(args, nc: int, carry, body, cb: int = 0, chained=()):
     """Run ``body(carry, args) -> (carry, outs)`` over the whole level
     (nc = 1) or over nc sequential slabs of its block axis, concatenating
     the slabs' outputs.  Sequential slabs bound peak device memory: the
     largest (B, P, P) transients exist for one slab at a time.  ``args[0]``
     is the level's LevelArrays; every tensor in ``args`` has the block axis
-    first."""
+    first, except in the entries indexed by ``chained``, whose block axis
+    follows ``cb`` chain dims, as does every output's."""
     if nc == 1:
         return body(carry, args)
     Bc = args[0].rows.shape[0] // nc
     outs = []
     for c in range(nc):
         sl = slice(c * Bc, (c + 1) * Bc)
-        carry, o = body(carry, _tree_map(lambda a: a[sl], args))
+        part = tuple(
+            _tree_map(lambda a, i=i: _bsel(a, sl, cb if i in chained else 0),
+                      x) for i, x in enumerate(args))
+        carry, o = body(carry, part)
         outs.append(o)
-    return carry, _tree_map(lambda *o: torch.cat(o, dim=0), *outs)
+    return carry, _tree_map(lambda *o: torch.cat(o, dim=cb), *outs)
 
 
 def _apply_parent_factor(parent_joint, lp_pos, Kxc, gc: int,
@@ -341,19 +377,23 @@ def _apply_parent_factor(parent_joint, lp_pos, Kxc, gc: int,
     to all its children as one batched product with a (P, gc*S) right-hand
     side.  Returns (M, H, LAi); LAi is (B, P, P) for gc == 1 and (G, P, P)
     grouped otherwise.  ``need_H=False`` (decision-only sweep) returns None
-    for H: the decision needs only M-derived forms."""
-    B, P, S = Kxc.shape
+    for H: the decision needs only M-derived forms.  A chain
+    axis leads every tensor when ``Kxc`` has one."""
+    B, P, S = Kxc.shape[-3:]
+    pre = Kxc.shape[:-3]
+    cb = len(pre)
     if gc <= 1:
-        LAi = parent_joint if aligned else parent_joint[lp_pos]
+        LAi = parent_joint if aligned else _bsel(parent_joint, lp_pos, cb)
         M = LAi @ Kxc
-        H = torch.einsum("bps,bpq->bsq", M, LAi) if need_H else None
+        H = torch.einsum("...bps,...bpq->...bsq", M, LAi) if need_H else None
         return M, H, LAi
     G = B // gc
-    LAi = parent_joint[lp_pos[::gc]]
-    M4 = torch.einsum("gpq,gcqs->gcps", LAi, Kxc.reshape(G, gc, P, S))
-    H = (torch.einsum("gcps,gpq->gcsq", M4, LAi).reshape(B, S, P)
-         if need_H else None)
-    return M4.reshape(B, P, S), H, LAi
+    LAi = _bsel(parent_joint, lp_pos[::gc], cb)
+    M4 = torch.einsum("...gpq,...gcqs->...gcps", LAi,
+                      Kxc.reshape(*pre, G, gc, P, S))
+    H = (torch.einsum("...gcps,...gpq->...gcsq", M4, LAi).reshape(
+        *pre, B, S, P) if need_H else None)
+    return M4.reshape(*pre, B, P, S), H, LAi
 
 
 def _hw_from_M(M, LAi, wpar, gc: int):
@@ -372,23 +412,27 @@ def _hw_from_M(M, LAi, wpar, gc: int):
 def _assemble_joint(LAi, Rinv, H, P, S, gc, pad: int = 0):
     """Joint inverse-Cholesky factor J = [[LAi, 0], [-Rinv H, Rinv]];
     ``pad > 0`` appends identity rows/cols (the aligned joint layout's
-    sentinel tail): J_pad = [[J, 0], [0, I]]."""
-    B = Rinv.shape[0]
+    sentinel tail): J_pad = [[J, 0], [0, I]].  A chain axis leads every
+    tensor when ``Rinv`` has one."""
+    B = Rinv.shape[-3]
+    pre = tuple(Rinv.shape[:-3])
     if P == 0:
         J = Rinv
     else:
-        LAi_b = LAi if gc <= 1 else LAi[:, None].expand(
-            B // gc, gc, P, P).reshape(B, P, P)
-        top = torch.cat([LAi_b, Rinv.new_zeros((B, P, S))], dim=2)
-        bot = torch.cat([-torch.einsum("bst,btp->bsp", Rinv, H), Rinv], dim=2)
-        J = torch.cat([top, bot], dim=1)
+        LAi_b = LAi if gc <= 1 else LAi.unsqueeze(-3).expand(
+            *pre, B // gc, gc, P, P).reshape(*pre, B, P, P)
+        top = torch.cat([LAi_b, Rinv.new_zeros(pre + (B, P, S))], dim=-1)
+        bot = torch.cat([-torch.einsum("...bst,...btp->...bsp", Rinv, H),
+                         Rinv], dim=-1)
+        J = torch.cat([top, bot], dim=-2)
     if pad:
         W = J.shape[-1]
-        eye = torch.eye(pad, dtype=J.dtype, device=J.device).expand(B, pad, pad)
+        eye = torch.eye(pad, dtype=J.dtype, device=J.device).expand(
+            pre + (B, pad, pad))
         J = torch.cat([
-            torch.cat([J, J.new_zeros((B, W, pad))], dim=2),
-            torch.cat([J.new_zeros((B, pad, W)), eye], dim=2),
-        ], dim=1)
+            torch.cat([J, J.new_zeros(pre + (B, W, pad))], dim=-1),
+            torch.cat([J.new_zeros(pre + (B, pad, W)), eye], dim=-1),
+        ], dim=-2)
     return J
 
 
@@ -465,16 +509,18 @@ def _apply_parts_thin(parts, Kxc, wpar):
 def _wpar_from(wj_src, lp_pos, al: bool, gc: int):
     """wpar (B, P) for a level as a row gather of its parent level's joint w
     rows (``prows[b] == joint_rows[lp][lp_pos[b]]``), or a direct read on
-    aligned levels."""
+    aligned levels.  ``wj_src`` is (B', W), or (C, B', W) with chains."""
     if al:
         return wj_src
+    cb = _chains(wj_src, 2)
     if gc > 1:
         # parent-major groups share their leader's parent pointers
         G = lp_pos.shape[0] // gc
-        lead = wj_src[lp_pos[::gc]]
-        return lead[:, None].expand(G, gc, wj_src.shape[1]).reshape(
-            -1, wj_src.shape[1])
-    return wj_src[lp_pos]
+        W = wj_src.shape[-1]
+        lead = _bsel(wj_src, lp_pos[::gc], cb)
+        return lead.unsqueeze(-2).expand(
+            *wj_src.shape[:cb], G, gc, W).reshape(*wj_src.shape[:cb], -1, W)
+    return _bsel(wj_src, lp_pos, cb)
 
 
 def _wj_parents_needed(ms: ModelStatic) -> set:
@@ -495,11 +541,11 @@ def _wj_parents_needed(ms: ModelStatic) -> set:
 
 def _w_joints(ms: ModelStatic, w, need: set) -> dict:
     """Per-parent-level joint w rows {t: (B, W)} built root->leaf through the
-    recursive layout (see _wpar_from)."""
+    recursive layout (see _wpar_from); (C, B, W) with chains."""
     wjs = {}
     for t in sorted(need):
         lvl = ms.levels[t]
-        w_r = w[lvl.rows]
+        w_r = w[..., lvl.rows]
         if ms.limited_tree:
             # limited trees: children condition on the parent's rows alone
             wjs[t] = w_r
@@ -509,11 +555,11 @@ def _w_joints(ms: ModelStatic, w, need: set) -> dict:
         else:
             wpar = _wpar_from(wjs[ms.level_lp[t]], lvl.lp_pos,
                               ms.level_aligned[t], ms.level_group_c[t])
-            wj = torch.cat([wpar, w_r], dim=1)
+            wj = torch.cat([wpar, w_r], dim=-1)
         if ms.joint_pad[t]:
             # sentinel tail of the aligned joint layout: w[n] == 0
-            wj = torch.cat([wj, wj.new_zeros((wj.shape[0], ms.joint_pad[t]))],
-                           dim=1)
+            wj = torch.cat([wj, wj.new_zeros(wj.shape[:-1]
+                                             + (ms.joint_pad[t],))], dim=-1)
         wjs[t] = wj
     return wjs
 
@@ -557,14 +603,21 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
     quad_new, quad_cur)``: no leveldata or prediction operators, H and prec
     are never formed (M-derived forms replace them), joint factors go only
     to levels that later sweep levels consume, and a reference level whose
-    consumers allow it passes them factor parts (``_compose_children``)."""
+    consumers allow it passes them factor parts (``_compose_children``).
+
+    Batched chains: theta (C, n_theta) and w (C, n+1) (``quad_prev`` with
+    (C, B, ...) leaves) give (C,) logdet, ok and quadratic forms, each over
+    its own chain's blocks only; not with ``decision_only``."""
     if decision_only:
         assert quad_prev is not None, "decision_only requires quad_prev"
+    cb = _chains(theta, 1)
+    assert not (cb and decision_only), "decision_only runs one chain"
+    pre = tuple(theta.shape[:-1])
     params = unpack_theta(theta.to(ms.dtype), ms.spec)
     leveldata = []
-    zero = torch.zeros((), dtype=ms.dtype, device=ms.device)
+    zero = torch.zeros(pre, dtype=ms.dtype, device=ms.device)
     logdet, qn, qc = zero, zero, zero
-    ok = torch.ones((), dtype=torch.bool, device=ms.device)
+    ok = torch.ones(pre, dtype=torch.bool, device=ms.device)
     joints = {}
     wjs = {}  # joint w rows per parent level (see _wpar_from)
     wj_need = _wj_parents_needed(ms) if quad_prev is not None else set()
@@ -593,16 +646,16 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
                   ms.mv[lvl_full.prows] if P > 0 else None)
         w_r_full = wpar_full = None
         if quad_prev is not None:
-            w_r_full = w[lvl_full.rows]
+            w_r_full = w[..., lvl_full.rows]
             if P > 0:
                 wpar_full = _wpar_from(wjs[ms.level_lp[t]], lvl_full.lp_pos,
                                        al, gc)
             if is_ref and t in wj_need:
                 wj = (w_r_full if ms.limited_tree or wpar_full is None
-                      else torch.cat([wpar_full, w_r_full], dim=1))
+                      else torch.cat([wpar_full, w_r_full], dim=-1))
                 if ms.joint_pad[t]:
-                    wj = torch.cat([wj, wj.new_zeros((wj.shape[0],
-                                                      ms.joint_pad[t]))], 1)
+                    wj = torch.cat([wj, wj.new_zeros(
+                        wj.shape[:-1] + (ms.joint_pad[t],))], -1)
                 wjs[t] = wj
         # decision mode: factor parts instead of the assembled joint when
         # every consumer can apply them block by block
@@ -667,30 +720,31 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
                 hw = hw_prev = None
                 if quad_prev is not None:
                     # the prior mean goes through M when H was not formed
-                    hw = (torch.einsum("bsp,bp->bs", H, wpar) if H is not None
-                          else _hw_from_M(M, LAi, wpar, gc))
-                    hw_prev = torch.einsum("bsp,bp->bs", prev.H, wpar)
+                    hw = (torch.einsum("...bsp,...bp->...bs", H, wpar)
+                          if H is not None else _hw_from_M(M, LAi, wpar, gc))
+                    hw_prev = torch.einsum("...bsp,...bp->...bs", prev.H,
+                                           wpar)
             else:
                 Kxc = M = LAi = None
-                H = ms.X.new_zeros((B, S, 0))
+                H = ms.X.new_zeros(pre + (B, S, 0))
                 hw = hw_prev = 0.0
 
             if is_ref:
                 Kcc = _bcov(ms, params, cxr, mvr, cxr, mvr)
                 Rcc = identity_pad(Kcc, lvl.rmask)
                 if P > 0:
-                    Rcc = Rcc - torch.einsum("bps,bpt->bst", M, M)
+                    Rcc = Rcc - torch.einsum("...bps,...bpt->...bst", M, M)
                 use_k = ms.use_kernel and S <= MAX_S
                 _, Rinv, okl = chol_inv_masked(Rcc, lvl.rmask, use_k)
-                logdet = logdet + torch.sum(
-                    torch.log(torch.diagonal(Rinv, dim1=-2, dim2=-1)))
-                ok = ok & torch.all(okl)
+                logdet = logdet + _csum(
+                    torch.log(torch.diagonal(Rinv, dim1=-2, dim2=-1)), cb)
+                ok = ok & _call(okl, cb)
                 if quad_prev is not None:
-                    v = torch.einsum("bst,bt->bs", Rinv, w_r - hw)
-                    qn = qn - 0.5 * torch.sum(v * v)
+                    v = torch.einsum("...bst,...bt->...bs", Rinv, w_r - hw)
+                    qn = qn - 0.5 * _csum(v * v, cb)
                     wxc = w_r - hw_prev
-                    qc = qc - 0.5 * torch.einsum("bs,bst,bt->", wxc,
-                                                 prev.prec, wxc)
+                    qc = qc - 0.5 * torch.einsum("...bs,...bst,...bt->...",
+                                                 wxc, prev.prec, wxc)
                 J = None
                 if emit_joint and not compose:
                     if ms.limited_tree:
@@ -698,7 +752,7 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
                         # rows alone, so the factor is the inverse Cholesky
                         # factor of the raw Kcc (reference: .cpp:901-903)
                         _, J, okp = chol_inv_masked(Kcc, lvl.rmask, use_k)
-                        ok = ok & torch.all(okp)
+                        ok = ok & _call(okp, cb)
                     else:
                         J = _assemble_joint(LAi, Rinv, H, P, S, gc, pad=jpad)
                 if decision_only:
@@ -707,34 +761,35 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
                     else:
                         outs = (J,) if emit_joint else ()
                     return (logdet, ok, qn, qc), outs
-                prec = torch.einsum("bks,bkt->bst", Rinv, Rinv)
+                prec = torch.einsum("...bks,...bkt->...bst", Rinv, Rinv)
                 outs = (H, prec, J) if emit_joint else (H, prec)
                 return (logdet, ok, qn, qc), outs
             kdiag = pairwise_cov_diag(cxr, mvr, params, ms.spec)
             if P == 0:
                 hk = 0.0
             elif H is not None:
-                hk = torch.einsum("bsp,bps->bs", H, Kxc)
+                hk = torch.einsum("...bsp,...bps->...bs", H, Kxc)
             else:
                 hk = torch.sum(M * M, dim=1)  # diag(M'M)
             r = torch.where(lvl.rmask, kdiag - hk, 1.0)
             okl = torch.isfinite(r) & (r > 0)
-            ok = ok & torch.all(okl)
+            ok = ok & _call(okl, cb)
             r = torch.where(okl, r, 1.0)
-            logdet = logdet - 0.5 * torch.sum(
-                torch.where(lvl.rmask, torch.log(r), 0.0))
+            logdet = logdet - 0.5 * _csum(
+                torch.where(lvl.rmask, torch.log(r), 0.0), cb)
             if quad_prev is not None:
                 wx = w_r - hw
-                qn = qn - 0.5 * torch.sum(wx * wx / r)
+                qn = qn - 0.5 * _csum(wx * wx / r, cb)
                 wxc = w_r - hw_prev
-                qc = qc - 0.5 * torch.sum(prev.prec * wxc * wxc)
+                qc = qc - 0.5 * _csum(prev.prec * wxc * wxc, cb)
             if decision_only:
                 return (logdet, ok, qn, qc), ()
             return (logdet, ok, qn, qc), (H, 1.0 / r)
 
         args = (lvl_full, prev_t, w_r_full, wpar_full, *cx)
         (logdet, ok, qn, qc), outs = _run_level(
-            args, ms.level_chunks[t], (logdet, ok, qn, qc), level_body)
+            args, ms.level_chunks[t], (logdet, ok, qn, qc), level_body,
+            cb, chained=(1, 2, 3))
         if decision_only:
             if compose:
                 joints[t] = (*outs, gc)  # (LAi, H, Rinv, gc_p) parts
@@ -764,7 +819,8 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
 def pred_operators_from_joint(ms: ModelStatic, theta, parent_joint,
                               coords_cache=None) -> tuple:
     """Prediction (H, r) operators from a theta and the raw deepest-reference
-    joint factor emitted by ``sweep(emit_pred_joint=True)``."""
+    joint factor emitted by ``sweep(emit_pred_joint=True)``; per chain
+    for (C, n_theta) theta and a (C, B, P, P) factor."""
     return _pred_operators(ms, unpack_theta(theta.to(ms.dtype), ms.spec),
                            parent_joint, coords_cache)
 
@@ -774,13 +830,15 @@ def _pred_operators(ms: ModelStatic, params, parent_joint,
     """Per-bucket (H, r) conditional operators for the prediction blocks;
     the LevelData ``prec`` slot holds the variance r."""
 
+    cb = _chains(params.ai1, 1)
+
     def pred_body(carry, args, al=False):
         lvl, cxr, mvr, cxp, mvp = args
         Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr)
         Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
         _, H, _ = _apply_parent_factor(parent_joint, lvl.lp_pos, Kxc, 1, al)
         kdiag = pairwise_cov_diag(cxr, mvr, params, ms.spec)
-        r = kdiag - torch.einsum("bsp,bps->bs", H, Kxc)
+        r = kdiag - torch.einsum("...bsp,...bps->...bs", H, Kxc)
         # chol failure -> deterministic mean (reference: .cpp:1316-1322)
         r = torch.where(torch.isfinite(r) & (r > 0), r, 0.0)
         return carry, (H, r)
@@ -794,9 +852,31 @@ def _pred_operators(ms: ModelStatic, params, parent_joint,
             cx = (ms.coords[plvl.rows], ms.mv[plvl.rows],
                   ms.coords[plvl.prows], ms.mv[plvl.prows])
         _, (Hp, rp) = _run_level(
-            (plvl, *cx), nc, None, lambda c, a, al=al: pred_body(c, a, al))
+            (plvl, *cx), nc, None, lambda c, a, al=al: pred_body(c, a, al),
+            cb)
         out.append(LevelData(H=Hp, prec=rp))
     return tuple(out)
+
+
+def quad_loglik(ms: ModelStatic, leveldata, w):
+    """-0.5 times the sum of the blocks' quadratic forms of w under the
+    stored factors: ``get_loglik_w_std`` less its theta-independent
+    constant (reference: spamtree_model.cpp:781-826).  One per chain for
+    (C, n+1) w and (C, B, ...) factors."""
+    cb = _chains(w, 1)
+    total = w.new_zeros(w.shape[:-1])
+    for t, lvl in enumerate(ms.levels):
+        data = leveldata[t]
+        w_x = w[..., lvl.rows]
+        if lvl.prows.shape[1] > 0:
+            w_x = w_x - torch.einsum("...bsp,...bp->...bs", data.H,
+                                     w[..., lvl.prows])
+        if ms.level_is_ref[t]:
+            total = total - 0.5 * torch.einsum("...bs,...bst,...bt->...",
+                                               w_x, data.prec, w_x)
+        else:
+            total = total - 0.5 * _csum(data.prec * w_x * w_x, cb)
+    return total
 
 
 def msg_gram(ms: ModelStatic, leveldata):
@@ -822,13 +902,15 @@ def msg_gram(ms: ModelStatic, leveldata):
     return tuple(out)
 
 
-def _scatter_parents(ms: ModelStatic, t: int, a: int, x):
+def _scatter_parents(ms: ModelStatic, t: int, a: int, x, cb: int = 0):
     """Sum child rows ``x`` (Bc, ...) into their segment-a parents:
-    (Bp, ...) with dropped children routed to the sentinel row Bp."""
+    (Bp, ...) with dropped children routed to the sentinel row Bp.  With
+    ``cb`` chain dims ahead of the block axis the sum runs along it, for
+    every chain in one ``index_add_``."""
     tp = ms.seg_level[t][a]
     Bp = ms.levels[tp].rows.shape[0]
-    buf = x.new_zeros((Bp + 1,) + tuple(x.shape[1:]))
-    return buf.index_add_(0, ms.anc_pos[(t, a)], x)[:Bp]
+    buf = x.new_zeros(x.shape[:cb] + (Bp + 1,) + tuple(x.shape[cb + 1:]))
+    return buf.index_add_(cb, ms.anc_pos[(t, a)], x).narrow(cb, 0, Bp)
 
 
 def _route_messages(ms: ModelStatic, acc: dict, t: int, outs,
@@ -836,19 +918,22 @@ def _route_messages(ms: ModelStatic, acc: dict, t: int, outs,
     """Route a level's per-segment Gibbs messages (Gs, vs) into the parent
     levels' accumulators {tp: (Sigi (Bp, Sp, Sp) or None, Smu (Bp, Sp))}.
     ``vs_only`` routes only the w-dependent means (the Gram halves come
-    precomputed from route_gram)."""
+    precomputed from route_gram).  Chains lead every tensor with their
+    axis."""
     Gs, vs = outs
+    pre = tuple(vs[0].shape[:-2]) if vs else ()
+    cb = len(pre)
     for a in range(len(vs)):
         tp = ms.seg_level[t][a]
         Bp, Sp = ms.levels[tp].rows.shape
         if tp not in acc:
-            acc[tp] = (None if vs_only else ms.X.new_zeros((Bp, Sp, Sp)),
-                       ms.X.new_zeros((Bp, Sp)))
-        add_m = _scatter_parents(ms, t, a, vs[a])
+            acc[tp] = (None if vs_only else ms.X.new_zeros(pre + (Bp, Sp, Sp)),
+                       ms.X.new_zeros(pre + (Bp, Sp)))
+        add_m = _scatter_parents(ms, t, a, vs[a], cb)
         if vs_only:
             acc[tp] = (None, acc[tp][1] + add_m)
         else:
-            acc[tp] = (acc[tp][0] + _scatter_parents(ms, t, a, Gs[a]),
+            acc[tp] = (acc[tp][0] + _scatter_parents(ms, t, a, Gs[a], cb),
                        acc[tp][1] + add_m)
 
 
@@ -882,18 +967,25 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
     ``z`` is the (n+1,) standard-normal draw.  ``gram`` (msg_gram) and
     ``routed`` (route_gram), refreshed on theta accept, supply the message
     Gram blocks and their per-level sums; without them they are formed in
-    place.  Returns a new w; the input is not modified."""
+    place.  Returns a new w; the input is not modified.
+
+    Batched chains: leveldata with (C, B, ...) leaves, w, XB and z (C, n+1),
+    tausq_inv (C, q), and no gram (formed in place, as the JAX package's
+    vmapped chains do)."""
     if routed is not None:
         assert gram is not None, "routed requires the matching gram blocks"
     if y is None:
         y = ms.y
+    cb = _chains(w, 1)
+    assert not (cb and gram is not None), "batched chains carry no gram"
+    pre = tuple(w.shape[:-1])
     w = w.clone()
     tl = ms.tausq_long(tausq_inv)
     acc = {}  # per-parent-level accumulated messages {t: (Sigi, Smu)}
     # every wpar read sees pre-pass ancestor values (deeper updates never
     # touch shallower rows), so the joint w rows are built once up front
     wjs = _w_joints(ms, w, _wj_parents_needed(ms))
-    aux = torch.stack([tl, tl * (y - XB), z], dim=-1)  # (n+1, 3)
+    aux = torch.stack([tl, tl * (y - XB), z], dim=-1)  # (..., n+1, 3)
 
     for t in reversed(range(len(ms.levels))):
         lvl_full = ms.levels[t]
@@ -935,21 +1027,22 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
             lvl, data, acc_sl, gram_sl = args
             B, S = lvl.rows.shape
             wpar = _wpar_from(wj_src, lvl.lp_pos, al, gc) if P > 0 else None
-            ti, resid, zz = aux[lvl.rows].unbind(-1)
-            hw_prior = (torch.einsum("bsp,bp->bs", data.H, wpar) if P > 0
-                        else ms.X.new_zeros((B, S)))
+            ti, resid, zz = aux[..., lvl.rows, :].unbind(-1)
+            hw_prior = (torch.einsum("...bsp,...bp->...bs", data.H, wpar)
+                        if P > 0 else ms.X.new_zeros(pre + (B, S)))
             if is_ref:
-                Sigi = data.prec + ti[:, :, None] * torch.eye(
+                Sigi = data.prec + ti[..., None] * torch.eye(
                     S, dtype=ms.dtype, device=ms.device)
-                Smu = torch.einsum("bst,bt->bs", data.prec, hw_prior) + resid
+                Smu = torch.einsum("...bst,...bt->...bs", data.prec,
+                                   hw_prior) + resid
                 if acc_sl is not None:
                     if acc_sl[0] is not None:
                         Sigi = Sigi + acc_sl[0]
                     Smu = Smu + acc_sl[1]
                 if ms.use_kernel and S <= MAX_S:
                     _, Lci, _ = chol_inv_masked(Sigi, lvl.rmask, True)
-                    tmp = torch.einsum("bst,bt->bs", Lci, Smu)
-                    wu = torch.einsum("bts,bt->bs", Lci, tmp + zz)
+                    tmp = torch.einsum("...bst,...bt->...bs", Lci, Smu)
+                    wu = torch.einsum("...bts,...bt->...bs", Lci, tmp + zz)
                 else:
                     Lg, _ = chol_masked(Sigi, lvl.rmask)
                     tmp = tri_solve(Lg, Smu[..., None])
@@ -958,32 +1051,34 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
                 sig = data.prec + ti
                 wu = (data.prec * hw_prior + resid) / sig + zz / torch.sqrt(sig)
             wu = torch.where(lvl.rmask, wu, 0.0)
-            w[lvl.rows] = wu
+            w[..., lvl.rows] = wu
             if P == 0:
                 return w, ()
             # messages to every ancestor (reference: .cpp:1158-1210):
             # msg_full = H' prec (w_u - H w_par) as two products; ancestor
             # a's rows are the static slice [off_a, off_a + s_a) of wpar
             diff = wu - hw_prior
-            v = (torch.einsum("bst,bt->bs", data.prec, diff) if is_ref
-                 else data.prec * diff)
-            msg_full = torch.einsum("bsp,bs->bp", data.H, v)
+            v = (torch.einsum("...bst,...bt->...bs", data.prec, diff)
+                 if is_ref else data.prec * diff)
+            msg_full = torch.einsum("...bsp,...bs->...bp", data.H, v)
             Gs, vs = [], []
             for a, (o, sa) in enumerate(zip(seg_off, seg_size)):
                 if gram_sl is not None:
                     G_aa = gram_sl[a]
                 else:
-                    H_a = data.H[:, :, o : o + sa]
-                    t_a = (torch.einsum("bst,btq->bsq", data.prec, H_a)
-                           if is_ref else data.prec[:, :, None] * H_a)
-                    G_aa = torch.einsum("bsp,bsq->bpq", H_a, t_a)
-                vs.append(msg_full[:, o : o + sa] + torch.einsum(
-                    "bpq,bq->bp", G_aa, wpar[:, o : o + sa]))
+                    H_a = data.H[..., o : o + sa]
+                    t_a = (torch.einsum("...bst,...btq->...bsq", data.prec,
+                                        H_a)
+                           if is_ref else data.prec[..., None] * H_a)
+                    G_aa = torch.einsum("...bsp,...bsq->...bpq", H_a, t_a)
+                vs.append(msg_full[..., o : o + sa] + torch.einsum(
+                    "...bpq,...bq->...bp", G_aa, wpar[..., o : o + sa]))
                 Gs.append(G_aa)
             return w, (tuple(Gs), tuple(vs))
 
         w, outs = _run_level((lvl_full, leveldata[t], acc_t, gram_t),
-                             ms.level_chunks[t], w, level_body)
+                             ms.level_chunks[t], w, level_body, cb,
+                             chained=(1, 2, 3))
         if P > 0:
             _route_messages(ms, acc, t, outs, vs_only=routed is not None)
     return w
@@ -1003,17 +1098,16 @@ def predict(ms: ModelStatic, pred_data, w, z):
     """Conditional-normal draws at all-missing blocks (reference:
     predict_std, spamtree_model.cpp:1234-1358): w = H w_par + sqrt(r) z per
     prediction block, ``z`` the (n+1,) standard-normal draw.  Returns a new
-    w; the input is not modified."""
+    w; the input is not modified.  Chains: (C, ...) operators, w and z."""
     if ms.pred_arrays is None or pred_data is None:
         return w
     w = w.clone()
     wjs = _w_joints(ms, w, _wj_pred_need(ms))
     for lvl, pd, al in zip(ms.pred_arrays, pred_data, ms.pred_aligned):
         wpar = _wpar_from(wjs[ms.pred_lp], lvl.lp_pos, al, 1)
-        mean = torch.einsum("bsp,bp->bs", pd.H, wpar)
-        w[lvl.rows] = torch.where(lvl.rmask,
-                                  mean + torch.sqrt(pd.prec) * z[lvl.rows],
-                                  0.0)
+        mean = torch.einsum("...bsp,...bp->...bs", pd.H, wpar)
+        w[..., lvl.rows] = torch.where(
+            lvl.rmask, mean + torch.sqrt(pd.prec) * z[..., lvl.rows], 0.0)
     return w
 
 
@@ -1023,8 +1117,9 @@ def _joints_upto(ms: ModelStatic, params, upto: int, coords_cache=None):
     loglik) -- for predict_recompute.  On a limited tree a level's factor
     is that of its own Kcc, so only level ``upto`` is factored (the JAX
     package's loop over the ancestors is dead code there, which XLA
-    drops)."""
+    drops).  Per chain for chain-batched ``params``."""
     use_k = ms.use_kernel
+    cb = _chains(params.ai1, 1)
     joints = {}
     for t in ([upto] if ms.limited_tree else range(upto + 1)):
         assert ms.level_is_ref[t], "prediction ancestors must be ref levels"
@@ -1055,11 +1150,12 @@ def _joints_upto(ms: ModelStatic, params, upto: int, coords_cache=None):
                 Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
                 M, H, LAi = _apply_parent_factor(parent_joint, lvl.lp_pos,
                                                  Kxc, gc, al)
-                Rcc = Rcc - torch.einsum("bps,bpt->bst", M, M)
+                Rcc = Rcc - torch.einsum("...bps,...bpt->...bst", M, M)
             _, Rinv, _ = chol_inv_masked(Rcc, lvl.rmask, k)
             return carry, (_assemble_joint(LAi, Rinv, H, P, S, gc, pad=jpad),)
 
-        _, (J,) = _run_level((lvl_full, *cx), ms.level_chunks[t], None, body)
+        _, (J,) = _run_level((lvl_full, *cx), ms.level_chunks[t], None, body,
+                             cb)
         joints[t] = J
         if ms.level_lp[t] >= 0:
             joints.pop(ms.level_lp[t], None)
@@ -1071,9 +1167,11 @@ def predict_recompute(ms: ModelStatic, theta, w, z, coords_cache=None):
     reference-level factors are re-propagated for ``theta`` and the
     prediction operators rebuilt slab by slab with the draw fused in, so
     the (B, S, P) operators of all buckets never exist at once.  ``z`` is
-    the (n+1,) standard-normal draw, as in ``predict``; returns a new w."""
+    the (n+1,) standard-normal draw, as in ``predict``; returns a new w.
+    Chains: theta (C, n_theta), w and z (C, n+1)."""
     if ms.pred_arrays is None:
         return w
+    cb = _chains(theta, 1)
     params = unpack_theta(theta.to(ms.dtype), ms.spec)
     parent_joint = _joints_upto(ms, params, ms.pred_lp, coords_cache)
     w = w.clone()
@@ -1085,12 +1183,12 @@ def predict_recompute(ms: ModelStatic, theta, w, z, coords_cache=None):
         Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
         _, H, _ = _apply_parent_factor(parent_joint, lvl.lp_pos, Kxc, 1, al)
         kdiag = pairwise_cov_diag(cxr, mvr, params, ms.spec)
-        r = kdiag - torch.einsum("bsp,bps->bs", H, Kxc)
+        r = kdiag - torch.einsum("...bsp,...bps->...bs", H, Kxc)
         r = torch.where(torch.isfinite(r) & (r > 0), r, 0.0)
         wpar = _wpar_from(wjs[ms.pred_lp], lvl.lp_pos, al, 1)
-        mean = torch.einsum("bsp,bp->bs", H, wpar)
+        mean = torch.einsum("...bsp,...bp->...bs", H, wpar)
         return carry, (torch.where(lvl.rmask, mean + torch.sqrt(r)
-                                   * z[lvl.rows], 0.0),)
+                                   * z[..., lvl.rows], 0.0),)
 
     for bi, (plvl, nc, al) in enumerate(
             zip(ms.pred_arrays, ms.pred_chunks, ms.pred_aligned)):
@@ -1100,8 +1198,8 @@ def predict_recompute(ms: ModelStatic, theta, w, z, coords_cache=None):
             cx = (ms.coords[plvl.rows], ms.mv[plvl.rows],
                   ms.coords[plvl.prows], ms.mv[plvl.prows])
         _, (wu,) = _run_level((plvl, *cx), nc, None,
-                              lambda c, a, al=al: body(c, a, al))
-        w[plvl.rows] = wu
+                              lambda c, a, al=al: body(c, a, al), cb)
+        w[..., plvl.rows] = wu
     return w
 
 
@@ -1174,41 +1272,50 @@ def gibbs_beta_tausq(ms: ModelStatic, w, XB, g, z_beta, tausq_ab, beta_Vi,
 
     ``g`` (q,) are standard-gamma draws with shape ``tausq_shape``, ``z_beta``
     (p, q) standard normals.  Both O(n) reductions ride one (p+1, n) x
-    (n, 2q) product.  Returns (tausq_inv, beta, XB)."""
+    (n, 2q) product.  Returns (tausq_inv, beta, XB).
+
+    Chains: w and XB (C, n+1), g (C, q), z_beta (C, p, q); per-chain p x p
+    solves, and the two reductions as batched products."""
     n, p, q = ms.n, ms.p, ms.q
     if y is None:
         y = ms.y
-    yw = y[:n] - w[:n]
-    resid = yw - XB[:n]
-    A = torch.cat([ms.X, resid[:, None]], dim=1)  # (n, p+1)
-    Bm = torch.cat([yw[:, None] * ms.mv_onehot_obs,
-                    resid[:, None] * ms.mv_onehot_obs], dim=1)  # (n, 2q)
-    C = A.T @ Bm  # [[Xty, Xtr], [r'y, r'r]]
-    Xty = C[:p, :q]
-    r2 = C[p, q:]
+    yw = y[:n] - w[..., :n]
+    resid = yw - XB[..., :n]
+    if w.dim() == 1:
+        A = torch.cat([ms.X, resid[:, None]], dim=1)  # (n, p+1)
+        Bm = torch.cat([yw[:, None] * ms.mv_onehot_obs,
+                        resid[:, None] * ms.mv_onehot_obs], dim=1)  # (n, 2q)
+        C = A.T @ Bm  # [[Xty, Xtr], [r'y, r'r]]
+        Xty = C[:p, :q]
+        r2 = C[p, q:]
+    else:
+        Xty = ms.X.T @ (yw[..., :, None] * ms.mv_onehot_obs)  # (C, p, q)
+        r2 = (resid * resid) @ ms.mv_onehot_obs  # (C, q)
     tausq_inv = g / (tausq_ab[1] + 0.5 * r2)
 
-    Si = tausq_inv[:, None, None] * ms.XtX + beta_Vi  # (q, p, p)
-    rhs = beta_Vim[None, :] + tausq_inv[:, None] * Xty.T  # (q, p)
+    Si = tausq_inv[..., :, None, None] * ms.XtX + beta_Vi  # (.., q, p, p)
+    rhs = beta_Vim + tausq_inv[..., None] * Xty.mT  # (.., q, p)
     if p <= 8:
-        bj = _small_spd_sample(Si, rhs, z_beta.T)
+        bj = _small_spd_sample(Si, rhs, z_beta.mT)
     else:
         L = chol_nan(Si)
         half = tri_solve(L, rhs[..., None])
         mu = tri_solve(L, half, trans=True)[..., 0]
-        bj = mu + tri_solve(L, z_beta.T[..., None], trans=True)[..., 0]
-    beta = bj.T  # (p, q)
-    XBn = torch.sum((ms.X @ beta) * ms.mv_onehot, dim=1)
-    return tausq_inv, beta, torch.cat([XBn, XBn.new_zeros(1)])
+        bj = mu + tri_solve(L, z_beta.mT[..., None], trans=True)[..., 0]
+    beta = bj.mT  # (.., p, q)
+    XBn = torch.sum((ms.X @ beta) * ms.mv_onehot, dim=-1)
+    return tausq_inv, beta, torch.cat(
+        [XBn, XBn.new_zeros(XBn.shape[:-1] + (1,))], dim=-1)
 
 
 def gibbs_tausq(ms: ModelStatic, w, XB, g, tausq_ab, y=None):
     """Conjugate Gamma update of the noise precisions per margin (reference:
     gibbs_sample_tausq, spamtree_model.cpp:1393-1417); ``g`` (q,) are
-    standard-gamma draws with shape ``tausq_shape``.  Returns tausq_inv."""
+    standard-gamma draws with shape ``tausq_shape``.  Returns tausq_inv
+    ((C, q) for chains)."""
     if y is None:
         y = ms.y
-    resid = y[: ms.n] - XB[: ms.n] - w[: ms.n]
+    resid = y[: ms.n] - XB[..., : ms.n] - w[..., : ms.n]
     r2 = (resid * resid) @ ms.mv_onehot_obs
     return g / (tausq_ab[1] + 0.5 * r2)
 
@@ -1217,16 +1324,18 @@ def gibbs_beta(ms: ModelStatic, w, tausq_inv, z_beta, beta_Vi, beta_Vim,
                y=None):
     """Conjugate Normal update of the regression coefficients per margin
     (reference: gibbs_sample_beta, spamtree_model.cpp:1364-1391); ``z_beta``
-    (p, q) standard normals.  Returns (beta, XB)."""
+    (p, q) standard normals.  Returns (beta, XB); chains as in
+    ``gibbs_beta_tausq``."""
     if y is None:
         y = ms.y
-    yw = y[: ms.n] - w[: ms.n]
-    Xty = ms.X.T @ (yw[:, None] * ms.mv_onehot_obs)  # (p, q)
-    Si = tausq_inv[:, None, None] * ms.XtX + beta_Vi  # (q, p, p)
+    yw = y[: ms.n] - w[..., : ms.n]
+    Xty = ms.X.T @ (yw[..., :, None] * ms.mv_onehot_obs)  # (.., p, q)
+    Si = tausq_inv[..., :, None, None] * ms.XtX + beta_Vi  # (.., q, p, p)
     L = chol_nan(Si)
-    rhs = (beta_Vim[None, :] + tausq_inv[:, None] * Xty.T)[..., None]
+    rhs = (beta_Vim + tausq_inv[..., None] * Xty.mT)[..., None]
     mu = tri_solve(L, tri_solve(L, rhs), trans=True)[..., 0]
-    bj = mu + tri_solve(L, z_beta.T[..., None], trans=True)[..., 0]
-    beta = bj.T  # (p, q)
-    XBn = torch.sum((ms.X @ beta) * ms.mv_onehot, dim=1)
-    return beta, torch.cat([XBn, XBn.new_zeros(1)])
+    bj = mu + tri_solve(L, z_beta.mT[..., None], trans=True)[..., 0]
+    beta = bj.mT  # (.., p, q)
+    XBn = torch.sum((ms.X @ beta) * ms.mv_onehot, dim=-1)
+    return beta, torch.cat([XBn, XBn.new_zeros(XBn.shape[:-1] + (1,))],
+                           dim=-1)

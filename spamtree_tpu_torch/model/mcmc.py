@@ -25,6 +25,14 @@ posterior moments on the device instead, yhat noise from a second device
 generator, so both modes follow the same chain.  With ``checkpoint_path``
 the drain is sequential and the sampler state, every generator and the
 moments are saved after each chunk (``utils.checkpoint``).
+
+``run_mcmc_chains`` runs C chains as one batched step (the JAX package
+vmaps its step): every state leaf has a leading chain axis
+(``stack_chain_states``), each chain draws from its own generator, and
+each chain's accept decision is resolved on the device -- the step
+installs proposals with ``torch.where`` on a per-chain mask and reads
+nothing back.  Chain c is the single-chain run whose generator is seeded
+like chain c's.  Outputs carry the chain axis after the sample axis.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import torch
 
 from spamtree_tpu_torch.model.core import (
     ModelStatic,
+    _tree_map,
     gibbs_beta,
     gibbs_beta_tausq,
     gibbs_tausq,
@@ -139,6 +148,43 @@ def draw_step(ms: ModelStatic, gen: torch.Generator, n_theta: int,
     )
 
 
+def draw_chains(ms: ModelStatic, gens, n_theta: int,
+                gamma_shape: torch.Tensor) -> StepDraws:
+    """One iteration's draws for C chains, (C, ...) each: chain c's from
+    ``gens[c]`` in ``draw_step``'s order, so chain c draws what a single
+    chain with that generator would."""
+    ds = [draw_step(ms, g, n_theta, gamma_shape) for g in gens]
+    return StepDraws(*(torch.stack(f) for f in zip(*ds)))
+
+
+def stack_chain_states(state: MCMCState, seeds):
+    """Broadcast one chain's state to C = len(seeds) chains, each leaf
+    copied to a contiguous (C, ...) tensor, with the RAM counters as (C,)
+    device tensors and no carried gram (the batched step forms the Gram
+    blocks in place, as the JAX package's vmapped chains do).  Returns
+    (states, generators): one ``torch.Generator`` per chain on the state's
+    device, seeded ``seeds[c]`` (the JAX package seeds chain keys with
+    ``seed + arange(C)``)."""
+    C = len(seeds)
+    rep = lambda a: a.unsqueeze(0).repeat((C,) + (1,) * a.dim())
+    ram = state.ram
+    cnt = lambda v: torch.full((C,), float(v), dtype=state.w.dtype,
+                               device=state.w.device)
+    states = state._replace(
+        w=rep(state.w), beta=rep(state.beta), tausq_inv=rep(state.tausq_inv),
+        XB=rep(state.XB), theta=rep(state.theta),
+        leveldata=_tree_map(rep, state.leveldata),
+        pred_data=_tree_map(rep, state.pred_data),
+        logdetCi=rep(state.logdetCi),
+        ram=RAMState(paramsd=rep(ram.paramsd), prodparam=rep(ram.prodparam),
+                     started=ram.started, propos_count=cnt(ram.propos_count),
+                     accept_count=cnt(ram.accept_count)),
+        gram=())
+    gens = [torch.Generator(device=state.w.device).manual_seed(int(s))
+            for s in seeds]
+    return states, gens
+
+
 def _as_matrix(v, k: int) -> np.ndarray:
     """Scalar s -> s*I(k); a matrix passes through."""
     v = np.asarray(v, dtype=np.float64)
@@ -185,26 +231,62 @@ def init_state(ms: ModelStatic, bounds: np.ndarray, start_theta: np.ndarray,
 
 
 def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
-              coords_cache=None):
+              coords_cache=None, chains: bool = False):
     """The single-iteration transition ``step(state, draws, predicting)``:
     the JAX package's always-emit theta step, or its accept-aware step with
     ``cfg.accept_aware``.  ``coords_cache`` is core.level_coords(ms), built
-    once per run."""
+    once per run.
+
+    ``chains=True``: the batched step of ``run_mcmc_chains`` over states
+    with a leading chain axis (``stack_chain_states``) and draws from
+    ``draw_chains``; always-emit (``accept_aware`` None resolves to off, as
+    in the JAX package's vmapped chains; True raises)."""
     bnds = torch.as_tensor(np.asarray(bounds), dtype=ms.dtype, device=ms.device)
     Vi = torch.as_tensor(_as_matrix(cfg.beta_Vi, ms.p), dtype=ms.dtype,
                          device=ms.device)
     Vim = torch.zeros(ms.p, dtype=ms.dtype, device=ms.device)
     prior_fn = make_theta_prior(cfg.theta_prior)
     accept_aware = bool(cfg.accept_aware)  # None -> False
+    if chains and accept_aware:
+        raise NotImplementedError(
+            "accept_aware=True with n_chains > 1 is not ported (the "
+            "accept-aware step under a chain axis: K4 at C*B); chains run "
+            "the always-emit step")
+
+    def propose(state: MCMCState, U):
+        """The RAM proposal in the box (one per chain for (C, nt) U)."""
+        paramsd = state.ram.paramsd
+        step = (paramsd @ U if U.dim() == 1
+                else (paramsd @ U[..., None])[..., 0])
+        return clamp_bounds(
+            transf_back(transf_fwd(state.theta, bnds) + step, bnds), bnds)[0]
+
+    def log_accept(state: MCMCState, prop, new_logdet, q_new, q_cur):
+        """(log MH ratio, its finiteness, the accept probability)."""
+        logaccept = (new_logdet + q_new) - (state.logdetCi + q_cur) \
+            + calc_jacobian(prop, state.theta, bnds)
+        if prior_fn is not None:
+            logaccept = logaccept + prior_fn(prop) - prior_fn(state.theta)
+        finite = torch.isfinite(logaccept)
+        acceptp = torch.where(finite, torch.exp(torch.clamp(logaccept, max=0.0)),
+                              0.0)
+        return logaccept, finite, acceptp
+
+    def adapt(state: MCMCState, U, logaccept, ok, finite) -> RAMState:
+        ram = state.ram
+        if cfg.adapting:
+            alpha = torch.where(ok & finite,
+                                torch.clamp(torch.exp(logaccept), max=1.0), 0.0)
+            ram = ram_adapt(ram, U, alpha, state.it,
+                            reference_warmup=cfg.ram_reference_warmup)
+        return ram
 
     def theta_step(state: MCMCState, w, draws: StepDraws):
         """The theta Metropolis step: (theta, logdetCi, leveldata, gram,
         pred_data, ram)."""
         theta, logdetCi, leveldata = state.theta, state.logdetCi, state.leveldata
-        gram, pred_data, ram = state.gram, state.pred_data, state.ram
-        U = draws.U
-        prop = transf_back(transf_fwd(theta, bnds) + ram.paramsd @ U, bnds)
-        prop, _ = clamp_bounds(prop, bnds)
+        gram, pred_data = state.gram, state.pred_data
+        prop = propose(state, draws.U)
         # both quadratic forms (proposal and current factors) ride the
         # proposal sweep's level loop
         if accept_aware:
@@ -215,13 +297,8 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
             new_ld, new_pj, new_logdet, ok, q_new, q_cur = sweep(
                 ms, prop, w, quad_prev=leveldata, emit_pred_joint=True,
                 coords_cache=coords_cache)
-        logaccept = (new_logdet + q_new) - (logdetCi + q_cur) \
-            + calc_jacobian(prop, theta, bnds)
-        if prior_fn is not None:
-            logaccept = logaccept + prior_fn(prop) - prior_fn(theta)
-        finite = torch.isfinite(logaccept)
-        acceptp = torch.where(finite, torch.exp(torch.clamp(logaccept, max=0.0)),
-                              0.0)
+        logaccept, finite, acceptp = log_accept(state, prop, new_logdet,
+                                                q_new, q_cur)
         accepted = bool(((draws.u < acceptp) & ok).item())  # host sync
         install = accepted
         if accepted and accept_aware:
@@ -239,22 +316,53 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
             if pred_data is not None:
                 pred_data = pred_operators_from_joint(ms, prop, new_pj,
                                                       coords_cache)
-        if cfg.adapting:
-            alpha = torch.where(ok & finite,
-                                torch.clamp(torch.exp(logaccept), max=1.0), 0.0)
-            ram = ram_adapt(ram, U, alpha, state.it,
-                            reference_warmup=cfg.ram_reference_warmup)
+        ram = adapt(state, draws.U, logaccept, ok, finite)
         ram = ram._replace(propos_count=ram.propos_count + 1.0,
                            accept_count=ram.accept_count + float(accepted))
         return theta, logdetCi, leveldata, gram, pred_data, ram
 
+    def theta_step_chains(state: MCMCState, w, draws: StepDraws):
+        """The batched always-emit theta step: every chain's proposal sweep
+        in one, and each chain's accept resolved on the device and
+        installed leaf by leaf with ``torch.where`` -- no host read."""
+        theta, logdetCi, leveldata = state.theta, state.logdetCi, state.leveldata
+        pred_data = state.pred_data
+        prop = propose(state, draws.U)
+        new_ld, new_pj, new_logdet, ok, q_new, q_cur = sweep(
+            ms, prop, w, quad_prev=leveldata, emit_pred_joint=True,
+            coords_cache=coords_cache)
+        logaccept, finite, acceptp = log_accept(state, prop, new_logdet,
+                                                q_new, q_cur)
+        accepted = (draws.u < acceptp) & ok  # (C,), stays on the device
+
+        def sel(new, old):
+            return torch.where(
+                accepted.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
+
+        theta, logdetCi = sel(prop, theta), sel(new_logdet, logdetCi)
+        leveldata = _tree_map(sel, new_ld, leveldata)
+        if pred_data is not None:
+            # built every iteration and selected per chain, as the JAX
+            # package's vmapped accept-cond runs both branches
+            pred_data = _tree_map(sel, pred_operators_from_joint(
+                ms, prop, new_pj, coords_cache), pred_data)
+        ram = adapt(state, draws.U, logaccept, ok, finite)
+        ram = ram._replace(propos_count=ram.propos_count + 1.0,
+                           accept_count=ram.accept_count
+                           + accepted.to(ram.accept_count.dtype))
+        return theta, logdetCi, leveldata, (), pred_data, ram
+
+    ts = theta_step_chains if chains else theta_step
+
     def step(state: MCMCState, draws: StepDraws, predicting: bool) -> MCMCState:
         w = state.w
         if cfg.sample_w:
+            # chains carry no gram: gibbs_w forms the Gram blocks in place
+            gram, routed = state.gram if state.gram else (None, None)
             w = gibbs_w(ms, state.leveldata, w, state.tausq_inv, state.XB,
-                        draws.z_w, gram=state.gram[0], routed=state.gram[1])
+                        draws.z_w, gram=gram, routed=routed)
         if cfg.sample_theta:
-            theta, logdetCi, leveldata, gram, pred_data, ram = theta_step(
+            theta, logdetCi, leveldata, gram, pred_data, ram = ts(
                 state, w, draws)
         else:
             theta, logdetCi, leveldata = (state.theta, state.logdetCi,
@@ -327,18 +435,20 @@ def _resolve_wire(cfg: MCMCConfig, ms: ModelStatic):
     return None if d == ms.dtype else d
 
 
-def _moments_zero(ms: ModelStatic) -> Moments:
-    z = lambda: torch.zeros(ms.n, dtype=ms.dtype, device=ms.device)
+def _moments_zero(ms: ModelStatic, lead=()) -> Moments:
+    z = lambda: torch.zeros(lead + (ms.n,), dtype=ms.dtype, device=ms.device)
     return Moments(0.0, z(), z(), z(), z())
 
 
 def _moments_add(ms: ModelStatic, acc: Moments, state: MCMCState,
                  z: torch.Tensor) -> Moments:
     """Add one kept draw: yh = XB + w + tau z (reference: spamtree_fit.cpp:
-    384) with ``z`` the (n,) standard-normal noise, and the five sums."""
+    384) with ``z`` the (n,) standard-normal noise ((C, n) for chains),
+    and the five sums."""
     n = ms.n
-    w_k = state.w[:n]
-    yh = state.XB[:n] + w_k + torch.sqrt(1.0 / state.tausq_inv)[ms.mv[:n]] * z
+    w_k = state.w[..., :n]
+    yh = (state.XB[..., :n] + w_k
+          + torch.sqrt(1.0 / state.tausq_inv)[..., ms.mv[:n]] * z)
     acc.w_sum.add_(w_k)
     acc.w_sq.addcmul_(w_k, w_k)
     acc.yh_sum.add_(yh)
@@ -377,35 +487,49 @@ def _out_keys(summary: bool, sub_stride: int):
     return ("beta", "tausq", "theta") + (("w", "yhat") if sub_stride else ())
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 class _Reporter:
     """Rolling-window and cumulative acceptance reports (reference:
     RAMAdapt::print/print_summary, mh_adapt.h:137-148, printed from
-    spamtree_fit.cpp:334-372); theta and tausq too with verbose >= 2."""
+    spamtree_fit.cpp:334-372); theta and tausq too with verbose >= 2.
+    ``chains=C`` reports the aggregate over the chains, and with verbose
+    >= 2 the acceptance of each chain."""
 
-    def __init__(self, t0, verbose):
-        self.t0, self.verbose = t0, int(verbose)
+    def __init__(self, t0, verbose, chains=0):
+        self.t0, self.verbose, self.C = t0, int(verbose), chains
         self.prev = dict(acc=0.0, prop=0.0, t=t0, it=0)
 
     def snap(self, st):
-        """The report's fields of ``st`` as host values."""
+        """The report's fields of ``st``: host values for one chain; for
+        chains, copies on the device, read when the report prints (the
+        batched step never reads the device)."""
         parts = (st.ram.accept_count, st.ram.propos_count)
         if self.verbose >= 2:
-            parts += (st.theta.cpu().numpy(),
-                      (1.0 / st.tausq_inv).cpu().numpy())
-        return parts
+            parts += (st.theta, 1.0 / st.tausq_inv)
+        if self.C:
+            return tuple(a.clone() for a in parts)
+        return parts[:2] + tuple(_host(a) for a in parts[2:])
 
     def report(self, phase, done, total, snap, iters_done):
         p = self.prev
-        acc, prop = float(snap[0]), float(snap[1])
+        acc_c, prop_c = _host(snap[0]), _host(snap[1])
+        acc, prop = float(acc_c.sum()), float(prop_c.sum())
         now = time.time()
         roll = (acc - p["acc"]) / max(prop - p["prop"], 1.0)
         ms_it = 1e3 * (now - p["t"]) / max(iters_done - p["it"], 1)
-        print(f"[{phase}] {done}/{total}, {now - self.t0:.2f}s, "
+        hdr = f"{done}/{total}" + (f" x {self.C} chains" if self.C else "")
+        print(f"[{phase}] {hdr}, {now - self.t0:.2f}s, "
               f"{ms_it:.1f}ms/iter, accept {roll:.2%} (window) "
               f"{acc / max(prop, 1.0):.2%} (cumulative)")
         if self.verbose >= 2 and len(snap) > 2:
-            print(f"  theta = {np.array2string(snap[2], precision=4)}")
-            print(f"  tausq = {np.array2string(snap[3], precision=5)}")
+            if self.C:
+                by = acc_c / np.maximum(prop_c, 1.0)
+                print(f"  accept by chain: {np.array2string(by, precision=3)}")
+            print(f"  theta = {np.array2string(_host(snap[2]), precision=4)}")
+            print(f"  tausq = {np.array2string(_host(snap[3]), precision=5)}")
         self.prev = dict(acc=acc, prop=prop, t=now, it=iters_done)
 
     def printall(self, theta_s, tausq_s, base):
@@ -661,49 +785,114 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     and ``init_moments`` their moments (``api.spamtree``'s resume).
     ``sink_dir``: w/yhat draws stream to files there instead of RAM
     (``sink_append`` continues them)."""
+    step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms))
+    nt = state.theta.shape[0]
+    shape = tausq_shape(ms, cfg.tausq_ab)
+
+    def one(s, predicting):
+        return step(s, draw_step(ms, gen, nt, shape), predicting)
+
+    res = _drive(ms, cfg, state, one, gen, 0, verbose, yhat_seed,
+                 checkpoint_path, sink_dir, sink_append, init_moments,
+                 base_counts, yhat_rngs)
+    ram = res["state"].ram
+    res["accept_ratio"] = ram.accept_count / max(ram.propos_count, 1)
+    return res
+
+
+def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
+                    states: MCMCState, gens, verbose: bool = False,
+                    yhat_seed: int = 0, checkpoint_path: str | None = None,
+                    sink_dir: str | None = None, sink_append: bool = False,
+                    init_moments: Moments | None = None, base_counts=(0, 0),
+                    yhat_rngs=None) -> dict:
+    """``run_mcmc`` for C chains in one batched step: ``states`` with a
+    leading chain axis and ``gens`` their C generators
+    (``stack_chain_states``).  The same chunk geometry, burn rounding,
+    pipelined drain, sinks, summary collection (moments (C, n), yhat noise
+    (C, n) from the device generator), checkpoints and reports.  Nothing
+    is read from the device inside an iteration; the non-finite-theta
+    guard reads theta once per burn chunk, and the drain checks the kept
+    theta draws of every keep chunk.
+
+    Outputs carry the chain axis after the sample axis: w/yhat (keep, C,
+    n), beta (keep, C, p, q), tausq (keep, C, q), theta (keep, C, nt);
+    ``accept_ratio`` over all chains and ``accept_by_chain`` (C,)."""
+    step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms),
+                     chains=True)
+    C, nt = states.theta.shape
+    if len(gens) != C:
+        raise ValueError(f"{len(gens)} generators for {C} chains")
+    shape = tausq_shape(ms, cfg.tausq_ab)
+
+    def one(s, predicting):
+        return step(s, draw_chains(ms, gens, nt, shape), predicting)
+
+    res = _drive(ms, cfg, states, one, gens, C, verbose, yhat_seed,
+                 checkpoint_path, sink_dir, sink_append, init_moments,
+                 base_counts, yhat_rngs)
+    acc = _host(res["state"].ram.accept_count)
+    prop = _host(res["state"].ram.propos_count)
+    res["accept_ratio"] = float(acc.sum()) / max(float(prop.sum()), 1.0)
+    res["accept_by_chain"] = acc / np.maximum(prop, 1.0)
+    return res
+
+
+def _check_theta(state: MCMCState):
+    """The non-finite-theta guard on the live state (one device read)."""
+    if not bool(torch.isfinite(state.theta).all()):
+        raise FloatingPointError(
+            "non-finite theta in chain; aborting (NaN loglik guard)")
+
+
+def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
+           checkpoint_path, sink_dir, sink_append, init_moments, base_counts,
+           yhat_rngs) -> dict:
+    """The chunked burn/keep loop of ``run_mcmc`` (``chains=0``) and
+    ``run_mcmc_chains`` (``chains=C``): ``one(state, predicting)`` runs one
+    iteration; ``gens`` (the generator, or the chains' list) is what a
+    checkpoint saves."""
     if cfg.collect not in ("all", "summary"):
         raise ValueError(f"collect={cfg.collect!r}: 'all' or 'summary'")
     n = ms.n
+    lead = (chains,) if chains else ()
     wire = _resolve_wire(cfg, ms)
     summary = cfg.collect == "summary"
     mc, ipc, n_keep_chunks, n_burn_chunks = chunk_sizes(cfg)
     burn_actual = n_burn_chunks * ipc
     sub_stride, sub_cstride = _subsample_plan(cfg, mc, summary)
-    step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms))
-    nt = state.theta.shape[0]
-    shape = tausq_shape(ms, cfg.tausq_ab)
     if yhat_rngs is None:
         yhat_rngs = make_yhat_rngs(ms, yhat_seed)
     host_rng, gen_yhat = yhat_rngs
     yhat_host = _make_yhat_host(ms, host_rng)
-    acc = ((init_moments if init_moments is not None else _moments_zero(ms))
-           if summary else None)
+    acc = ((init_moments if init_moments is not None
+            else _moments_zero(ms, lead)) if summary else None)
     burn_done0, kept_done0 = base_counts
-
-    def one(s, predicting):
-        return step(s, draw_step(ms, gen, nt, shape), predicting)
 
     def save(burn_done, kept_done):
         nonlocal save_s
         from spamtree_tpu_torch.utils.checkpoint import save_state
 
         t_s = time.time()
-        save_state(checkpoint_path, state, gen, yhat_rngs, moments=acc,
+        save_state(checkpoint_path, state, gens, yhat_rngs, moments=acc,
                    counts=(mc, burn_done, kept_done, cfg.thin))
         save_s += time.time() - t_s
 
     if ms.device.type == "cuda":
         torch.cuda.synchronize(ms.device)
     t0 = time.time()
-    rep = _Reporter(t0, verbose)
-    # host seconds in the iterations alone (each syncs once, on the accept
-    # decision), in the checkpoint saves, and in the drains' own work (on
-    # the worker thread when pipelined, so overlapping the iterations)
+    rep = _Reporter(t0, verbose, chains=chains)
+    # host seconds in the iterations alone (one chain syncs once an
+    # iteration, on the accept decision; batched chains only queue work),
+    # in the checkpoint saves, and in the drains' own work (on the worker
+    # thread when pipelined, so overlapping the iterations)
     iter_s = save_s = drain_work_s = 0.0
     for bi in range(n_burn_chunks):
         t_it = time.time()
         for _ in range(ipc):
             state = one(state, False)
+        if chains:
+            _check_theta(state)
         iter_s += time.time() - t_it
         if checkpoint_path:
             save(burn_done0 + (bi + 1) * ipc, kept_done0)
@@ -731,10 +920,11 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
                 state = one(state, i == cfg.thin - 1)
             if summary:
                 acc = _moments_add(ms, acc, state, torch.randn(
-                    n, generator=gen_yhat, dtype=ms.dtype, device=ms.device))
+                    lead + (n,), generator=gen_yhat, dtype=ms.dtype,
+                    device=ms.device))
             small.append((state.beta, 1.0 / state.tausq_inv, state.theta))
             if not summary or (use_sub and j % sub_stride == 0):
-                ws.append(state.w[:n])
+                ws.append(state.w[..., :n])
         iter_s += time.time() - t_it
         dev = {k: torch.stack(v)
                for k, v in zip(("beta", "tausq", "theta"), zip(*small))}
@@ -784,13 +974,12 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     if sinks is not None:
         res["sink_files"] = {k: sk.path for k, sk in sinks.items()}
     if summary:
-        _summary_result(res, acc, (0, n))
+        _summary_result(res, acc, (0,) + lead + (n,))
     res["burn_actual"] = burn_actual
     res["mcmc_time"] = time.time() - t0
     res["iter_s"] = iter_s
     res["save_s"] = save_s
     res["drain_work_s"] = drain_work_s
     res["paramsd"] = state.ram.paramsd.cpu().numpy()
-    res["accept_ratio"] = state.ram.accept_count / max(state.ram.propos_count, 1)
     res["state"] = state
     return res

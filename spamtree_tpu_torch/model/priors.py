@@ -49,7 +49,8 @@ _FAMILIES = {
 
 
 def make_theta_prior(spec):
-    """Build ``logp(theta) -> scalar`` from a per-dimension spec.
+    """Build ``logp(theta) -> scalar`` from a per-dimension spec; a
+    (C, n_theta) theta gives one log-density per chain.
 
     ``spec`` is a callable (returned unchanged) or a sequence with one entry
     per theta dimension: ``None`` (flat) or ``(family, a, b)`` with family in
@@ -57,7 +58,9 @@ def make_theta_prior(spec):
     if spec is None:
         return None
     if callable(spec):
-        return spec
+        # a user's function of one theta: chains evaluate it row by row
+        return lambda theta: (spec(theta) if theta.dim() == 1 else
+                              torch.stack([spec(t) for t in theta.unbind(0)]))
     entries = []
     for i, s in enumerate(spec):
         if s is None:
@@ -68,9 +71,9 @@ def make_theta_prior(spec):
         entries.append((i, _FAMILIES[fam], float(a), float(b)))
 
     def logp(theta):
-        total = theta.new_zeros(())
+        total = theta.new_zeros(theta.shape[:-1])
         for i, fn, a, b in entries:
-            total = total + fn(theta[i], a, b)
+            total = total + fn(theta[..., i], a, b)
         return total
 
     return logp

@@ -3,7 +3,8 @@
 Port of ``spamtree_tpu/model/transforms.py``: ``par_huvtransf_fwd/back``
 (reference: src/mh_adapt.cpp:3-15), ``logit``/``logistic``
 (src/mh_adapt.h:150-156), ``unif_bounds`` clamping (src/mh_adapt.h:188-202)
-and ``calc_jacobian`` (src/mh_adapt.h:230-239).
+and ``calc_jacobian`` (src/mh_adapt.h:230-239).  Each works on (n,) or
+on (C, n) with a chain axis; ``bounds`` is (n, 2) either way.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def clamp_bounds(par, bounds):
     margin = torch.clamp(8.0 * eps * (bounds[:, 1] - bounds[:, 0]), min=1e-10)
     lo = bounds[:, 0] + margin
     hi = bounds[:, 1] - margin
-    out = torch.any((par < bounds[:, 0]) | (par > bounds[:, 1]))
+    out = torch.any((par < bounds[:, 0]) | (par > bounds[:, 1]), dim=-1)
     return torch.minimum(torch.maximum(par, lo), hi), out
 
 
@@ -48,7 +49,8 @@ def _normal_proposal_logitscale(x, lo, hi):
 
 
 def calc_jacobian(new_param, param, bounds):
-    """Log-jacobian of the logit change of variables for the MH ratio."""
+    """Log-jacobian of the logit change of variables for the MH ratio; one
+    per chain for (C, n) parameters."""
     lo, hi = bounds[:, 0], bounds[:, 1]
     return torch.sum(_normal_proposal_logitscale(param, lo, hi)
-                     - _normal_proposal_logitscale(new_param, lo, hi))
+                     - _normal_proposal_logitscale(new_param, lo, hi), dim=-1)

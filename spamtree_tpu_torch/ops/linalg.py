@@ -17,8 +17,8 @@ from spamtree_tpu_torch.ops.chol import MAX_S, inv_chol
 
 
 def identity_pad(mat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Replace padded rows/cols of a batched (B, S, S) matrix with identity;
-    ``mask`` is (B, S) validity."""
+    """Replace padded rows/cols of a batched (..., B, S, S) matrix with
+    identity; ``mask`` is (B, S) validity."""
     m2 = mask[..., :, None] & mask[..., None, :]
     eye = torch.eye(mat.shape[-1], dtype=mat.dtype, device=mat.device)
     return torch.where(m2, mat, eye)
@@ -64,12 +64,20 @@ def chol_inv_masked(mat: torch.Tensor, mask: torch.Tensor,
     back None on that path** and ok derives from diag(Linv) = 1/diag(L).
     Otherwise L is ``cholesky_ex``'s factor with failed blocks set to NaN.
     This is the JAX package's dispatch rule (``core.py`` passes
-    ``use_pallas and S <= 64``), not a fallback on error."""
+    ``use_pallas and S <= 64``), not a fallback on error.
+
+    ``mat`` may carry leading dimensions before the block axis (a chain
+    axis: (C, B, S, S)); the kernel takes them folded into one (C*B, S, S)
+    batch, a view of the contiguous padded matrices, so one launch serves
+    every chain; ok comes back (C, B)."""
     m = identity_pad(mat, mask)
     if use_kernel:
-        if m.shape[-1] > MAX_S:
-            raise ValueError(f"chol_inv_masked: S={m.shape[-1]} > {MAX_S}")
-        L, Linv = None, inv_chol(m.contiguous())
+        S = m.shape[-1]
+        if S > MAX_S:
+            raise ValueError(f"chol_inv_masked: S={S} > {MAX_S}")
+        L, a = None, m.contiguous()
+        Linv = (inv_chol(a) if a.dim() == 3
+                else inv_chol(a.reshape(-1, S, S)).reshape(a.shape))
     else:
         L = chol_nan(m)
         Linv = tri_inv(L)

@@ -11,6 +11,10 @@ every random stream the run draws from: the chain's torch generator
 so a resumed chain continues the uninterrupted one draw for draw.  The
 per-level factors are not stored: they are functions of theta, rebuilt
 with one likelihood sweep on load.
+
+Batched chains save their leaves with the chain axis (theta (C, nt)), the
+RAM counters per chain and every chain's generator (``gen_state`` (C,
+L)); the chain count is theta's leading dimension.
 """
 
 from __future__ import annotations
@@ -31,12 +35,12 @@ def _np(a) -> np.ndarray:
         else np.asarray(a)
 
 
-def save_state(path: str, state: MCMCState, gen: torch.Generator,
-               yhat_rngs, moments: Moments | None = None,
-               counts=None) -> None:
-    """Write ``state``, the chain's generator ``gen`` and the yhat streams
-    ``yhat_rngs`` = (host numpy generator, device torch generator) to
-    ``path`` (``.npz`` appended when missing, as ``np.savez`` does).
+def save_state(path: str, state: MCMCState, gen, yhat_rngs,
+               moments: Moments | None = None, counts=None) -> None:
+    """Write ``state``, the chain's generator ``gen`` (a list of C
+    generators for batched chains) and the yhat streams ``yhat_rngs`` =
+    (host numpy generator, device torch generator) to ``path`` (``.npz``
+    appended when missing, as ``np.savez`` does).
 
     ``moments``: summary collection's running sums, so an interrupted
     ``collect="summary"`` run resumes its partial sums.  ``counts``: the
@@ -60,7 +64,9 @@ def save_state(path: str, state: MCMCState, gen: torch.Generator,
     with open(tmp, "wb") as f:
         np.savez(
             f, **extra,
-            gen_state=_np(gen.get_state()),
+            gen_state=(np.stack([_np(g.get_state()) for g in gen])
+                       if isinstance(gen, (list, tuple))
+                       else _np(gen.get_state())),
             gen_yhat_state=_np(gen_yhat.get_state()),
             host_rng_state=np.frombuffer(json.dumps(
                 host_rng.bit_generator.state).encode(), dtype=np.uint8),
@@ -111,40 +117,51 @@ def load_moments(path: str, ms: ModelStatic) -> Moments | None:
 
 
 def load_rngs(path: str, device):
-    """(chain generator, (host yhat generator, device yhat generator)) as
-    they stood when the checkpoint was written, on ``device``."""
+    """(chain generator -- a list of them for batched chains --, (host yhat
+    generator, device yhat generator)) as they stood when the checkpoint
+    was written, on ``device``."""
     z = _load(path)
     device = torch.device(device)
 
-    def gen(k):
+    def gen(state):
         g = torch.Generator(device=device)
-        g.set_state(torch.as_tensor(z[k], dtype=torch.uint8))
+        g.set_state(torch.as_tensor(state, dtype=torch.uint8))
         return g
 
     host = np.random.default_rng()
     host.bit_generator.state = json.loads(z["host_rng_state"].tobytes())
-    return gen("gen_state"), (host, gen("gen_yhat_state"))
+    gs = z["gen_state"]
+    chain = [gen(s) for s in gs] if gs.ndim == 2 else gen(gs)
+    return chain, (host, gen(z["gen_yhat_state"]))
+
+
+def load_chains(path: str) -> int:
+    """The number of chains the checkpoint holds (1 for a single chain)."""
+    theta = _load(path)["theta"]
+    return theta.shape[0] if theta.ndim == 2 else 1
 
 
 def load_state(path: str, ms: ModelStatic) -> MCMCState:
     """The sampler state saved at ``path``, on ``ms.device``: the factors,
     Gram blocks and prediction operators rebuilt by one likelihood sweep
     (kernel K1 on the reference levels) at the saved theta; logdetCi is
-    the chain's own, as saved."""
+    the chain's own, as saved.  Batched chains come back with their chain
+    axis, (C,) counters on the device and no gram, as
+    ``mcmc.stack_chain_states`` builds them."""
     z = _load(path)
     t = lambda k: torch.as_tensor(z[k], dtype=ms.dtype, device=ms.device)
     theta, w = t("theta"), t("w")
-    if theta.dim() != 1:
-        raise ValueError(f"{path} holds {theta.shape[0]} chains; this "
-                         f"package runs one")
+    chains = theta.dim() == 2
     leveldata, pred_data, _logdet, ok = sweep(ms, theta, w)
-    if not bool(ok):
+    if not bool(ok.all()):
         raise RuntimeError("checkpointed theta fails Cholesky on rebuild")
+    count = t if chains else (lambda k: float(z[k]))
     ram = RAMState(paramsd=t("ram_paramsd"), prodparam=t("ram_prodparam"),
                    started=bool(z["ram_started"]),
-                   propos_count=float(z["ram_propos"]),
-                   accept_count=float(z["ram_accept"]))
+                   propos_count=count("ram_propos"),
+                   accept_count=count("ram_accept"))
     return MCMCState(w=w, beta=t("beta"), tausq_inv=t("tausq_inv"),
                      XB=t("XB"), theta=theta, leveldata=leveldata,
                      pred_data=pred_data, logdetCi=t("logdetCi"), ram=ram,
-                     it=int(z["it"]), gram=gram_full(ms, leveldata))
+                     it=int(z["it"]),
+                     gram=() if chains else gram_full(ms, leveldata))

@@ -1,7 +1,7 @@
 """Where one MCMC iteration's time goes, on one CUDA card.
 
     python -m spamtree_tpu_torch.utils.profile_step [--config 3] [--iters 20]
-        [--ab k1|step|drain]
+        [--ab k1|step|drain] [--chains 1,2,4]
 
 Run from the repository root (it takes its data and the configuration's
 own keywords, such as config 5's ``limited_tree=True``, from ``bench.py``).
@@ -24,6 +24,16 @@ with the variants of ``--ab`` in turns on the same chain:
   in turns (pipelined, sequential, summary, and back).  Each run
   prints a JSON line with mcmc_time and its split (iter_s, save_s, the
   drains' share and the drains' own work), then the medians; no trace.
+
+``--chains 1,2,4`` (instead of ``--ab``): the batched step of
+``run_mcmc_chains`` at each chain count C, every C's chains stacked from
+the same prepared state (``stack_chain_states``), beside the single-chain
+step ("single"), timed in turns (three rounds forward and back), then
+each traced once.  One JSON line per variant: ms per iteration (untraced
+median), aggregate chain-iterations per second (C x 1000 / ms), device-busy
+ms per iteration, idle share, kernels and K1 launches per iteration, K1's
+device ms per iteration and the peak device memory; then one line with
+the medians.
 
 Otherwise it traces ``--iters`` iterations of each variant with
 ``torch.profiler`` and prints JSON lines: median ms per iteration of each
@@ -58,7 +68,11 @@ def main():
     ap.add_argument("--warmup", type=int, default=30)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--ab", choices=("k1", "step", "drain"), default="k1")
+    ap.add_argument("--chains", default="",
+                    help="comma-separated chain counts, e.g. 1,2,4")
     args = ap.parse_args()
+    if args.chains:
+        return chains_ab(args)
     if args.ab == "drain":
         return drain_ab(args.config)
 
@@ -152,6 +166,97 @@ def main():
     for name, us, count in rows[: args.top]:
         print(json.dumps(dict(kernel=name[:90], ms_per_iter=us / 1e3 / args.iters,
                               calls_per_iter=count / args.iters)))
+
+
+def _trace(run, iters):
+    """Device-busy ms, kernels and K1 device ms per iteration of
+    ``run(iters)`` under ``torch.profiler``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run(iters)
+    busy = k1 = count = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.self_device_time_total
+            count += e.count
+            if KERNELS["k1"] in e.key:
+                k1 += e.self_device_time_total
+    return busy / 1e3 / iters, count / iters, k1 / 1e3 / iters
+
+
+def chains_ab(args):
+    """``--chains`` (see the module docstring)."""
+    import bench
+    from spamtree_tpu_torch.api import prepare_fit
+    from spamtree_tpu_torch.model.core import level_coords, tausq_shape
+    from spamtree_tpu_torch.model.mcmc import (
+        draw_chains,
+        draw_step,
+        make_step,
+        stack_chain_states,
+    )
+    from spamtree_tpu_torch.ops import chol
+
+    c = bench.CONFIGS[args.config]
+    y, _, _, X, coords, mv = c["maker"]()
+    fit = prepare_fit(y - np.nanmean(y), X, coords, mv_id=mv,
+                      mcmc=dict(keep=1, burn=1, thin=1), device="cuda",
+                      **c.get("kwargs", {}))
+    ms = fit.ms
+    cc = level_coords(ms)
+    shape = tausq_shape(ms, fit.cfg.tausq_ab)
+    nt = fit.state.theta.shape[0]
+    single = make_step(ms, fit.bounds, fit.cfg, coords_cache=cc)
+    batched = make_step(ms, fit.bounds, fit.cfg, coords_cache=cc, chains=True)
+    variants = {"single": (1, single, fit.state, fit.gen)}
+    for C in (int(x) for x in args.chains.split(",")):
+        states, gens = stack_chain_states(fit.state, 1 + np.arange(C))
+        variants[f"C{C}"] = (C, batched, states, gens)
+    live = {k: v[2] for k, v in variants.items()}
+    peak = {}
+
+    def run(name, k):
+        C, step, _, gens = variants[name]
+        s = live[name]
+        for i in range(k):
+            d = (draw_step(ms, gens, nt, shape) if name == "single"
+                 else draw_chains(ms, gens, nt, shape))
+            s = step(s, d, i % 2 == 1)
+        torch.cuda.synchronize()
+        live[name] = s
+
+    names = list(variants)
+    for name in names:  # warm-up, and each variant's peak memory
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run(name, args.warmup)
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+    ab = {k: [] for k in names}
+    for name in (names + names[::-1]) * 3:
+        t0 = time.time()
+        run(name, args.iters)
+        ab[name].append(1e3 * (time.time() - t0) / args.iters)
+    rows = {}
+    for name in names:
+        C = variants[name][0]
+        chol.LAUNCHES = 0
+        run(name, args.iters)
+        k1_launches = chol.LAUNCHES / args.iters
+        busy, kernels, k1_ms = _trace(lambda k: run(name, k), args.iters)
+        med = float(np.median(ab[name]))
+        rows[name] = dict(
+            variant=name, chains=C, ms_per_iter=med,
+            chain_it_per_s=C * 1e3 / med, device_busy_ms_per_iter=busy,
+            device_idle_share=1.0 - busy / med, kernels_per_iter=kernels,
+            k1_launches_per_iter=k1_launches, k1_ms_per_iter=k1_ms,
+            peak_gb=peak[name], ab_runs=ab[name])
+        print(json.dumps(rows[name]), flush=True)
+    print(json.dumps(dict(config=args.config, n=ms.n, iters=args.iters,
+                          ab="chains", **{
+                              f"{k}_{name}": rows[name][k] for name in names
+                              for k in ("ms_per_iter", "chain_it_per_s",
+                                        "device_idle_share")})))
 
 
 def drain_ab(config: int):

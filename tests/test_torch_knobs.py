@@ -12,6 +12,8 @@ import torch
 
 import bench
 from spamtree_tpu_torch import spamtree, spamtree_predict
+from spamtree_tpu_torch.api import prepare_fit
+from spamtree_tpu_torch.model.mcmc import run_mcmc_chains
 from test_e2e import _sim_univariate
 
 F64 = torch.float64
@@ -87,10 +89,20 @@ def test_other_setting_raises_naming_itself(key, value):
         spamtree(y, X, coords, settings={key: value}, **CPU)
 
 
-@pytest.mark.parametrize("kw", [dict(n_chains=2), dict(devices="all"),
-                                dict(mesh=object())],
+@pytest.mark.parametrize("kw", [dict(n_chains=2, accept_aware=True),
+                                dict(devices="all"), dict(mesh=object())],
                          ids=["n_chains", "devices", "mesh"])
 def test_multi_chain_and_device_knobs_raise(kw):
+    """devices and mesh are not ported; n_chains > 1 is, but not with the
+    accept-aware step (K4 under a chain axis), which raises naming both."""
+    if "accept_aware" in kw:
+        coords, X, y, *_ = _sim_univariate(SS=9)
+        fit = prepare_fit(y, X, coords, n_chains=2,
+                          mcmc=dict(keep=2, burn=0), **CPU)
+        cfg = fit.cfg._replace(accept_aware=True)
+        with pytest.raises(NotImplementedError, match="accept_aware.*n_chains"):
+            run_mcmc_chains(fit.ms, fit.bounds, cfg, fit.state, fit.gen)
+        return
     coords, X, y, *_ = _sim_univariate(SS=5)
     with pytest.raises(NotImplementedError, match=next(iter(kw))):
         spamtree(y, X, coords, **kw, **CPU)
