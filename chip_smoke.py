@@ -45,7 +45,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    whose parent hands it an assembled joint (none when every thin level's
    parent composes);
 8. config 5 (n=1e6, bivariate, imbalanced margins, limited tree, chunk=50)
-   at its own keep=200, burn=300, thin=1: the accept-aware step with the
+   at keep=100, burn=150, thin=1 (half its own keep=200, burn=300, to keep
+   the whole run inside its time limit): the accept-aware step with the
    level kernels through prepare_fit / run_mcmc, then the always-emit step
    through spamtree() with the pipelined drain.  Every level must run in
    one chunk; K3 launches on each of the four thin levels of every
@@ -54,11 +55,11 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    accept-aware run, and its ms, bound and max_abs_err from the checks and
    timings at this run's level shapes; config 3's stand beside them as
    *_config3;
-9. config 5 with collect="summary", summary_draws=20 (always-emit): 200
+9. config 5 with collect="summary", summary_draws=20 (always-emit): 100
    draws summed on the device, 20 kept; phase 5's checks on yhat_mean;
-10. config 5 with checkpoint_path (keep=100: the sequential drain, a save
-   after every chunk), then resume_from with keep=200: the counts resumed
-   exact, 100 more draws, RMSPE over both runs' draws; then config 1 on
+10. config 5 with checkpoint_path (keep=50: the sequential drain, a save
+   after every chunk), then resume_from with keep=100: the counts resumed
+   exact, 50 more draws, RMSPE over both runs' draws; then config 1 on
    whether two uninterrupted runs give the same bits, and if they do a
    resumed run held bit for bit against an uninterrupted one (w, beta,
    tausq, theta), else the same in a subprocess under
@@ -73,11 +74,13 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    reference level that _joints_upto factors per draw (one on a limited
    tree).  Each of phases 8-15 sets the launch counts to 0 before its run
    and reads them after; K1 must launch in each;
-12. bench config 2 (n=1e4, univariate, deep tree) at its own keep=500,
-   burn=500, thin=2, the always-emit step: phase 5's checks, and RMSPE
-   within 15 % of the JAX package's on the same data (JAX_RMSPE);
+12. bench config 2 (n=1e4, univariate, deep tree) at keep=250, burn=250,
+   thin=2 (half its own keep=500, burn=500, for the time limit), the
+   always-emit step: phase 5's checks, and RMSPE within 15 % of the JAX
+   package's on the same data (JAX_RMSPE);
 13. bench config 4 (n=6e4, q=3, imbalanced misaligned margins,
-   mvbias=1.0) at keep=300, burn=500, thin=2, always-emit: the same;
+   mvbias=1.0) at keep=150, burn=250, thin=2 (half its own keep=300,
+   burn=500), always-emit: the same;
 14. config 4 with the accept-aware step, the level kernels on and no
    composed factor parts: K3 and K4 are first held against their plain
    versions, f32 and f64, at the model's own thin levels through its own
@@ -105,7 +108,43 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    launches per iteration and peak memory.  Last, whether two batched
    runs of config 1 at C = 2 give the same bits (printed, not checked),
    after utils.diagnostics.time_phases' table at config 3 for one chain
-   and for four.
+   and for four;
+17. multi-device sampling on the one card: (a) config 3 (keep=25,
+   burn=50, thin=2) through spamtree(mesh=...) on a one-rank NCCL mesh,
+   beside the same run in one process in the same worker, both under
+   torch.use_deterministic_algorithms: the same bits; then config 1
+   (keep=25, burn=25, thin=2) through spamtree(devices=["cuda:0"])
+   against the same run in this process; (b) two gloo ranks on the card,
+   a (1, 2) blocks mesh: first 4 always-emit and 4 accept-aware steps of
+   config 3 (level kernels on, no composed factor parts; a narrow
+   proposal, RAM adaptation off and every accept draw 0, so every
+   proposal installs and no accept decision can fall inside the
+   rounding) held step by step against the unsharded steps from the same
+   start and draws (w, theta, logdet, and every level's H and prec after
+   the last: f32 tolerance), each rank launching K1, K3 and K4 on its
+   shards; then config 1 at phase 16's depth and config 3 at phase 5's,
+   held to those phases' one-process runs, and config 3 in float64
+   (keep=25, burn=50, thin=2) held to the same run in one process in the
+   worker; (c) two gloo ranks, a (2, 1) chains mesh: config 3 (keep=25,
+   burn=50, thin=2) with n_chains=2 under deterministic algorithms, each
+   rank's chain held to that chain run alone in one process
+   (run_mcmc_chains with its generator, the same batched numerics): the
+   same bits.  Every run meets phase 5's checks (per chain, theta_rhat
+   finite), each rank launches K1 on every reference level of every
+   iteration, and the draws agree with the one-process run's within f32
+   tolerance (the w draws cross as float16).  The one exception is (b)'s
+   f32 config-3 run: the blocks mesh adds messages, logdet and quadratic
+   forms in another order, so an accept decision inside the f32 rounding
+   of log p can part the chains (the float64 run, where the rounding is
+   2^-29 as small, must not part); where it parts, the gap between the
+   theta means must be within 6 x the spread between the chain means of
+   phase 16's four-chain run, and each chain's held-out RMSPE within 5 %
+   of the one process's.  Each mesh run prints its ms per iteration,
+   chain-iterations per second, each rank's peak memory, and a window of
+   5 steps per rank (host ms per iteration, device-busy ms under
+   torch.profiler, idle share; deterministic algorithms off) beside the
+   one process's.  Over gloo on one card these times say what a second
+   process costs, not what NVLink would give.
 
 Kernel and plain times (the kernels record's ms and plain_ms) are CUDA
 events around eager calls of the wrappers the sweeps call, host time
@@ -122,6 +161,10 @@ runs phase 10's config-1 check alone, under deterministic algorithms.
     python3 chip_smoke.py --chains
 
 runs phases 1-2 and phase 16 alone (~2 min).
+
+    python3 chip_smoke.py --mesh
+
+runs phases 1-2 and phase 17 alone, with its one-process runs.
 
     python3 chip_smoke.py --times
 
@@ -454,6 +497,8 @@ def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin,
     _check(n_ref > 0 and launches >= 2 * n_ref * iters,
            f"K1 launches {launches} < 2 x {n_ref} ref levels x {iters} its")
     _check_reference(cfg_id, rmspe, sd)
+    if settings == dict(chunk=200) and not kw and not limited:
+        _keep_draws(cfg_id, 1, keep, burn, thin, out)
     thin_lvls = [(p.B, p.S, p.P) for p in out["schedule"].levels
                  if not p.is_ref and p.P > 0]
     return res, thin_lvls, out
@@ -577,24 +622,26 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
 
 
 def run_resume(bench, chol, level, torch, kw5):
-    """Phase 10 at config 5: run A keeps 100 of the 200 draws with a
-    checkpoint after every chunk (the sequential drain), run B resumes from
-    it with keep=200 and returns the other 100.  Returns (A's record, B's
-    record, K1 launches over both)."""
+    """Phase 10 at config 5: run A keeps the first half of kw5's draws
+    with a checkpoint after every chunk (the sequential drain), run B
+    resumes from it with kw5's keep and returns the other half.  Returns
+    (A's record, B's record, K1 launches over both)."""
+    half = kw5["keep"] // 2
     with tempfile.TemporaryDirectory() as d:
         ck = os.path.join(d, "ck.npz")
         ra, _, fa = run_config(bench, chol, level, torch, 5,
-                               **(kw5 | dict(keep=100)), checkpoint_path=ck)
+                               **(kw5 | dict(keep=half)), checkpoint_path=ck)
         k1 = ra["k1_launches"]
         rb, _, fb = run_config(bench, chol, level, torch, 5, **kw5,
-                               draws=100, resume_from=ck)
+                               draws=kw5["keep"] - half, resume_from=ck)
         k1 += rb["k1_launches"]
     it_a = ra["iters"]
     _check(fb["resumed_at_iteration"] == it_a
-           and fb["resumed_kept_already"] == 100,
+           and fb["resumed_kept_already"] == half,
            f"resumed at {fb['resumed_at_iteration']} (A ran {it_a}) with "
-           f"{fb['resumed_kept_already']} kept (100)")
-    _check(fb["burn_actual"] == 0 and fb["w_mcmc"].shape[0] == 100,
+           f"{fb['resumed_kept_already']} kept ({half})")
+    _check(fb["burn_actual"] == 0
+           and fb["w_mcmc"].shape[0] == kw5["keep"] - half,
            "run B repeated burn or returned another count of draws")
     y, y_full, miss, *_ = _data(bench, 5)
     ybar = np.nanmean(y)
@@ -603,7 +650,7 @@ def run_resume(bench, chol, level, torch, kw5):
     rmspe = float(np.sqrt(np.mean((y_post[mo] - y_full[fb["order"]][mo]) ** 2)))
     sd = float(np.nanstd(y_full))
     print(f"resume: A {it_a} iterations, B {rb['iters']}; RMSPE over A's "
-          f"and B's 200 yhat draws {rmspe:.4f} (sd(y) {sd:.4f})")
+          f"and B's {kw5['keep']} yhat draws {rmspe:.4f} (sd(y) {sd:.4f})")
     _check(rmspe < 0.5 * sd, f"A+B RMSPE {rmspe} >= 0.5 sd(y) {sd}")
     return ra, rb, k1
 
@@ -852,6 +899,8 @@ def run_chains(bench, chol, level, torch, cfg_id, C, keep, burn, thin,
     _check(C == 1 or np.isfinite(out["theta_rhat"]).all(),
            f"config {cfg_id} C={C}: theta_rhat {out.get('theta_rhat')}")
     _check(counts["k1_launches"] > 0, f"config {cfg_id} C={C}: K1 idle")
+    if chunk == 200:
+        _keep_draws(cfg_id, C, keep, burn, thin, out)
     return rec
 
 
@@ -1218,6 +1267,542 @@ def time_config5_kernels(chol, level, torch):
         k4=time_decision_shapes(level, torch, CONFIG5_THIN, Bp, "config-5"))
 
 
+# -- phase 17: multi-device sampling ----------------------------------------
+
+# one-process runs that phase 17 reads, kept by run_config and run_chains:
+# (config, chains, keep, burn, thin) -> draws
+_ONE_PROCESS: dict = {}
+_DRAW_KEYS = ("w_mcmc", "beta_mcmc", "tausq_mcmc", "theta_mcmc")
+# a mesh run against its one-process run, max |d| <= tol x max |ref|: f32
+# over a step or a chain; the w draws cross to the host as float16 (one
+# ulp 2^-11 to 2^-10 of the value)
+MESH_TOL = dict(w_mcmc=4e-3, beta_mcmc=1e-3, tausq_mcmc=1e-3,
+                theta_mcmc=1e-3, step=1e-3)
+# steps of each kind in phase 17b's step check
+STEP_ITERS = 4
+# the one run whose f32 chain may part from its one-process run (see
+# _mesh_agrees): the gap between the two chains' theta means, pooled over
+# the parameters, against the spread between the one-process run's
+# SPREAD_C chains; under one parameter the ratio squared is F(1, 3), whose
+# 0.99 quantile is 34.1 = 5.84 squared
+SPREAD_C = 4
+SPREAD_GATE = 6.0
+# (config, keep, burn, thin) of phase 17's runs: phase 5's and phase 16's
+# depths for the blocks mesh, held to those phases' one-process runs (a
+# parting f32 chain to phase 16's four chains); shorter runs under the
+# deterministic algorithms, which cost 1.3-1.9x (each mesh run beside its
+# own one-process run, and the whole smoke run must stay inside its
+# limit)
+DEPTH3 = (3, 100, 200, 2)
+DEPTH1 = (1, 150, 150, 2)
+SHORT3 = (3, 25, 50, 2)
+DEVICES1 = (1, 25, 25, 2)
+
+
+def _yhat_means(out, C):
+    """(C, n) posterior mean yhat of each chain of a spamtree output."""
+    yh = out["yhat_mcmc"].mean(0)
+    return yh[None] if C == 1 else yh
+
+
+def _keep_draws(cfg_id, C, keep, burn, thin, out):
+    _ONE_PROCESS[(cfg_id, C, keep, burn, thin)] = dict(
+        {k: out[k] for k in _DRAW_KEYS}, yhat_mean=_yhat_means(out, C),
+        order=out["order"], ms_per_iter=1e3 * out["mcmc_time"] / (
+            out["burn_actual"] + keep * thin))
+
+
+def _one_process(bench, cfg_id, C, keep, burn, thin):
+    """The one-process run's draws at this depth: phase 5's or phase 16's,
+    or run now (``--mesh``)."""
+    import spamtree_tpu_torch
+
+    key = (cfg_id, C, keep, burn, thin)
+    if key not in _ONE_PROCESS:
+        y, _, _, X, coords, mv = _data(bench, cfg_id)
+        out = spamtree_tpu_torch.spamtree(
+            y - np.nanmean(y), X, coords, mv_id=mv, cell_size=25,
+            mcmc=dict(keep=keep, burn=burn, thin=thin),
+            settings=dict(chunk=200), seed=1, device="cuda", n_chains=C)
+        _keep_draws(*key, out)
+    return _ONE_PROCESS[key]
+
+
+def _rel_err(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if not ref.size:
+        return 0.0
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def _rmspe(bench, cfg_id, yhat_mean, order):
+    """Held-out RMSPE of each chain's (C, n) posterior mean yhat."""
+    y, y_full, miss, *_ = _data(bench, cfg_id)
+    ybar = np.nanmean(y)
+    mo = miss[order]
+    return [float(np.sqrt(np.mean(((m + ybar)[mo] - y_full[order][mo]) ** 2)))
+            for m in yhat_mean]
+
+
+def _check_fit(bench, cfg_id, out, k1, thin, C, what):
+    """Phase 5's checks on a spamtree output (chains: per chain, and a
+    finite theta_rhat): finite draws, RMSPE < 0.5 sd(y) on the held-out
+    rows, acceptance in (0.05, 0.8), K1 launched on every reference level
+    with S <= 64 of every iteration (``k1``: one rank's launches).
+    Returns (RMSPE per chain, iterations)."""
+    y, y_full, *_ = _data(bench, cfg_id)
+    iters = out["burn_actual"] + out["w_mcmc"].shape[0] * thin
+    yhat = out["yhat_mcmc"][:, None] if C == 1 else out["yhat_mcmc"]
+    acc = (np.array([out["accept_ratio"]]) if C == 1
+           else np.asarray(out["accept_by_chain"]))
+    sd = float(np.nanstd(y_full))
+    rmspe = _rmspe(bench, cfg_id, _yhat_means(out, C), out["order"])
+    for k in ("w_mcmc", "yhat_mcmc", "beta_mcmc", "tausq_mcmc", "theta_mcmc"):
+        _check(out[k].size and np.isfinite(out[k]).all(), f"{what}: finite {k}")
+    _check(yhat.shape[1:] == (C, len(y)), f"{what}: yhat shape {yhat.shape}")
+    for k in range(C):
+        _check(rmspe[k] < 0.5 * sd,
+               f"{what} chain {k}: RMSPE {rmspe[k]} >= 0.5 sd(y) {sd}")
+        _check(0.05 < acc[k] < 0.8,
+               f"{what} chain {k}: acceptance {acc[k]} outside (0.05, 0.8)")
+    _check(C == 1 or np.isfinite(out["theta_rhat"]).all(),
+           f"{what}: theta_rhat {out.get('theta_rhat')}")
+    n_ref = out["n_ref"]
+    _check(n_ref > 0 and k1 >= 2 * n_ref * iters,
+           f"{what}: K1 launches {k1} < 2 x {n_ref} ref levels x {iters} its")
+    return rmspe, iters
+
+
+def _theta_kc(out, C):
+    """(keep, C, n_theta) theta draws of a spamtree output."""
+    th = np.asarray(out["theta_mcmc"], np.float64)
+    return th.T[:, None] if C == 1 else th
+
+
+def _mesh_agrees(bench, cfg_id, C, got, ref, what, spread=None):
+    """A mesh run's draws against its one-process run's: max |d| / max
+    |ref| of w, beta, tausq and theta within MESH_TOL, or the check fails.  With ``spread`` (the
+    draws of a one-process run of SPREAD_C chains) the two chains may
+    part -- where an accept decision, u < p, falls inside the f32 rounding
+    of log p, which a blocks mesh's sums in another order move; the float64
+    run of the same mesh shows that this is all that parts them -- and
+    then the kept draw where theta first parts is printed, and the gap
+    between the two chains' theta means, over the parameters in units of
+    each one's within-chain sd, must be within SPREAD_GATE times the
+    spread of the SPREAD_C chains' means, and each chain's held-out RMSPE
+    within 5 % of the one-process chain's.  Returns the record."""
+    errs = {k: _rel_err(got[k], ref[k]) for k in _DRAW_KEYS}
+    same = all(np.array_equal(got[k], ref[k]) for k in _DRAW_KEYS)
+    rec = dict(errs=errs, same_bits=same, parted_at_kept_draw=None)
+    print(f"{what} against the one-process run: max |d| / max |ref| "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}"
+          f"{' (the same bits)' if same else ''}", flush=True)
+    if all(e <= MESH_TOL[k] for k, e in errs.items()):
+        return rec
+    _check(spread is not None, f"{what}: the draws differ from the "
+           f"one-process run's beyond f32 tolerance {MESH_TOL}: {errs}")
+    th = [_theta_kc(o, C) for o in (got, ref)]
+    d = (np.abs(th[0] - th[1]).max(axis=(1, 2)) / np.abs(th[1]).max())
+    rec["parted_at_kept_draw"] = int(np.argmax(d > MESH_TOL["theta_mcmc"]))
+    ths = _theta_kc(spread, SPREAD_C)
+    within = np.sqrt(ths.var(0).mean(0))  # (n_theta,)
+    between = ths.mean(0).var(0, ddof=1)  # var of the chains' means
+    live = within > 0
+    gap = (th[0].mean(0) - th[1].mean(0))[:, live] / within[live]
+    rec["theta_gap_over_spread"] = float(np.sqrt(
+        (gap ** 2).sum(1).max()
+        / (2 * between[live] / within[live] ** 2).sum()))
+    rm = [_rmspe(bench, cfg_id, o, got["order"]) for o in (
+        _yhat_means(got, C), ref["yhat_mean"])]
+    rec["rmspe_mesh_one"] = rm
+    print(f"{what}: the chains parted at kept draw "
+          f"{rec['parted_at_kept_draw']}; theta means apart by "
+          f"{rec['theta_gap_over_spread']:.2f} x the spread of the "
+          f"one-process run's {SPREAD_C} chains (gate {SPREAD_GATE}); "
+          f"held-out RMSPE {rm[0]} (mesh) / {rm[1]} (one process)",
+          flush=True)
+    _check(rec["theta_gap_over_spread"] <= SPREAD_GATE,
+           f"{what}: theta means apart by {rec['theta_gap_over_spread']} x "
+           f"the one-process chains' spread")
+    _check(all(abs(a - b) <= 0.05 * b for a, b in zip(*rm)),
+           f"{what}: RMSPE {rm[0]} against the one process's {rm[1]}")
+    return rec
+
+
+def _window(torch, bench, cfg_id, C, mesh=None, iters=5):
+    """Host ms per iteration of the step (``thin=2``: predicting every
+    other iteration; untraced, synchronised) and device-busy ms per
+    iteration under torch.profiler, after three warm-up iterations, from
+    the start ``spamtree`` makes at a fixed proposal (no tuner), on this
+    rank of ``mesh``."""
+    from spamtree_tpu_torch.api import prepare_fit
+    from spamtree_tpu_torch.model.core import level_coords, tausq_shape
+    from spamtree_tpu_torch.model.mcmc import (
+        draw_chains,
+        draw_step,
+        make_step,
+    )
+    from spamtree_tpu_torch.utils.profile_step import _trace
+
+    y, _, _, X, coords, mv = _data(bench, cfg_id)
+    fit = prepare_fit(y - np.nanmean(y), X, coords, mv_id=mv, cell_size=25,
+                      mcmc=dict(keep=1, burn=0), settings=dict(mcmcsd=1e-4),
+                      seed=1, device="cuda", n_chains=C, mesh=mesh)
+    ms = fit.ms
+    step = make_step(ms, fit.bounds, fit.cfg, coords_cache=level_coords(ms),
+                     chains=C > 1)
+    nt = fit.state.theta.shape[-1]
+    shape = tausq_shape(ms, fit.cfg.tausq_ab)
+    draw = draw_chains if C > 1 else draw_step
+    state = fit.state
+
+    def run(k):
+        nonlocal state
+        for i in range(k):
+            state = step(state, draw(ms, fit.gen, nt, shape), i % 2 == 1)
+        torch.cuda.synchronize()
+
+    run(3)
+    t0 = time.time()
+    run(iters)
+    ms_it = 1e3 * (time.time() - t0) / iters
+    busy = _trace(run, iters)[0]
+    return dict(ms_per_iter=ms_it, busy_ms_per_iter=busy,
+                idle=1.0 - busy / ms_it)
+
+
+def _lean(out):
+    """What phase 17 reads of a spamtree output (crosses from a worker)."""
+    keep = _DRAW_KEYS + ("yhat_mcmc", "order", "accept_ratio", "burn_actual",
+                         "mcmc_time", "iter_s", "setup_breakdown",
+                         "accept_by_chain", "theta_rhat")
+    lean = {k: out[k] for k in keep if k in out}
+    lean["n_ref"] = sum(1 for p in out["schedule"].levels
+                        if p.is_ref and p.S <= 64)
+    return lean
+
+
+def _rank_tensor(mesh, torch, values):
+    """Every rank's ``values`` (a list of numbers), in rank order."""
+    t = torch.tensor([values], dtype=torch.float64, device=mesh.device)
+    return mesh.cat_chains(mesh.cat_blocks(t)).tolist()
+
+
+def _mesh_step(mesh, cfg_id):
+    """Phase 17b's step check, on a mesh rank: STEP_ITERS always-emit
+    steps and STEP_ITERS accept-aware steps (level kernels on, no composed
+    factor parts) of config ``cfg_id`` from spamtree's start at a narrow
+    proposal (sd 1e-12: wider ones were refused at every step or most at
+    config 3's start), RAM adaptation off, the draws from one seeded
+    generator with every accept draw u = 0: every proposal installs on
+    both sides, so no accept decision can fall inside the rounding, and
+    the accept-aware step's rebuild runs at every step while w walks
+    through STEP_ITERS Gibbs updates; on this rank's shards, with each
+    rank's K1/K3/K4 launches per kind.  Rank 0 then runs the same steps
+    unsharded from the same start and draws and returns, per kind, the
+    largest max |d| / max |ref| over the steps of w, theta and logdet, and
+    of every level's H and prec after the last step (the padding's dummy
+    blocks cut off), and both sides' accepts."""
+    import torch
+
+    import bench
+    from spamtree_tpu_torch.api import prepare_fit
+    from spamtree_tpu_torch.model.core import level_coords, tausq_shape
+    from spamtree_tpu_torch.model.mcmc import draw_step, make_step
+    from spamtree_tpu_torch.ops import chol, level
+
+    y, _, _, X, coords, mv = _data(bench, cfg_id)
+    kw = dict(mv_id=mv, cell_size=25, mcmc=dict(keep=1, burn=0),
+              settings=dict(mcmcsd=1e-12), seed=1, device=mesh.device)
+
+    def walk(fit, accept_aware):
+        cfg = fit.cfg._replace(accept_aware=accept_aware, adapting=False)
+        step = make_step(fit.ms, fit.bounds, cfg,
+                         coords_cache=level_coords(fit.ms))
+        gen = torch.Generator(device=fit.ms.device).manual_seed(7)
+        nt = fit.state.theta.shape[0]
+        shape = tausq_shape(fit.ms, cfg.tausq_ab)
+        st, trail = fit.state, []
+        for _ in range(STEP_ITERS):
+            d = draw_step(fit.ms, gen, nt, shape)
+            st = step(st, d._replace(u=torch.zeros_like(d.u)), True)
+            trail.append([x.detach().clone().cpu()
+                          for x in (st.w, st.theta, st.logdetCi)])
+        return st, trail
+
+    got, counts = {}, {}
+    with _env(SPAMTREE_LEVEL_KERNELS="1", SPAMTREE_COMPOSED_FACTORS="0"):
+        fit = prepare_fit(y - np.nanmean(y), X, coords, mesh=mesh, **kw)
+        for aa in (False, True):
+            _reset_counts(chol, level)
+            st, trail = walk(fit, aa)
+            torch.cuda.synchronize()
+            counts[aa] = _rank_tensor(mesh, torch, list(
+                _counts(chol, level).values()))
+            got[aa] = (st, trail, [(mesh.cat_blocks(d.H),
+                                    mesh.cat_blocks(d.prec))
+                                   for d in st.leveldata])
+        if mesh.rank != 0:
+            return None
+        ref = prepare_fit(y - np.nanmean(y), X, coords, **kw)
+        errs = {}
+        for aa in (False, True):
+            st_r, trail_r = walk(ref, aa)
+            st, trail, ld = got[aa]
+            e = {k: max(_rel_err(a[i], b[i]) for a, b in zip(trail, trail_r))
+                 for i, k in enumerate(("w", "theta", "logdet"))}
+            e["accepted"] = [float(st.ram.accept_count),
+                             float(st_r.ram.accept_count)]
+            for t, ((H, prec), d) in enumerate(zip(ld, st_r.leveldata)):
+                B = d.H.shape[0]
+                e[f"H{t}"] = _rel_err(H[:B].cpu(), d.H.cpu())
+                e[f"prec{t}"] = _rel_err(prec[:B].cpu(), d.prec.cpu())
+            errs["accept_aware" if aa else "always_emit"] = e
+    return dict(errs=errs, launches={
+        ("accept_aware" if aa else "always_emit"): [
+            dict(zip(("k1_launches", "k3_launches", "k4_launches"),
+                     map(int, r))) for r in c]
+        for aa, c in counts.items()})
+
+
+def _reference(mesh, y, X, coords, C, kw):
+    """The one-process run a mesh run is held to, in this worker: on a
+    mesh without a chains axis, rank 0 runs spamtree(n_chains=C) alone
+    (the others wait at the next collective); on a chains axis, every
+    chains rank runs its own chains alone -- spamtree's tuned start, then
+    run_mcmc_chains with chain c's generator seeded seed + c, the batched
+    step at the chain count of the rank -- and the draws are gathered over
+    the chains ranks, so chain c of the mesh run is held to chain c run
+    through the same numerics in one process.  Returns rank 0's draws
+    (as spamtree lays them out) and ms per iteration."""
+    import torch
+
+    import spamtree_tpu_torch
+    from spamtree_tpu_torch.api import prepare_fit
+    from spamtree_tpu_torch.model.mcmc import run_mcmc_chains, stack_chain_states
+
+    m = kw["mcmc"]
+    iters = m["burn"] + m["keep"] * m["thin"]
+    if mesh.n_chains == 1:
+        if mesh.rank != 0:
+            return None
+        out = spamtree_tpu_torch.spamtree(y, X, coords, n_chains=C,
+                                          device=mesh.device, **kw)
+        return dict({k: out[k] for k in _DRAW_KEYS},
+                    yhat_mean=_yhat_means(out, C),
+                    ms_per_iter=1e3 * out["mcmc_time"] / iters)
+    fit = prepare_fit(y, X, coords, device=mesh.device, **kw)
+    own = C // mesh.n_chains
+    c0 = mesh.chain_rank * own
+    states, gens = stack_chain_states(fit.state,
+                                      kw["seed"] + c0 + np.arange(own))
+    res = run_mcmc_chains(fit.ms, fit.bounds, fit.cfg, states, gens,
+                          yhat_seed=kw["seed"])
+    draws = {k: mesh.cat_chains(torch.from_numpy(np.ascontiguousarray(
+        res[k.removesuffix("_mcmc")])).to(mesh.device), 1).cpu().numpy()
+        for k in _DRAW_KEYS}
+    return (dict(draws, ms_per_iter=1e3 * res["mcmc_time"] / iters)
+            if mesh.rank == 0 else None)
+
+
+def mesh_job(mesh, runs, window_cfg=None, step_cfg=None,
+             deterministic=True):
+    """Rank job of phase 17, under torch.use_deterministic_algorithms if
+    ``deterministic`` (the launch sets CUBLAS_WORKSPACE_CONFIG; an op
+    without a deterministic version warns): ``_mesh_step`` at config
+    ``step_cfg`` if given; then for each of ``runs`` ((config, keep, burn,
+    thin, n_chains, float64, reference)) spamtree(mesh=...) with each
+    rank's K1, K3 and K4 launches and peak device memory, and, where
+    ``reference``, its one-process run here (``_reference``; else the
+    caller holds it to one of its own); then, with the deterministic
+    algorithms off, the step's window (``_window``) at config
+    ``window_cfg`` on every rank."""
+    import torch
+
+    import bench
+    import spamtree_tpu_torch
+    from spamtree_tpu_torch.ops import chol, level
+
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    step = None if step_cfg is None else _mesh_step(mesh, step_cfg)
+    outs = []
+    for cfg_id, keep, burn, thin, C, f64, with_ref in runs:
+        y, _, _, X, coords, mv = _data(bench, cfg_id)
+        kw = dict(mv_id=mv, cell_size=25,
+                  mcmc=dict(keep=keep, burn=burn, thin=thin),
+                  settings=dict(chunk=200), seed=1,
+                  dtype=torch.float64 if f64 else torch.float32)
+        _reset_counts(chol, level)
+        torch.cuda.reset_peak_memory_stats()
+        out = spamtree_tpu_torch.spamtree(y - np.nanmean(y), X, coords,
+                                          n_chains=C, mesh=mesh, **kw)
+        ranks = _rank_tensor(mesh, torch, [
+            *_counts(chol, level).values(),
+            torch.cuda.max_memory_allocated()])
+        ref = (_reference(mesh, y - np.nanmean(y), X, coords, C, kw)
+               if with_ref else None)
+        outs.append(dict(out=_lean(out), ref=ref, launches=[
+            dict(zip(("k1_launches", "k3_launches", "k4_launches"),
+                     map(int, r[:3]))) for r in ranks],
+            peak_bytes=[int(r[3]) for r in ranks]))
+    torch.use_deterministic_algorithms(False)
+    win = None
+    if window_cfg is not None:
+        w = _window(torch, bench, window_cfg, runs[-1][4], mesh)
+        win = _rank_tensor(mesh, torch, [w["ms_per_iter"],
+                                         w["busy_ms_per_iter"], w["idle"]])
+    return dict(step=step, runs=outs, window=win) if mesh.rank == 0 else None
+
+
+def _mesh_launch(devices, runs, **kw):
+    """mesh_job on one worker per device, with cuBLAS set up for the
+    deterministic algorithms (NCCL for one device, else gloo)."""
+    from spamtree_tpu_torch.parallel.launch import launch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with _env(CUBLAS_WORKSPACE_CONFIG=":4096:8"):
+        return launch("chip_smoke:mesh_job", dict(runs=runs, **{
+            k: v for k, v in kw.items() if k != "n_chains"}), devices,
+            n_chains=kw.get("n_chains", 1),
+            backend="nccl" if len(devices) == 1 else "gloo", path=[root],
+            timeout=900)
+
+
+def _mesh_runs(bench, tag, shape, runs, res, info, one, spread,
+               deterministic=True):
+    """Phase 5's checks and ``_mesh_agrees`` on each of a mesh job's runs,
+    against the job's own one-process run or else this process's (phase
+    5's or 16's, ``_one_process``); the records (``one``: the one-process
+    windows by chain count)."""
+    recs = {}
+    for (cfg_id, keep, burn, thin, C, f64, _), r in zip(runs, res["runs"]):
+        what = (f"mesh ({tag}) config {cfg_id} n_chains={C}"
+                f"{' float64' if f64 else ''}")
+        out, ref = r["out"], r["ref"]
+        if ref is None:
+            ref = _one_process(bench, cfg_id, C, keep, burn, thin)
+        k1 = [x["k1_launches"] for x in r["launches"]]
+        rmspe, iters = _check_fit(bench, cfg_id, out, min(k1), thin, C, what)
+        ref.setdefault("yhat_mean", None)
+        errs = _mesh_agrees(bench, cfg_id, C, out, ref, what, spread=(
+            spread if (cfg_id, keep, burn, thin, f64) == (*DEPTH3, False)
+            and shape == [1, 2] else None))
+        win = res["window"] if cfg_id == 3 and not f64 else None
+        key = f"{tag}_config{cfg_id}{'_f64' if f64 else ''}"
+        recs[key] = dict(
+            phase=f"mesh_{tag}", config=cfg_id, mesh=shape,
+            backend="nccl" if shape == [1, 1] else "gloo", chains=C,
+            float64=f64, iters=iters, deterministic_algorithms=deterministic,
+            ms_per_iter=1e3 * out["mcmc_time"] / iters,
+            chain_it_per_s=C * iters / out["mcmc_time"],
+            one_process_ms_per_iter=ref["ms_per_iter"],
+            rmspe=rmspe, accept=out["accept_ratio"],
+            launches_by_rank=r["launches"],
+            k1_per_iter=[k / iters for k in k1],
+            peak_bytes_by_rank=r["peak_bytes"], errs=errs,
+            window_by_rank=win,
+            one_process_window=one.get(C) if win else None,
+            workers_start_s=info["start_s"],
+            setup_breakdown=out["setup_breakdown"])
+        print(json.dumps(recs[key]), flush=True)
+    return recs
+
+
+def mesh_phase(bench, chol, level, torch):
+    """Phase 17: (a) config 3 (SHORT3) through spamtree(mesh=...) on a
+    one-rank NCCL mesh, and config 1 (DEVICES1) through spamtree(devices=
+    ["cuda:0"]); (b) two gloo ranks on the one card, a (1, 2) blocks mesh:
+    the step check (``_mesh_step``), then config 1 (phase 16's depth),
+    config 3 at phase 5's depth, both held to those phases' runs, and
+    config 3 in float64 (SHORT3); (c) two gloo ranks, a (2, 1) chains
+    mesh: config 3 (SHORT3) with n_chains=2.  (a) and (c) and their
+    one-process runs (``_reference``) run under deterministic algorithms,
+    where they must give the same bits; every run meets
+    phase 5's checks (per chain) and ``_mesh_agrees``, and each rank
+    launches K1 on its shard of every reference level of every iteration;
+    the accept-aware steps launch K3 and K4 on each rank.  Prints each mesh
+    run's ms per iteration, chain-iterations per second, idle share and
+    peak memory per rank beside the one-process run's.  Returns the
+    records."""
+    import spamtree_tpu_torch
+
+    rec = {}
+
+    _phase("mesh (a): config 3, spamtree(mesh=...) on one NCCL rank; "
+           "config 1, spamtree(devices=['cuda:0'])")
+    runs_a = [(*SHORT3, 1, False, True)]
+    res_a, info_a = _mesh_launch(["cuda:0"], runs_a)
+    rec |= _mesh_runs(bench, "a", [1, 1], runs_a, res_a, info_a, {}, None)
+    y, _, _, X, coords, mv = _data(bench, 1)
+    t0 = time.time()
+    out = spamtree_tpu_torch.spamtree(
+        y - np.nanmean(y), X, coords, mv_id=mv, cell_size=25,
+        mcmc=dict(zip(("keep", "burn", "thin"), DEVICES1[1:])),
+        settings=dict(chunk=200),
+        seed=1, devices=["cuda:0"])
+    _check(out["mesh"] == dict(devices=["cuda:0"], chains=1, blocks=1),
+           f"mesh (a): devices= built {out['mesh']}")
+    errs = _mesh_agrees(bench, 1, 1, _lean(out),
+                        _one_process(bench, 1, 1, *DEVICES1[1:]),
+                        "mesh (a) config 1 through devices=")
+    rec["a_devices_config1"] = dict(
+        phase="mesh_a_devices", config=1, wall_s=time.time() - t0,
+        errs=errs, setup_breakdown=out["setup_breakdown"])
+    print(json.dumps(rec["a_devices_config1"]), flush=True)
+
+    _phase("mesh (b): two gloo ranks on the card, (1, 2) blocks mesh")
+    runs_b = [(*DEPTH1, 1, False, False), (*DEPTH3, 1, False, False),
+              (*SHORT3, 1, True, True)]
+    res_b, info_b = _mesh_launch(["cuda:0"] * 2, runs_b, window_cfg=3,
+                                 step_cfg=3, deterministic=False)
+    step = res_b["step"]
+    print(json.dumps(dict(phase="mesh_b_step", config=3, **step)),
+          flush=True)
+    for mode, e in step["errs"].items():
+        _check(e["accepted"][0] == e["accepted"][1]
+               and e["accepted"][0] >= STEP_ITERS // 2,
+               f"mesh (b) {mode} steps: accepted {e['accepted']} of "
+               f"{STEP_ITERS}")
+        bad = {k: v for k, v in e.items()
+               if k != "accepted" and not v <= MESH_TOL["step"]}
+        _check(not bad, f"mesh (b) {mode} steps against the unsharded "
+               f"steps: {bad}")
+    for r, c in enumerate(step["launches"]["accept_aware"]):
+        k1_, k3_, k4_ = c.values()
+        print(f"mesh (b) accept-aware steps, rank {r}: K1 {k1_}, K3 {k3_}, "
+              f"K4 {k4_}", flush=True)
+        _check(k1_ > 0 and k3_ > 0 and k4_ > 0,
+               f"mesh (b) accept-aware steps: rank {r} launched K1 {k1_}, "
+               f"K3 {k3_}, K4 {k4_}")
+    rec["b_step"] = step
+
+    _phase("mesh (c): two gloo ranks on the card, (2, 1) chains mesh")
+    runs_c = [(*SHORT3, 2, False, True)]
+    res_c, info_c = _mesh_launch(["cuda:0"] * 2, runs_c, window_cfg=3,
+                                 n_chains=2)
+
+    _phase("mesh: the one-process windows and chains beside them")
+    one = {C: _window(torch, bench, 3, C) for C in (1, 2)}
+    spread = _one_process(bench, 3, SPREAD_C, *DEPTH3[1:])
+    rec |= _mesh_runs(bench, "b", [1, 2], runs_b, res_b, info_b, one,
+                      spread, deterministic=False)
+    rec |= _mesh_runs(bench, "c", [2, 1], runs_c, res_c, info_c, one, None)
+    for key in ("b_config3", "c_config3"):
+        r = rec[key]
+        o = one[r["chains"]]
+        det = "" if r["deterministic_algorithms"] else "out"
+        print(f"mesh table: {key}: {r['ms_per_iter']:.2f} ms/it (one "
+              f"process {r['one_process_ms_per_iter']:.2f}, both with{det} "
+              f"deterministic algorithms), {r['chain_it_per_s']:.2f} "
+              f"chain-it/s; window ms/it by rank "
+              f"{[round(w[0], 2) for w in r['window_by_rank']]}, idle by rank "
+              f"{[round(w[2], 3) for w in r['window_by_rank']]}, peak GB by "
+              f"rank {[round(b / 1e9, 2) for b in r['peak_bytes_by_rank']]}; "
+              f"one process at C={r['chains']}: window {o['ms_per_iter']:.2f} "
+              f"ms/it, idle {o['idle']:.3f}", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1238,6 +1823,9 @@ def main() -> int:
         return 0 if resume_bits(bench, torch) else 1
     if sys.argv[1:] == ["--chains"]:
         chains_phase(bench, chol, level, torch)
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        mesh_phase(bench, chol, level, torch)
         return 0
     if sys.argv[1:] == ["--times"]:
         _phase("K1, K2, K3, K4 times")
@@ -1275,7 +1863,10 @@ def main() -> int:
     run_accept_aware(bench, chol, level, torch, 1, keep=200, burn=200, thin=1,
                      limited=True)
     c5 = bench.CONFIGS[5]
-    kw5 = dict(keep=c5["keep"], burn=c5["burn"], thin=c5["thin"],
+    # configs 5, 2 and 4 at half their own depth (keep and burn), to keep
+    # the whole run inside its time limit on a slow host (1041.7 s before
+    # the cut, the limit 1200 s)
+    kw5 = dict(keep=c5["keep"] // 2, burn=c5["burn"] // 2, thin=c5["thin"],
                chunk=c5["chunk"], limited=c5["kwargs"]["limited_tree"])
     _phase("config 5, limited tree, accept-aware, level kernels")
     a5, (ms5, state5) = run_accept_aware(bench, chol, level, torch, 5, **kw5)
@@ -1326,9 +1917,9 @@ def main() -> int:
 
     c2, c4 = bench.CONFIGS[2], bench.CONFIGS[4]
     _phase("config 2, always-emit")
-    r2, _, _ = run_config(bench, chol, level, torch, 2, keep=c2["keep"],
-                          burn=c2["burn"], thin=c2["thin"])
-    kw4 = dict(keep=c4["keep"], burn=c4["burn"], thin=c4["thin"])
+    r2, _, _ = run_config(bench, chol, level, torch, 2, keep=c2["keep"] // 2,
+                          burn=c2["burn"] // 2, thin=c2["thin"])
+    kw4 = dict(keep=c4["keep"] // 2, burn=c4["burn"] // 2, thin=c4["thin"])
     _phase(f"config 4 ({c4['kwargs']}), always-emit")
     r4, thin4, _ = run_config(bench, chol, level, torch, 4, **kw4,
                               **c4["kwargs"])
@@ -1350,6 +1941,7 @@ def main() -> int:
     ro = run_oracle(chol, level, torch)
     _phase("chains: K1 at the folded (C*B, S) shapes")
     ch = chains_phase(bench, chol, level, torch)
+    mesh = mesh_phase(bench, chol, level, torch)
     print(f"chip_smoke: every phase passed in {time.time() - _T0:.1f} s",
           flush=True)
 
@@ -1373,6 +1965,15 @@ def main() -> int:
              "config5_predict": r11, "config2": r2, "config4": r4,
              "config4_accept_aware": a4, "oracle_f64": ro} | {
                  f"config{i}_chains{C}": r for (i, C), r in ch["runs"].items()}
+    # phase 17: each mesh run's launches per rank (each rank counts its
+    # own, in its own process)
+    for mode, by_rank in mesh["b_step"]["launches"].items():
+        for r, c in enumerate(by_rank):
+            paths[f"mesh_b_step_{mode}_rank{r}"] = c
+    for key in ("a_config3", "b_config1", "b_config3", "b_config3_f64",
+                "c_config3"):
+        for r, c in enumerate(mesh[key]["launches_by_rank"]):
+            paths[f"mesh_{key}_rank{r}"] = c
     def k1_path(rs):
         n = len(rs)
         return dict(ms=sum(r[2] for r in rs) / n,

@@ -6,7 +6,9 @@ one chain or C chains in one batched step on a full or limited tree,
 every kept draw collected or the posterior moments summed on the device,
 prediction at the NaN rows, checkpoints, resume and sample sinks, with the
 JAX package's prior, starting, debug, settings, tree-shape and elevation
-knobs.  Devices and meshes raise NotImplementedError naming the knob.
+knobs, on one device or on a chains x blocks mesh of devices
+(``devices=`` starts one worker process per device; ``mesh=`` runs in
+ranks the caller started, see ``parallel/``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from spamtree_tpu_torch.model.tuning import (
     prepare_chain,
     subsample_curvature_sd,
 )
+from spamtree_tpu_torch.parallel.mesh import Mesh
 from spamtree_tpu_torch.tree.partition import make_tree
 from spamtree_tpu_torch.tree.schedule import build_schedule
 
@@ -56,9 +59,6 @@ _DEBUG = dict(sample_beta=True, sample_tausq=True, sample_theta=True,
 _SETTINGS_FIXED = dict(const_model=(None,),
                        factor_dtype=(None, False, "none", "off"),
                        lazy_init=(None, False), tuner_overlap=(None,))
-# knobs of spamtree_tpu.spamtree that this port does not run yet, with the
-# value it does run
-_NOT_PORTED = dict(devices=None, mesh=None)
 
 
 def _merge(name: str, defaults: dict, given) -> dict:
@@ -71,15 +71,9 @@ def _merge(name: str, defaults: dict, given) -> dict:
     return defaults | dict(given or {})
 
 
-def _check_knobs(knobs: dict, settings) -> dict:
-    """Reject the knobs not ported; ``settings`` over their defaults, each
-    JAX-only setting at a value this port runs."""
-    for k, v in knobs.items():
-        if k not in _NOT_PORTED:
-            raise TypeError(f"spamtree() got an unexpected keyword {k!r}")
-        d = _NOT_PORTED[k]
-        if not (v is d or (np.isscalar(v) and np.isscalar(d) and v == d)):
-            raise NotImplementedError(f"spamtree knob {k}={v!r} is not ported")
+def _check_settings(settings) -> dict:
+    """``settings`` over their defaults, each JAX-only setting at a value
+    this port runs."""
     settings = _merge("settings", _SETTINGS, settings)
     for k, ok in _SETTINGS_FIXED.items():
         v = settings[k]
@@ -117,9 +111,25 @@ class Fit(NamedTuple):
     setup_breakdown: dict
     fit_config: dict  # what spamtree_predict needs (spamtree's "fit_config")
     resume: Resume | None = None
+    mesh: object = None  # parallel.mesh.Mesh of a sharded run (ms is sharded)
 
 
-def _resume_plan(path: str, cfg: MCMCConfig, ms: ModelStatic, it: int):
+def _build_mesh(devices, n_chains: int):
+    """(device list, chains axis) of ``devices=``: the JAX package's grid
+    (spamtree_tpu/api.py:37-53), the analog of the reference's one-knob
+    parallelism (``num_threads``, spamtree_fit.cpp:57-59): chains shard as
+    pure data parallelism when they divide the device count, the rest of
+    the devices shard every level's block batch."""
+    from spamtree_tpu_torch.parallel.launch import resolve_devices
+
+    devices = resolve_devices(devices)
+    n_dev = len(devices)
+    chains_ax = n_chains if (n_chains > 1 and n_dev % n_chains == 0) else 1
+    return devices, chains_ax
+
+
+def _resume_plan(path: str, cfg: MCMCConfig, ms: ModelStatic, it: int,
+                 chains=None):
     """The continuation of the run that wrote checkpoint ``path``: (cfg
     with the remaining burn and keep and the writing run's chunk size
     pinned, init_moments, base_counts, kept_already).  Counts come from the
@@ -149,7 +159,7 @@ def _resume_plan(path: str, cfg: MCMCConfig, ms: ModelStatic, it: int):
             f"draws for this mcmc config; nothing to resume")
     moments = None
     if cfg.collect == "summary":
-        moments = load_moments(path, ms)
+        moments = load_moments(path, ms, chains)
         if kept_already > 0 and moments is None:
             raise ValueError(
                 f"checkpoint at iteration {it} holds {kept_already} kept "
@@ -170,7 +180,7 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
                 last_not_reference=True, cherrypick_same_margin=True,
                 cherrypick_group_locations=True, mvbias=0.0, prior=None,
                 starting=None, debug=None, precompile=False, n_chains=1,
-                **knobs) -> Fit:
+                mesh=None) -> Fit:
     """Tree, schedule, model, tuned proposal and initial state of a
     ``spamtree`` run (same arguments), without running the chain; with
     ``resume_from`` the state and generators of that checkpoint instead of
@@ -178,12 +188,32 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     nothing: the eager port compiles no program.  ``n_chains > 1``: the
     tuner runs once and every chain starts from its state and proposal
     (``mcmc.stack_chain_states``), chain c's generator seeded ``seed +
-    c``."""
+    c``.
+
+    ``mesh`` (``parallel.mesh.make_mesh``, called by every rank with the
+    same arguments): the model runs on the rank's device, padded for the
+    blocks axis and cut to the rank's shards (``parallel.sharding``); the
+    tuner and the initial sweep run sharded; a chains rank's state and
+    generators are its own chains' (n_chains must divide over the chains
+    axis)."""
     del precompile
-    settings = _check_knobs(knobs, settings)
+    settings = _check_settings(settings)
     n_chains = int(n_chains)
     if n_chains < 1:
         raise ValueError(f"n_chains must be >= 1, got {n_chains}")
+    # this rank's chains: c_own of them from chain c0
+    c0, c_own = 0, n_chains
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh={mesh!r} is not a parallel.mesh.Mesh "
+                            f"(make_mesh)")
+        if n_chains % mesh.n_chains:
+            raise ValueError(f"n_chains={n_chains} does not split over the "
+                             f"mesh's {mesh.n_chains} chains ranks")
+        c_own = n_chains // mesh.n_chains
+        c0 = mesh.chain_rank * c_own
+        device = mesh.device
+        verbose = verbose if mesh.rank == 0 else False
     mcmc = _merge("mcmc", _MCMC, mcmc)
     prior = _merge("prior", _PRIOR, prior)
     starting = _merge("starting", _STARTING, starting)
@@ -253,7 +283,12 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         set_unif_bounds=prior["set_unif_bounds"], start_theta=start_theta)
     t_ = time.time()
     ms = ModelStatic(sched, cs, mvs, ys, xs, tspec.spec, dtype=dtype,
-                     device=device)
+                     device=device,
+                     block_multiple=1 if mesh is None else mesh.n_blocks)
+    if mesh is not None:
+        from spamtree_tpu_torch.parallel.sharding import shard_model
+
+        ms = shard_model(ms, mesh)
     tb["stage_s"] = round(time.time() - t_, 2)
     cfg = MCMCConfig(
         keep=mcmc["keep"], burn=mcmc["burn"], thin=mcmc["thin"],
@@ -284,10 +319,11 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
             raise ValueError(f"checkpoint holds {ck_chains} chain(s); "
                              f"n_chains={n_chains} was requested")
         t_ = time.time()
-        state = load_state(resume_from, ms)
-        gen, yhat_rngs = load_rngs(resume_from, ms.device)
+        own = (c0, c_own) if n_chains > 1 and mesh is not None else None
+        state = load_state(resume_from, ms, chains=own)
+        gen, yhat_rngs = load_rngs(resume_from, ms.device, chains=own)
         cfg, moments, base, kept_already = _resume_plan(resume_from, cfg, ms,
-                                                        state.it)
+                                                        state.it, own)
         tb["resume_load_s"] = round(time.time() - t_, 2)
         if verbose:
             print(f"[resume] iteration {state.it}: {kept_already} kept draws "
@@ -295,7 +331,8 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
                   f"remaining")
         return Fit(ms, tspec.bounds, cfg, state, gen, order, tree, sched, tb,
                    fit_config,
-                   Resume(yhat_rngs, moments, base, state.it, kept_already))
+                   Resume(yhat_rngs, moments, base, state.it, kept_already),
+                   mesh)
 
     # the initial proposal covariance (see model/tuning.py), as the JAX
     # package picks it: settings["mcmcsd"] if given; else, with
@@ -340,16 +377,18 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
                        start_beta=starting["beta"], start_tausq=start_tausq,
                        start_w=start_w, cfg=cfg, precomputed=precomputed)
     if n_chains > 1:
-        state, gen = stack_chain_states(state, seed + np.arange(n_chains))
+        state, gen = stack_chain_states(state,
+                                        seed + c0 + np.arange(c_own))
     tb["init_s"] = round(time.time() - t_, 2)
     return Fit(ms, tspec.bounds, cfg, state, gen, order, tree, sched, tb,
-               fit_config)
+               fit_config, mesh=mesh)
 
 
 def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
              settings=None, seed=1, dtype=torch.float32, verbose=False,
              device="cuda", limited_tree=False, checkpoint_path=None,
-             resume_from=None, sink_dir=None, n_chains=1, **knobs):
+             resume_from=None, sink_dir=None, n_chains=1, devices=None,
+             mesh=None, **knobs):
     """Fit a SpamTree model: fit + prediction in one MCMC run.
 
     y : (n,) response; NaN rows are predicted.
@@ -409,6 +448,23 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         (keep, C, q), theta_mcmc (keep, C, n_theta), with theta_rhat and
         theta_ess (from 4 kept draws) and accept_by_chain; summary moments
         are (C, n).
+    devices, mesh : multi-device execution (the JAX package's knobs,
+        spamtree_tpu/api.py:177-183; the analog of the reference's
+        ``num_threads``, spamtree_fit.cpp:57-59).  ``devices="all"`` (every
+        CUDA device) or a list such as ["cuda:0", "cuda:1"] or ["cpu"] * 4
+        starts one worker process per device (NCCL for CUDA, gloo for CPU),
+        on a chains x blocks mesh: chains shard over the devices when
+        n_chains divides their count, the rest of the devices shard every
+        level's block batch; the call returns rank 0's result, with the
+        workers' start time in setup_breakdown["workers_start_s"] and
+        "mesh": dict(devices, chains, blocks).  Every
+        argument must pickle (a callable prior must be importable), and a
+        device that is not there raises.  ``mesh=`` (parallel.mesh.
+        make_mesh): every rank of a process group the caller started
+        (torchrun style) calls spamtree with the same arguments and gets
+        the same result; ``device`` is then the mesh rank's.  The sharded
+        math equals the unsharded run's to float rounding
+        (tests/test_torch_sharding.py).
 
     Returns a dict with w_mcmc, yhat_mcmc (keep, n), beta_mcmc (p, keep, q),
     tausq_mcmc (q, keep), theta_mcmc (n_theta, keep), order (outputs are in
@@ -422,13 +478,33 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     with collect="summary", w_mean, w_var, yhat_mean, yhat_var and
     summary_count.
     """
+    if devices is not None:
+        if mesh is not None:
+            raise ValueError("pass devices= or mesh=, not both")
+        from spamtree_tpu_torch.parallel.launch import launch, picklable
+
+        devs, chains_ax = _build_mesh(devices, int(n_chains))
+        kw = dict(y=y, x=x, coords=coords, mv_id=mv_id, cell_size=cell_size,
+                  K=K, mcmc=mcmc, settings=settings, seed=seed, dtype=dtype,
+                  verbose=verbose, device=device, limited_tree=limited_tree,
+                  checkpoint_path=checkpoint_path, resume_from=resume_from,
+                  sink_dir=sink_dir, n_chains=n_chains, **knobs)
+        picklable(kw)
+        out, info = launch("spamtree_tpu_torch.api:spamtree", kw, devs,
+                           n_chains=chains_ax)
+        out["setup_breakdown"]["workers_start_s"] = round(info["start_s"], 2)
+        out["mesh"] = dict(devices=devs, chains=chains_ax,
+                           blocks=len(devs) // chains_ax)
+        return out
     fit = prepare_fit(y, x, coords, mv_id=mv_id, cell_size=cell_size, K=K,
                       mcmc=mcmc, settings=settings, seed=seed, dtype=dtype,
                       verbose=verbose, device=device,
                       limited_tree=limited_tree, resume_from=resume_from,
-                      n_chains=n_chains, **knobs)
+                      n_chains=n_chains, mesh=mesh, **knobs)
     r = fit.resume
     chains = fit.fit_config["n_chains"] > 1
+    if mesh is not None and mesh.rank != 0:
+        verbose = False
     res = (run_mcmc_chains if chains else run_mcmc)(
         fit.ms, fit.bounds, fit.cfg, fit.state, fit.gen, verbose=verbose,
         yhat_seed=seed, checkpoint_path=checkpoint_path, sink_dir=sink_dir,

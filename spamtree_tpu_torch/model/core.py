@@ -91,7 +91,7 @@ class ModelStatic:
     def __init__(self, sched, coords: np.ndarray, mv_id: np.ndarray,
                  y: np.ndarray, X: np.ndarray, spec: CovModel,
                  dtype=torch.float32, device="cuda", chunk_bytes: float = 512e6,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, block_multiple: int = 1):
         n = sched.n
         self.limited_tree = sched.limited_tree
         self.spec = spec
@@ -128,7 +128,9 @@ class ModelStatic:
 
         # B-axis chunking, identical to the JAX package: a level whose
         # largest transient would exceed chunk_bytes runs as n_chunks
-        # sequential slabs (B padded to a multiple of n_chunks * group_c).
+        # sequential slabs (B padded to a multiple of block_multiple *
+        # n_chunks * group_c, so every shard of a blocks mesh holds whole
+        # slabs and whole parent-major groups).
         itemsize = torch.empty((), dtype=dtype).element_size()
 
         def _n_chunks(plan, factor=1) -> int:
@@ -162,12 +164,12 @@ class ModelStatic:
             al = al and nc == 1
             if not al:
                 nc = _n_chunks(p)
-            mult = nc * gc
+            mult = block_multiple * nc * gc
             tgt = padded_B[p.lp_level] if al else None
             if al and (tgt < B or tgt % mult != 0):
                 al, tgt = False, None
                 nc = _n_chunks(p)
-                mult = nc * gc
+                mult = block_multiple * nc * gc
             self.level_chunks.append(nc)
             self.level_aligned.append(al)
             padded_B.append(tgt if tgt is not None else B + (-B) % mult)
@@ -182,7 +184,7 @@ class ModelStatic:
             if not al:
                 nc = _n_chunks(p, 2)
             tgt = padded_B[p.lp_level] if al else None
-            if al and (tgt < B or tgt % nc != 0):
+            if al and (tgt < B or tgt % (block_multiple * nc) != 0):
                 al, tgt = False, None
                 nc = _n_chunks(p, 2)
             self.pred_chunks.append(nc)
@@ -192,9 +194,10 @@ class ModelStatic:
         nb = sched.n_blocks
 
         def _stage(plan, n_chunks=1, pad_to=None) -> dict:
-            # whole dummy blocks so slabs and parent-major groups stay even
+            # whole dummy blocks so shards, slabs and parent-major groups
+            # stay even
             B = plan.rows.shape[0]
-            mult = n_chunks * getattr(plan, "group_c", 1)
+            mult = block_multiple * n_chunks * getattr(plan, "group_c", 1)
             pad = (-B) % mult if pad_to is None else pad_to - B
 
             def _padB(a, fill):
@@ -222,6 +225,21 @@ class ModelStatic:
                        zip(pred_buckets, self.pred_chunks, pred_pad_to)]
         self.levels = [_build(s) for s in staged]
         self.pred_arrays = [_build(s) for s in staged_pred] or None
+        # parallel.sharding.shard_model replaces levels/pred_arrays with this
+        # rank's block shard; the whole padded levels stay here, the shards'
+        # offsets in them in level_off/pred_off, and the mesh in ``mesh``.
+        # level_local/pred_local: the level reads its parent's factor and w
+        # rows from the rank's own parent shard (lp_pos local); msg_local:
+        # every message to the level comes from the rank's own children
+        # (anc_pos local).  Always so on one device.
+        self.levels_full = self.levels
+        self.pred_full = self.pred_arrays
+        self.level_off = [0] * len(self.levels)
+        self.pred_off = [0] * len(self.pred_arrays or [])
+        self.level_local = [True] * len(self.levels)
+        self.pred_local = [True] * len(self.pred_arrays or [])
+        self.msg_local = [True] * len(self.levels)
+        self.mesh = None
 
         self.level_is_ref = [p.is_ref for p in sched.levels]
         self.level_group_c = [getattr(p, "group_c", 1) for p in sched.levels]
@@ -523,6 +541,31 @@ def _wpar_from(wj_src, lp_pos, al: bool, gc: int):
     return _bsel(wj_src, lp_pos, cb)
 
 
+def _shard_of(ms: ModelStatic, x, t: int, cb: int = 0, pred: bool = False):
+    """This rank's blocks of ``x``, a tensor over the whole padded level
+    ``t`` (prediction bucket ``t`` with ``pred``) whose block axis follows
+    ``cb`` chain dims; ``x`` itself without a mesh."""
+    if ms.mesh is None:
+        return x
+    lvl, off = ((ms.pred_arrays[t], ms.pred_off[t]) if pred
+                else (ms.levels[t], ms.level_off[t]))
+    return x.narrow(cb, off, lvl.rows.shape[0])
+
+
+def _wj_src(ms: ModelStatic, wjs: dict, t: int, pred: bool = False):
+    """The parent's joint w rows that level ``t`` (bucket ``t`` with
+    ``pred``) reads through ``_wpar_from``: the whole parent level (``wjs``
+    holds whole levels), or this rank's parent shard of it when the level
+    reads its parent locally."""
+    lp = ms.pred_lp if pred else ms.level_lp[t]
+    src = wjs[lp]
+    if ms.mesh is None or not (ms.pred_local[t] if pred
+                               else ms.level_local[t]):
+        return src
+    return src.narrow(_chains(src, 2), ms.level_off[lp],
+                      ms.levels[lp].rows.shape[0])
+
+
 def _wj_parents_needed(ms: ModelStatic) -> set:
     """Transitive closure of levels whose joint w rows feed some sweep
     level's wpar (gibbs_w / the quad sweep)."""
@@ -541,10 +584,12 @@ def _wj_parents_needed(ms: ModelStatic) -> set:
 
 def _w_joints(ms: ModelStatic, w, need: set) -> dict:
     """Per-parent-level joint w rows {t: (B, W)} built root->leaf through the
-    recursive layout (see _wpar_from); (C, B, W) with chains."""
+    recursive layout (see _wpar_from); (C, B, W) with chains.  Over whole
+    levels on a blocks mesh too: w is replicated, so no rank needs another's
+    rows."""
     wjs = {}
     for t in sorted(need):
-        lvl = ms.levels[t]
+        lvl = ms.levels_full[t]
         w_r = w[..., lvl.rows]
         if ms.limited_tree:
             # limited trees: children condition on the parent's rows alone
@@ -607,7 +652,13 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
 
     Batched chains: theta (C, n_theta) and w (C, n+1) (``quad_prev`` with
     (C, B, ...) leaves) give (C,) logdet, ok and quadratic forms, each over
-    its own chain's blocks only; not with ``decision_only``."""
+    its own chain's blocks only; not with ``decision_only``.
+
+    On a blocks mesh (``shard_model``) each rank sweeps its shard of every
+    level: the leveldata and prediction operators it returns are its
+    shard's, a parent joint factor is gathered whole for children that
+    index it through lp_pos (aligned children read their own shard of it),
+    and logdet, ok and the quadratic forms are reduced over the ranks."""
     if decision_only:
         assert quad_prev is not None, "decision_only requires quad_prev"
     cb = _chains(theta, 1)
@@ -619,13 +670,18 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
     logdet, qn, qc = zero, zero, zero
     ok = torch.ones(pre, dtype=torch.bool, device=ms.device)
     joints = {}
+    joints_whole = {}  # a blocks mesh's gathered parent factors
     wjs = {}  # joint w rows per parent level (see _wpar_from)
     wj_need = _wj_parents_needed(ms) if quad_prev is not None else set()
+    if ms.mesh is not None:
+        # over whole levels, up front: children index them through lp_pos
+        wjs = _w_joints(ms, w, wj_need)
 
     def drop_consumed(t):
         # drop joint factors whose last consumer has now run
         for k in [k for k, last in ms.last_consumer.items() if last == t]:
             joints.pop(k, None)
+            joints_whole.pop(k, None)
             wjs.pop(k, None)
 
     for t, lvl_full in enumerate(ms.levels):
@@ -636,7 +692,9 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
         al = ms.level_aligned[t]
         emit_joint = is_ref and (ms.serves_as_sweep_parent[t] if decision_only
                                  else ms.serves_as_parent[t])
-        parent_joint = joints.get(ms.level_lp[t]) if P > 0 else None
+        parent_joint = (_parent_factor(
+            ms, joints_whole, ms.level_lp[t], joints.get(ms.level_lp[t]),
+            ms.level_local[t], cb) if P > 0 else None)
         prev_t = quad_prev[t] if quad_prev is not None else None
         if coords_cache is not None:
             cx = coords_cache[0][t]
@@ -648,9 +706,9 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
         if quad_prev is not None:
             w_r_full = w[..., lvl_full.rows]
             if P > 0:
-                wpar_full = _wpar_from(wjs[ms.level_lp[t]], lvl_full.lp_pos,
+                wpar_full = _wpar_from(_wj_src(ms, wjs, t), lvl_full.lp_pos,
                                        al, gc)
-            if is_ref and t in wj_need:
+            if is_ref and t in wj_need and ms.mesh is None:
                 wj = (w_r_full if ms.limited_tree or wpar_full is None
                       else torch.cat([wpar_full, w_r_full], dim=-1))
                 if ms.joint_pad[t]:
@@ -801,11 +859,16 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
             leveldata.append(LevelData(H=outs[0], prec=outs[1]))
         drop_consumed(t)
 
+    if ms.mesh is not None:
+        # sums over all blocks, added in rank order on every rank
+        logdet, qn, qc = ms.mesh.sum_blocks(torch.stack([logdet, qn, qc]))
+        ok = ms.mesh.all_blocks(ok)
     if decision_only:
         return logdet, ok, qn, qc
     # prediction operators for the all-missing blocks, from the deepest
     # reference joint factor while it is live (none carried when they are
-    # too big: predict_recompute rebuilds them)
+    # too big: predict_recompute rebuilds them); a blocks mesh's rank keeps
+    # its shard of the factor
     pred_data = None
     if ms.pred_arrays is not None and ms.pred_in_carry and build_pred:
         pj = joints.get(ms.pred_lp)
@@ -825,18 +888,35 @@ def pred_operators_from_joint(ms: ModelStatic, theta, parent_joint,
                            parent_joint, coords_cache)
 
 
+def _parent_factor(ms: ModelStatic, cache: dict, lp: int, J, local: bool,
+                   cb: int):
+    """The joint factor ``J`` of parent level ``lp`` as a child level reads
+    it: ``J`` itself without a mesh, for factor parts (aligned children
+    only) and where the child's parents all sit on this rank (``local``),
+    else the whole level, gathered over the blocks ranks at its first use
+    and kept in ``cache``."""
+    if ms.mesh is None or J is None or isinstance(J, tuple) or local:
+        return J
+    if lp not in cache:
+        cache[lp] = ms.mesh.cat_blocks(J, cb)
+    return cache[lp]
+
+
 def _pred_operators(ms: ModelStatic, params, parent_joint,
                     coords_cache=None) -> tuple:
     """Per-bucket (H, r) conditional operators for the prediction blocks;
     the LevelData ``prec`` slot holds the variance r."""
 
     cb = _chains(params.ai1, 1)
+    gathered = {}
 
-    def pred_body(carry, args, al=False):
+    def pred_body(carry, args, al=False, loc=True):
         lvl, cxr, mvr, cxp, mvp = args
         Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr)
         Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
-        _, H, _ = _apply_parent_factor(parent_joint, lvl.lp_pos, Kxc, 1, al)
+        _, H, _ = _apply_parent_factor(
+            _parent_factor(ms, gathered, ms.pred_lp, parent_joint, loc, cb),
+            lvl.lp_pos, Kxc, 1, al)
         kdiag = pairwise_cov_diag(cxr, mvr, params, ms.spec)
         r = kdiag - torch.einsum("...bsp,...bps->...bs", H, Kxc)
         # chol failure -> deterministic mean (reference: .cpp:1316-1322)
@@ -852,8 +932,9 @@ def _pred_operators(ms: ModelStatic, params, parent_joint,
             cx = (ms.coords[plvl.rows], ms.mv[plvl.rows],
                   ms.coords[plvl.prows], ms.mv[plvl.prows])
         _, (Hp, rp) = _run_level(
-            (plvl, *cx), nc, None, lambda c, a, al=al: pred_body(c, a, al),
-            cb)
+            (plvl, *cx), nc, None,
+            lambda c, a, al=al, loc=ms.pred_local[bi]: pred_body(c, a, al,
+                                                                 loc), cb)
         out.append(LevelData(H=Hp, prec=rp))
     return tuple(out)
 
@@ -876,7 +957,7 @@ def quad_loglik(ms: ModelStatic, leveldata, w):
                                                w_x, data.prec, w_x)
         else:
             total = total - 0.5 * _csum(data.prec * w_x * w_x, cb)
-    return total
+    return total if ms.mesh is None else ms.mesh.sum_blocks(total)
 
 
 def msg_gram(ms: ModelStatic, leveldata):
@@ -902,13 +983,20 @@ def msg_gram(ms: ModelStatic, leveldata):
     return tuple(out)
 
 
+def _msg_level(ms: ModelStatic, tp: int) -> LevelArrays:
+    """The blocks a rank's message buffer of level ``tp`` spans: its own
+    shard when every message to tp comes from its own children, else the
+    whole level (summed over the ranks before tp is sampled)."""
+    return (ms.levels if ms.msg_local[tp] else ms.levels_full)[tp]
+
+
 def _scatter_parents(ms: ModelStatic, t: int, a: int, x, cb: int = 0):
     """Sum child rows ``x`` (Bc, ...) into their segment-a parents:
     (Bp, ...) with dropped children routed to the sentinel row Bp.  With
     ``cb`` chain dims ahead of the block axis the sum runs along it, for
     every chain in one ``index_add_``."""
     tp = ms.seg_level[t][a]
-    Bp = ms.levels[tp].rows.shape[0]
+    Bp = _msg_level(ms, tp).rows.shape[0]
     buf = x.new_zeros(x.shape[:cb] + (Bp + 1,) + tuple(x.shape[cb + 1:]))
     return buf.index_add_(cb, ms.anc_pos[(t, a)], x).narrow(cb, 0, Bp)
 
@@ -925,7 +1013,7 @@ def _route_messages(ms: ModelStatic, acc: dict, t: int, outs,
     cb = len(pre)
     for a in range(len(vs)):
         tp = ms.seg_level[t][a]
-        Bp, Sp = ms.levels[tp].rows.shape
+        Bp, Sp = _msg_level(ms, tp).rows.shape
         if tp not in acc:
             acc[tp] = (None if vs_only else ms.X.new_zeros(pre + (Bp, Sp, Sp)),
                        ms.X.new_zeros(pre + (Bp, Sp)))
@@ -941,7 +1029,9 @@ def route_gram(ms: ModelStatic, gram):
     """Per-parent-level sums of the routed Gibbs-message Gram blocks (the
     w-independent half of gibbs_w's child->parent Sigi accumulation),
     refreshed with msg_gram on theta accept.  Returns a tuple over levels:
-    (Bp, Sp, Sp) for levels that receive messages, () otherwise."""
+    (Bp, Sp, Sp) for levels that receive messages, () otherwise.  On a
+    blocks mesh each rank routes its children, and gets its parents' rows
+    of the sum over the ranks."""
     acc = {}
     for t in reversed(range(len(ms.levels))):
         if ms.levels[t].prows.shape[1] == 0:
@@ -950,6 +1040,10 @@ def route_gram(ms: ModelStatic, gram):
             tp = ms.seg_level[t][a]
             add = _scatter_parents(ms, t, a, G)
             acc[tp] = acc[tp] + add if tp in acc else add
+    if ms.mesh is not None:
+        acc = {tp: (v if ms.msg_local[tp]
+                    else _shard_of(ms, ms.mesh.sum_blocks(v), tp))
+               for tp, v in sorted(acc.items())}
     return tuple(acc.get(t, ()) for t in range(len(ms.levels)))
 
 
@@ -971,7 +1065,12 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
 
     Batched chains: leveldata with (C, B, ...) leaves, w, XB and z (C, n+1),
     tausq_inv (C, q), and no gram (formed in place, as the JAX package's
-    vmapped chains do)."""
+    vmapped chains do).
+
+    On a blocks mesh each rank samples its shard of every level: the
+    messages a level receives are summed over the ranks before it is
+    sampled, and the sampled rows go to every rank at the end, so every
+    rank returns the whole new w."""
     if routed is not None:
         assert gram is not None, "routed requires the matching gram blocks"
     if y is None:
@@ -993,12 +1092,16 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
         is_ref = ms.level_is_ref[t]
         seg_off, seg_size = ms.level_segs[t]
         acc_t = acc.pop(t, None)
+        if ms.mesh is not None and acc_t is not None and not ms.msg_local[t]:
+            # every rank's children's messages, summed; this rank's rows
+            acc_t = tuple(None if a is None else _shard_of(
+                ms, ms.mesh.sum_blocks(a), t, cb) for a in acc_t)
         if routed is not None and is_ref and not isinstance(routed[t], tuple):
             # precomputed Sigi message sum; acc carries only the Smu half
             acc_t = (routed[t], acc_t[1] if acc_t is not None
                      else ms.X.new_zeros(lvl_full.rows.shape))
         gram_t = gram[t] if gram is not None and P > 0 else None
-        wj_src = wjs.get(ms.level_lp[t]) if P > 0 else None
+        wj_src = _wj_src(ms, wjs, t) if P > 0 else None
 
         if (not is_ref and P > 0 and ms.level_chunks[t] == 1 and acc_t is None
                 and gram_t is not None and P <= level_ops.MAX_P
@@ -1081,7 +1184,21 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
                              chained=(1, 2, 3))
         if P > 0:
             _route_messages(ms, acc, t, outs, vs_only=routed is not None)
+    if ms.mesh is not None:
+        # every rank's sampled rows, one gather for all levels
+        w[..., ms.shard_rows] = ms.mesh.cat_blocks(
+            w[..., ms.shard_rows_local], cb)
     return w
+
+
+def _put_rows(ms: ModelStatic, w, vals, lvl, lvl_whole):
+    """Write a level's (..., B, S) draws ``vals`` into w at ``lvl.rows``; on
+    a blocks mesh every rank's shard of them, gathered, at the whole
+    level's rows ``lvl_whole.rows``."""
+    if ms.mesh is None:
+        w[..., lvl.rows] = vals
+    else:
+        w[..., lvl_whole.rows] = ms.mesh.cat_blocks(vals, _chains(vals, 2))
 
 
 def _wj_pred_need(ms: ModelStatic) -> set:
@@ -1103,30 +1220,35 @@ def predict(ms: ModelStatic, pred_data, w, z):
         return w
     w = w.clone()
     wjs = _w_joints(ms, w, _wj_pred_need(ms))
-    for lvl, pd, al in zip(ms.pred_arrays, pred_data, ms.pred_aligned):
-        wpar = _wpar_from(wjs[ms.pred_lp], lvl.lp_pos, al, 1)
+    for bi, (lvl, pd, al) in enumerate(zip(ms.pred_arrays, pred_data,
+                                           ms.pred_aligned)):
+        wpar = _wpar_from(_wj_src(ms, wjs, bi, pred=True), lvl.lp_pos, al, 1)
         mean = torch.einsum("...bsp,...bp->...bs", pd.H, wpar)
-        w[..., lvl.rows] = torch.where(
-            lvl.rmask, mean + torch.sqrt(pd.prec) * z[..., lvl.rows], 0.0)
+        _put_rows(ms, w, torch.where(
+            lvl.rmask, mean + torch.sqrt(pd.prec) * z[..., lvl.rows], 0.0),
+            lvl, ms.pred_full[bi])
     return w
 
 
 def _joints_upto(ms: ModelStatic, params, upto: int, coords_cache=None):
-    """The joint inverse-Cholesky factor of reference level ``upto`` alone,
-    re-propagated through the reference levels 0..upto (no H, prec or
-    loglik) -- for predict_recompute.  On a limited tree a level's factor
+    """The joint inverse-Cholesky factor of reference level ``upto`` alone
+    (this rank's shard on a blocks mesh), re-propagated through the
+    reference levels 0..upto (no H, prec or loglik) -- for
+    predict_recompute.  On a limited tree a level's factor
     is that of its own Kcc, so only level ``upto`` is factored (the JAX
     package's loop over the ancestors is dead code there, which XLA
     drops).  Per chain for chain-batched ``params``."""
     use_k = ms.use_kernel
     cb = _chains(params.ai1, 1)
-    joints = {}
+    joints, gathered = {}, {}
     for t in ([upto] if ms.limited_tree else range(upto + 1)):
         assert ms.level_is_ref[t], "prediction ancestors must be ref levels"
         lvl_full = ms.levels[t]
         P = lvl_full.prows.shape[1] if not ms.limited_tree else 0
         gc = ms.level_group_c[t]
-        parent_joint = joints.get(ms.level_lp[t]) if P > 0 else None
+        parent_joint = (_parent_factor(
+            ms, gathered, ms.level_lp[t], joints.get(ms.level_lp[t]),
+            ms.level_local[t], cb) if P > 0 else None)
         if coords_cache is not None:
             cx = coords_cache[0][t]
         else:
@@ -1159,6 +1281,7 @@ def _joints_upto(ms: ModelStatic, params, upto: int, coords_cache=None):
         joints[t] = J
         if ms.level_lp[t] >= 0:
             joints.pop(ms.level_lp[t], None)
+            gathered.pop(ms.level_lp[t], None)
     return joints[upto]
 
 
@@ -1174,18 +1297,21 @@ def predict_recompute(ms: ModelStatic, theta, w, z, coords_cache=None):
     cb = _chains(theta, 1)
     params = unpack_theta(theta.to(ms.dtype), ms.spec)
     parent_joint = _joints_upto(ms, params, ms.pred_lp, coords_cache)
+    gathered = {}
     w = w.clone()
     wjs = _w_joints(ms, w, _wj_pred_need(ms))
 
-    def body(carry, args, al=False):
+    def body(carry, args, bi, al=False):
         lvl, cxr, mvr, cxp, mvp = args
         Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr)
         Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
-        _, H, _ = _apply_parent_factor(parent_joint, lvl.lp_pos, Kxc, 1, al)
+        _, H, _ = _apply_parent_factor(
+            _parent_factor(ms, gathered, ms.pred_lp, parent_joint,
+                           ms.pred_local[bi], cb), lvl.lp_pos, Kxc, 1, al)
         kdiag = pairwise_cov_diag(cxr, mvr, params, ms.spec)
         r = kdiag - torch.einsum("...bsp,...bps->...bs", H, Kxc)
         r = torch.where(torch.isfinite(r) & (r > 0), r, 0.0)
-        wpar = _wpar_from(wjs[ms.pred_lp], lvl.lp_pos, al, 1)
+        wpar = _wpar_from(_wj_src(ms, wjs, bi, pred=True), lvl.lp_pos, al, 1)
         mean = torch.einsum("...bsp,...bp->...bs", H, wpar)
         return carry, (torch.where(lvl.rmask, mean + torch.sqrt(r)
                                    * z[..., lvl.rows], 0.0),)
@@ -1198,8 +1324,9 @@ def predict_recompute(ms: ModelStatic, theta, w, z, coords_cache=None):
             cx = (ms.coords[plvl.rows], ms.mv[plvl.rows],
                   ms.coords[plvl.prows], ms.mv[plvl.prows])
         _, (wu,) = _run_level((plvl, *cx), nc, None,
-                              lambda c, a, al=al: body(c, a, al), cb)
-        w[..., plvl.rows] = wu
+                              lambda c, a, bi=bi, al=al: body(c, a, bi, al),
+                              cb)
+        _put_rows(ms, w, wu, plvl, ms.pred_full[bi])
     return w
 
 
@@ -1222,7 +1349,8 @@ def prior_sample_w(ms: ModelStatic, leveldata, z):
             draw = tri_solve(Lp, zt[..., None], trans=True)[..., 0]
         else:
             draw = zt / torch.sqrt(data.prec)
-        w[lvl.rows] = torch.where(lvl.rmask, mean + draw, 0.0)
+        _put_rows(ms, w, torch.where(lvl.rmask, mean + draw, 0.0), lvl,
+                  ms.levels_full[t])
     return w
 
 

@@ -33,6 +33,14 @@ each chain's accept decision is resolved on the device -- the step
 installs proposals with ``torch.where`` on a per-chain mask and reads
 nothing back.  Chain c is the single-chain run whose generator is seeded
 like chain c's.  Outputs carry the chain axis after the sample axis.
+
+On a mesh (a model from ``parallel.sharding.shard_model``) every rank runs
+this loop: a blocks group's ranks hold the same state and draw the same
+numbers, the step's sweeps shard the levels; a chains rank runs its own
+chains, and each chunk's draws, the summary moments, a checkpoint's state
+and generators and the final counters are gathered over the chains ranks
+into the unsharded layouts, so every rank returns the same result.  Rank 0
+alone writes the sinks and checkpoints.
 """
 
 from __future__ import annotations
@@ -649,19 +657,35 @@ def _drain_subsample(w_sub, m_take, stride, beta_s, tausq_s, *, wire, outs,
     outs["yhat"].append(yhat_host(w_s, beta_s[pos], tausq_s[pos]))
 
 
-def _make_sinks(sink_dir, summary, sink_append):
+class _SkipSink:
+    """Where a mesh rank other than 0 sends the draws rank 0 writes."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def push(self, _):
+        pass
+
+    def close(self):
+        pass
+
+
+def _make_sinks(sink_dir, summary, sink_append, write=True):
     """Sample sinks for the row-indexed draws (w, yhat): stream them to disk
     on the native writer thread instead of holding them in host RAM (n ~
-    1e6).  ``sink_append`` continues existing files (resumed runs)."""
+    1e6).  ``sink_append`` continues existing files (resumed runs);
+    ``write=False`` names the same files and writes nothing."""
     if sink_dir is None or summary:
         return None
     import os
 
+    path = lambda k: os.path.join(sink_dir, f"{k}_mcmc.f32")
+    if not write:
+        return {k: _SkipSink(path(k)) for k in ("w", "yhat")}
     from spamtree_tpu_torch.utils.native import SampleSink
 
     os.makedirs(sink_dir, exist_ok=True)
-    return {k: SampleSink(os.path.join(sink_dir, f"{k}_mcmc.f32"),
-                          append=sink_append)
+    return {k: SampleSink(path(k), append=sink_append)
             for k in ("w", "yhat")}
 
 
@@ -817,7 +841,9 @@ def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
 
     Outputs carry the chain axis after the sample axis: w/yhat (keep, C,
     n), beta (keep, C, p, q), tausq (keep, C, q), theta (keep, C, nt);
-    ``accept_ratio`` over all chains and ``accept_by_chain`` (C,)."""
+    ``accept_ratio`` over all chains and ``accept_by_chain`` (C,).  On a
+    mesh with a chains axis, ``states`` and ``gens`` are this rank's
+    chains, contiguous in rank order, and the outputs hold every rank's."""
     step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms),
                      chains=True)
     C, nt = states.theta.shape
@@ -831,11 +857,21 @@ def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     res = _drive(ms, cfg, states, one, gens, C, verbose, yhat_seed,
                  checkpoint_path, sink_dir, sink_append, init_moments,
                  base_counts, yhat_rngs)
-    acc = _host(res["state"].ram.accept_count)
-    prop = _host(res["state"].ram.propos_count)
+    gather = _chain_gather(ms, C)
+    acc = _host(gather(res["state"].ram.accept_count, 0))
+    prop = _host(gather(res["state"].ram.propos_count, 0))
     res["accept_ratio"] = float(acc.sum()) / max(float(prop.sum()), 1.0)
     res["accept_by_chain"] = acc / np.maximum(prop, 1.0)
     return res
+
+
+def _chain_gather(ms: ModelStatic, chains: int):
+    """``gather(x, dim)``: every chains rank's chains of ``x`` along
+    ``dim`` on a mesh with a chains axis; ``x`` itself otherwise."""
+    mesh = ms.mesh
+    if not chains or mesh is None or mesh.n_chains == 1:
+        return lambda x, dim: x
+    return mesh.cat_chains
 
 
 def _check_theta(state: MCMCState):
@@ -856,6 +892,12 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
         raise ValueError(f"collect={cfg.collect!r}: 'all' or 'summary'")
     n = ms.n
     lead = (chains,) if chains else ()
+    mesh = ms.mesh
+    rank0 = mesh is None or mesh.rank == 0
+    gather = _chain_gather(ms, chains)
+    # this rank's chains among all of the run's (a mesh's chains axis)
+    n_all = chains * (mesh.n_chains if mesh is not None else 1)
+    c0 = mesh.chain_rank * chains if mesh is not None and chains else 0
     wire = _resolve_wire(cfg, ms)
     summary = cfg.collect == "summary"
     mc, ipc, n_keep_chunks, n_burn_chunks = chunk_sizes(cfg)
@@ -874,8 +916,26 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
         from spamtree_tpu_torch.utils.checkpoint import save_state
 
         t_s = time.time()
-        save_state(checkpoint_path, state, gens, yhat_rngs, moments=acc,
-                   counts=(mc, burn_done, kept_done, cfg.thin))
+        st, gs, mom = state, gens, acc
+        if chains and mesh is not None:
+            # every chains rank's chains; generator states cross on the
+            # device, as every collective's tensors do
+            g = lambda x: gather(x, 0)
+            ram = st.ram
+            st = st._replace(
+                w=g(st.w), beta=g(st.beta), tausq_inv=g(st.tausq_inv),
+                XB=g(st.XB), theta=g(st.theta), logdetCi=g(st.logdetCi),
+                ram=ram._replace(paramsd=g(ram.paramsd),
+                                 prodparam=g(ram.prodparam),
+                                 propos_count=g(ram.propos_count),
+                                 accept_count=g(ram.accept_count)))
+            gs = list(g(torch.stack([x.get_state() for x in gens]).to(
+                ms.device)).cpu())
+            if mom is not None:
+                mom = Moments(mom.count, *(g(x) for x in mom[1:]))
+        if rank0:
+            save_state(checkpoint_path, st, gs, yhat_rngs, moments=mom,
+                       counts=(mc, burn_done, kept_done, cfg.thin))
         save_s += time.time() - t_s
 
     if ms.device.type == "cuda":
@@ -900,7 +960,7 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
             rep.report("burn", (bi + 1) * ipc, burn_actual, rep.snap(state),
                        (bi + 1) * ipc)
 
-    sinks = _make_sinks(sink_dir, summary, sink_append)
+    sinks = _make_sinks(sink_dir, summary, sink_append, write=rank0)
     outs = {k: [] for k in _out_keys(summary, sub_stride)}
     drained = 0
     # pipelined drain (see _drain_loop); sequential when checkpointing, so
@@ -919,18 +979,23 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
             for i in range(cfg.thin):
                 state = one(state, i == cfg.thin - 1)
             if summary:
-                acc = _moments_add(ms, acc, state, torch.randn(
-                    lead + (n,), generator=gen_yhat, dtype=ms.dtype,
-                    device=ms.device))
+                # every chain's noise is drawn, this rank's chains kept: a
+                # chain's noise does not depend on the mesh
+                z = torch.randn(((n_all,) if chains else ()) + (n,),
+                                generator=gen_yhat, dtype=ms.dtype,
+                                device=ms.device)
+                acc = _moments_add(ms, acc, state,
+                                   z.narrow(0, c0, chains) if chains else z)
             small.append((state.beta, 1.0 / state.tausq_inv, state.theta))
             if not summary or (use_sub and j % sub_stride == 0):
                 ws.append(state.w[..., :n])
         iter_s += time.time() - t_it
-        dev = {k: torch.stack(v)
+        dev = {k: gather(torch.stack(v), 1)
                for k, v in zip(("beta", "tausq", "theta"), zip(*small))}
         if ws:
             w_dev = torch.stack(ws)
-            dev["w"] = w_dev.to(wire) if wire is not None else w_dev
+            dev["w"] = gather(w_dev.to(wire) if wire is not None else w_dev,
+                              1)
         slot, host, event = ring.copy(dev)
         # dev stays referenced until the drain has waited for its copies
         return (slot, host, event, dev, take, use_sub,
@@ -974,12 +1039,18 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
     if sinks is not None:
         res["sink_files"] = {k: sk.path for k, sk in sinks.items()}
     if summary:
-        _summary_result(res, acc, (0,) + lead + (n,))
+        if chains:
+            acc = Moments(acc.count, *(gather(x, 0) for x in acc[1:]))
+        _summary_result(res, acc, (0,) + ((n_all,) if chains else ())
+                        + (n,))
     res["burn_actual"] = burn_actual
     res["mcmc_time"] = time.time() - t0
     res["iter_s"] = iter_s
     res["save_s"] = save_s
     res["drain_work_s"] = drain_work_s
-    res["paramsd"] = state.ram.paramsd.cpu().numpy()
+    res["paramsd"] = gather(state.ram.paramsd, 0).cpu().numpy()
     res["state"] = state
+    if mesh is not None:
+        # rank 0's files are whole before any rank returns
+        mesh.barrier()
     return res

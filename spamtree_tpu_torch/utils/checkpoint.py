@@ -14,7 +14,9 @@ with one likelihood sweep on load.
 
 Batched chains save their leaves with the chain axis (theta (C, nt)), the
 RAM counters per chain and every chain's generator (``gen_state`` (C,
-L)); the chain count is theta's leading dimension.
+L)); the chain count is theta's leading dimension.  A mesh's run saves
+every chain, gathered (rank 0 writes), and each chains rank loads its own
+(``load_state(chains=)``).
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def _np(a) -> np.ndarray:
 def save_state(path: str, state: MCMCState, gen, yhat_rngs,
                moments: Moments | None = None, counts=None) -> None:
     """Write ``state``, the chain's generator ``gen`` (a list of C
-    generators for batched chains) and the yhat streams ``yhat_rngs`` =
+    generators, or of their ``get_state()`` tensors, for batched chains)
+    and the yhat streams ``yhat_rngs`` =
     (host numpy generator, device torch generator) to ``path`` (``.npz``
     appended when missing, as ``np.savez`` does).
 
@@ -64,7 +67,8 @@ def save_state(path: str, state: MCMCState, gen, yhat_rngs,
     with open(tmp, "wb") as f:
         np.savez(
             f, **extra,
-            gen_state=(np.stack([_np(g.get_state()) for g in gen])
+            gen_state=(np.stack([_np(g.get_state() if isinstance(
+                g, torch.Generator) else g) for g in gen])
                        if isinstance(gen, (list, tuple))
                        else _np(gen.get_state())),
             gen_yhat_state=_np(gen_yhat.get_state()),
@@ -81,9 +85,22 @@ def save_state(path: str, state: MCMCState, gen, yhat_rngs,
     os.replace(tmp, path)
 
 
-def _load(path: str) -> dict:
+# the per-chain leaves of a batched chains checkpoint
+_CHAIN_KEYS = ("w", "beta", "tausq_inv", "XB", "theta", "logdetCi",
+               "ram_paramsd", "ram_prodparam", "ram_propos", "ram_accept",
+               "gen_state", "mom_w_sum", "mom_w_sq", "mom_yh_sum",
+               "mom_yh_sq")
+
+
+def _load(path: str, chains=None) -> dict:
+    """The checkpoint's arrays; ``chains=(c0, c)``: of chains c0 .. c0 + c
+    - 1 alone."""
     with np.load(path) as zf:  # close the file promptly
         z = {k: zf[k] for k in zf.files}
+    if chains is not None:
+        c0, c = chains
+        z = {k: (v[c0:c0 + c] if k in _CHAIN_KEYS else v)
+             for k, v in z.items()}
     if "gen_state" not in z:
         if "key" in z:
             raise ValueError(
@@ -104,10 +121,10 @@ def load_counts(path: str):
     return tuple(int(v) for v in z["geom_counts"])
 
 
-def load_moments(path: str, ms: ModelStatic) -> Moments | None:
+def load_moments(path: str, ms: ModelStatic, chains=None) -> Moments | None:
     """Summary collection's running sums saved by ``save_state`` (None when
-    the writing run collected all draws)."""
-    z = _load(path)
+    the writing run collected all draws); ``chains`` as ``load_state``'s."""
+    z = _load(path, chains)
     if "mom_count" not in z:
         return None
     t = lambda k: torch.as_tensor(z[k], dtype=ms.dtype, device=ms.device)
@@ -116,11 +133,11 @@ def load_moments(path: str, ms: ModelStatic) -> Moments | None:
                    yh_sq=t("mom_yh_sq"))
 
 
-def load_rngs(path: str, device):
+def load_rngs(path: str, device, chains=None):
     """(chain generator -- a list of them for batched chains --, (host yhat
     generator, device yhat generator)) as they stood when the checkpoint
-    was written, on ``device``."""
-    z = _load(path)
+    was written, on ``device``; ``chains`` as ``load_state``'s."""
+    z = _load(path, chains)
     device = torch.device(device)
 
     def gen(state):
@@ -141,14 +158,15 @@ def load_chains(path: str) -> int:
     return theta.shape[0] if theta.ndim == 2 else 1
 
 
-def load_state(path: str, ms: ModelStatic) -> MCMCState:
+def load_state(path: str, ms: ModelStatic, chains=None) -> MCMCState:
     """The sampler state saved at ``path``, on ``ms.device``: the factors,
     Gram blocks and prediction operators rebuilt by one likelihood sweep
     (kernel K1 on the reference levels) at the saved theta; logdetCi is
     the chain's own, as saved.  Batched chains come back with their chain
     axis, (C,) counters on the device and no gram, as
-    ``mcmc.stack_chain_states`` builds them."""
-    z = _load(path)
+    ``mcmc.stack_chain_states`` builds them; ``chains=(c0, c)`` keeps
+    chains c0 .. c0 + c - 1 alone (a mesh's chains rank)."""
+    z = _load(path, chains)
     t = lambda k: torch.as_tensor(z[k], dtype=ms.dtype, device=ms.device)
     theta, w = t("theta"), t("w")
     chains = theta.dim() == 2
