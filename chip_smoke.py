@@ -144,7 +144,27 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    5 steps per rank (host ms per iteration, device-busy ms under
    torch.profiler, idle share; deterministic algorithms off) beside the
    one process's.  Over gloo on one card these times say what a second
-   process costs, not what NVLink would give.
+   process costs, not what NVLink would give;
+18. the accept-aware step under a chain axis: K4 first held against its
+   plain version as thin_decision_chains runs it, one launch over C = 4
+   chains' blocks folded into one batch (parents through c * Bp +
+   lp_pos), f32 and f64, at config 3's thin level (4 x (1024, 68, 293),
+   aligned), config 4's (4 x (1024, 42, 150) through lp_pos on 1024
+   parents) and config 5's four (through lp_pos on 4 x 16384 parents),
+   one chain with a failing block that alone must come out ok=False, and
+   timed there against its bound (eager and graph-replay device ms); then
+   run_mcmc_chains with MCMCConfig(accept_aware=True) and the level
+   kernels on: config 3 at C = 2 and 4 with composed factor parts on and
+   off (off: K4 runs) at keep=50, burn=100, thin=2 (half phase 16's
+   depth, for the time limit), config 4 at C = 2 with them off at phase
+   16's depth.  Each chain meets phase 5's checks, theta_rhat is finite,
+   K1 launches three times per reference level per iteration (w-Gibbs,
+   the decision sweep, the rebuild, which the batched step runs for every
+   chain) at every C, K4 once per thin level it serves per iteration at
+   every C (one fold for all chains), K3 never (chains carry no Gram
+   blocks); each run prints chain-it/s, ms/it, K1 and K4 launches per
+   iteration and peak memory beside the always-emit batched run at the
+   same C: phase 16's at config 3, one run here at config 4's depth.
 
 Kernel and plain times (the kernels record's ms and plain_ms) are CUDA
 events around eager calls of the wrappers the sweeps call, host time
@@ -160,7 +180,7 @@ runs phase 10's config-1 check alone, under deterministic algorithms.
 
     python3 chip_smoke.py --chains
 
-runs phases 1-2 and phase 16 alone (~2 min).
+runs phases 1-2, 16 and 18 alone (~5 min).
 
     python3 chip_smoke.py --mesh
 
@@ -860,7 +880,8 @@ def run_chains(bench, chol, level, torch, cfg_id, C, keep, burn, thin,
     out = spamtree_tpu_torch.spamtree(
         y - ybar, X, coords, mv_id=mv, cell_size=25,
         mcmc=dict(keep=keep, burn=burn, thin=thin),
-        settings=dict(chunk=chunk), seed=1, device="cuda", n_chains=C)
+        settings=dict(chunk=chunk), seed=1, device="cuda", n_chains=C,
+        **c["kwargs"])
     wall = time.time() - t0
     counts = _counts(chol, level)
     iters = out["burn_actual"] + keep * thin
@@ -1265,6 +1286,262 @@ def time_config5_kernels(chol, level, torch):
                                  "rows capacities", f64=True),
         k3=time_gibbs_shapes(level, torch, CONFIG5_THIN, "config-5", Bp=Bp),
         k4=time_decision_shapes(level, torch, CONFIG5_THIN, Bp, "config-5"))
+
+
+# -- phase 18: the accept-aware step under a chain axis ----------------------
+
+K4_FOLD_C = 4  # the chain count K4's folded shapes are checked and timed at
+CONFIG4_THIN = (1024, 42, 150)  # config 4's thin level (B, S, P)
+# phase 18's runs: (config, chains, composed factor parts), config 3 at
+# half phase 16's depth (for the time limit), config 4 at phase 16's depth
+# (its 15 theta parameters accept ~0.05 over its first 200 iterations, on
+# either step)
+AA_CHAIN_RUNS = ((3, 2, True), (3, 2, False), (3, 4, True), (3, 4, False),
+                 (4, 2, False))
+AA_DEPTH = {3: dict(keep=50, burn=100, thin=2),
+            4: dict(keep=100, burn=200, thin=2)}
+
+
+def _k4_fold_groups():
+    """{label: ([(B, S, P)], Bp or None when aligned)}: config 3's thin
+    level (aligned), config 4's through lp_pos on 1024 parents, config 5's
+    four through lp_pos on its 16384."""
+    return {"config3": ([CONFIG3_THIN], None),
+            "config4": ([CONFIG4_THIN], CONFIG4_THIN[0]),
+            "config5": (CONFIG5_THIN, CONFIG5_SHAPES[-1][0])}
+
+
+def _chain_level_inputs(torch, dtype, B, S, P, Bp, seed, C=K4_FOLD_C,
+                        bad=None):
+    """K4 inputs of C chains (``_level_inputs`` per chain, seeds seed + c),
+    stacked (C, ...) but for the level's lp_pos and rmask_f, which the
+    chains share; with ``bad`` = c, chain c's block B // 2 gets kdiag < 0
+    (r <= 0 on every row, so that chain alone must come out ok=False)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lp_pos = (None if Bp is None else
+              torch.randint(0, Bp, (B,), generator=g, device="cuda"))
+    per = [_level_inputs(torch, dtype, B, S, P, Bp, seed + c, bad=False,
+                         lp_pos=lp_pos)[0] for c in range(C)]
+    dec = {k: (per[0][k] if k in ("lp_pos", "rmask_f")
+               else torch.stack([d[k] for d in per])) for k in per[0]}
+    if bad is not None:
+        dec["kdiag"][bad, B // 2] = -1.0
+    return dec
+
+
+def check_folded_k4(level, torch, C=K4_FOLD_C):
+    """Phase 18's K4 check: thin_decision_chains (one launch over the C
+    chains' folded blocks) against thin_decision_chains_plain, f32 and f64,
+    at every shape of ``_k4_fold_groups``, one chain with a failing block,
+    which alone must come out ok=False; the kernel's per-block partials of
+    the same fold against the plain ones.  Returns the largest f32
+    |d partials| per group."""
+    err = {}
+    bad = C // 2
+    want = [c != bad for c in range(C)]
+    for dname in ("float32", "float64"):
+        dtype, tol = getattr(torch, dname), TOL[dname]
+        for label, (shapes, Bp) in _k4_fold_groups().items():
+            aligned = Bp is None
+            for B, S, P in shapes:
+                dec = _chain_level_inputs(torch, dtype, B, S, P, Bp,
+                                          seed=B + S + P, C=C, bad=bad)
+                before = level.LAUNCHES_DECISION
+                k = level.thin_decision_chains(**dec, aligned=aligned)
+                torch.cuda.synchronize()
+                what = f"{dname} {label} C={C} B={B} S={S} P={P} Bp={Bp}"
+                _check(level.LAUNCHES_DECISION == before + 1,
+                       f"folded K4 launches once: {what}")
+                p = level.thin_decision_chains_plain(**dec, aligned=aligned)
+                folded = level._fold_chains(**dec)
+                pk = level.thin_decision_partials(*folded, aligned=aligned)
+                pp = level.thin_decision_partials_plain(*folded,
+                                                        aligned=aligned)
+                torch.cuda.synchronize()
+                _check(k[1].tolist() == p[1].tolist() == want,
+                       f"folded K4 ok by chain {k[1].tolist()}: {what}")
+                _check(torch.equal(pk[:, 3], pp[:, 3]),
+                       f"folded K4 block flags: {what}")
+                _check(_close(pk, pp, tol),
+                       f"folded K4 partials disagree: {what}")
+                for i in (0, 2, 3):
+                    _check(_close(k[i], p[i], tol),
+                           f"folded K4 value {i} disagrees: {what}")
+                if dname == "float32":
+                    err[label] = max(err.get(label, 0.0),
+                                     float((pk - pp).abs().max()))
+                del dec, folded, pk, pp
+            print(f"K4 folded ok {dname} {label} at C={C}: " + ", ".join(
+                f"({C * B}, {S}, {P})" for B, S, P in shapes), flush=True)
+    print(f"K4 folded max |d partials| f32: {err}", flush=True)
+    return err
+
+
+def time_folded_k4(level, torch, C=K4_FOLD_C):
+    """thin_decision_chains and its plain version at each group of
+    ``_k4_fold_groups`` (f32, C chains): CUDA events around eager calls and
+    the device ms of the same calls replayed from a CUDA graph.  The bound
+    counts Kxc and prevH, the parent slabs the fold reads, wpar, three
+    (C, B, S) vectors, the shared rmask_f and lp_pos each once, and C B
+    (2 P^2 (S + 1) + 6 P S) flops."""
+    out = {}
+    for label, (shapes, Bp) in _k4_fold_groups().items():
+        aligned = Bp is None
+
+        def bound(shp, dec):
+            B, S, P = shp
+            slabs = C * (B if aligned else
+                         int(torch.unique(dec["lp_pos"]).numel()))
+            nbytes = (4 * (2 * C * B * P * S + slabs * P * P + C * B * P
+                           + 3 * C * B * S + B * S + 4 * C) + 8 * B)
+            return nbytes, C * B * (2 * P * P * (S + 1) + 6 * P * S)
+
+        out[label] = _time_shapes(
+            torch, "K4 folded", f"{label} x {C} chains", shapes,
+            lambda shp, seed: _chain_level_inputs(
+                torch, torch.float32, *shp, Bp, seed=seed, C=C),
+            {"kernel": lambda aligned=aligned, **d: level.thin_decision_chains(
+                **d, aligned=aligned),
+             "plain": lambda aligned=aligned, **d:
+                 level.thin_decision_chains_plain(**d, aligned=aligned)},
+            bound, note=lambda shp: f" Bp={Bp}")
+    return out
+
+
+def run_chains_accept_aware(bench, chol, level, torch, cfg_id, C, composed,
+                            keep, burn, thin):
+    """prepare_fit(n_chains=C), then run_mcmc_chains with the accept-aware
+    step, the level kernels on and composed factor parts on or off.  Each
+    chain must give finite draws, RMSPE < 0.5 sd(y) and acceptance in
+    (0.05, 0.8); theta_rhat finite; K1 launched three times per reference
+    level chunk (w-Gibbs, the decision sweep, the rebuild) and K4 once per
+    thin level it serves in every iteration, whatever C; K3 never (chains
+    carry no Gram blocks).  Returns the record."""
+    from spamtree_tpu_torch.api import prepare_fit
+    from spamtree_tpu_torch.model import core
+    from spamtree_tpu_torch.model.mcmc import run_mcmc_chains
+    from spamtree_tpu_torch.utils.summaries import rhat
+
+    c = bench.CONFIGS[cfg_id]
+    y, y_full, miss, X, coords, mv = _data(bench, cfg_id)
+    ybar = np.nanmean(y)
+    with _env(SPAMTREE_LEVEL_KERNELS="1",
+              SPAMTREE_COMPOSED_FACTORS="1" if composed else "0"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        fit = prepare_fit(y - ybar, X, coords, mv_id=mv, cell_size=25,
+                          mcmc=dict(keep=keep, burn=burn, thin=thin),
+                          settings=dict(chunk=200), seed=1, device="cuda",
+                          n_chains=C, **c["kwargs"])
+        setup = time.time() - t0
+        ms = fit.ms
+        L = len(ms.levels)
+        compose = {t: composed and core._compose_children(ms, t)
+                   for t in range(L) if ms.level_is_ref[t]}
+        k4_lvls = [t for t in range(L) if not ms.level_is_ref[t]
+                   and ms.levels[t].prows.shape[1] > 0
+                   and ms.level_chunks[t] == 1 and ms.level_group_c[t] <= 1
+                   and ms.levels[t].prows.shape[1] <= level.MAX_P
+                   and ms.levels[t].rows.shape[1] <= level.MAX_S
+                   and not compose[ms.level_lp[t]]]
+        k1_chunks = sum(ms.level_chunks[t] for t in range(L)
+                        if ms.level_is_ref[t]
+                        and ms.levels[t].rows.shape[1] <= 64)
+        _reset_counts(chol, level)
+        res = run_mcmc_chains(ms, fit.bounds,
+                              fit.cfg._replace(accept_aware=True), fit.state,
+                              fit.gen, yhat_seed=1)
+        counts = _counts(chol, level)
+    iters = res["burn_actual"] + keep * thin
+    mo = miss[fit.order]
+    sd = float(np.nanstd(y_full))
+    rmspe = [float(np.sqrt(np.mean(((res["yhat"][:, k].mean(0) + ybar)[mo]
+                                    - y_full[fit.order][mo]) ** 2)))
+             for k in range(C)]
+    acc = np.asarray(res["accept_by_chain"])
+    th_rhat = np.asarray(rhat(res["theta"]))
+    rec = dict(phase="chains_accept_aware", config=c["name"], chains=C,
+               composed=composed, n=len(y), iters=iters, keep=keep,
+               burn=burn, thin=thin,
+               chain_it_per_s=C * iters / res["mcmc_time"],
+               ms_per_iter=1e3 * res["mcmc_time"] / iters,
+               mcmc_time=res["mcmc_time"], setup_time=setup, rmspe=rmspe,
+               sd_y=sd, accept_by_chain=acc.tolist(), **counts,
+               k1_per_iter=counts["k1_launches"] / iters,
+               k4_per_iter=counts["k4_launches"] / iters,
+               k4_levels=len(k4_lvls), k1_level_chunks=k1_chunks,
+               thin_levels=_level_shapes(ms.levels[t] for t in range(L)
+                                         if not ms.level_is_ref[t]),
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               theta_rhat=th_rhat.tolist())
+    print(json.dumps(rec), flush=True)
+    what = f"config {cfg_id} accept-aware C={C} composed={composed}"
+    for k in ("w", "yhat", "beta", "tausq", "theta"):
+        _check(res[k].size and np.isfinite(res[k]).all(),
+               f"{what}: finite {k}")
+    _check(res["yhat"].shape == (keep, C, len(y)), f"{what}: yhat shape")
+    for k in range(C):
+        _check(rmspe[k] < 0.5 * sd, f"{what}, chain {k}: RMSPE {rmspe[k]} "
+               f">= 0.5 sd(y) {sd}")
+        _check(0.05 < acc[k] < 0.8,
+               f"{what}, chain {k}: acceptance {acc[k]} outside (0.05, 0.8)")
+    _check(np.isfinite(th_rhat).all(), f"{what}: theta_rhat {th_rhat}")
+    _check(k1_chunks > 0 and counts["k1_launches"] == 3 * k1_chunks * iters,
+           f"{what}: K1 launches {counts['k1_launches']} != 3 x "
+           f"{k1_chunks} reference level chunks x {iters} its")
+    _check(counts["k4_launches"] == len(k4_lvls) * iters,
+           f"{what}: K4 launches {counts['k4_launches']} != "
+           f"{len(k4_lvls)} thin levels x {iters} its")
+    _check(composed or k4_lvls, f"{what}: no thin level takes K4")
+    _check(counts["k3_launches"] == 0, f"{what}: K3 launched")
+    return rec
+
+
+def accept_aware_chains_phase(bench, chol, level, torch, ch):
+    """Phase 18: K4 folded over K4_FOLD_C chains against its plain version
+    and timed, then the accept-aware batched step at AA_CHAIN_RUNS, each
+    beside the always-emit batched run at the same C: phase 16's (``ch``,
+    where it ran), else one run here; K1's launches per iteration must not
+    change with C."""
+    _phase(f"accept-aware chains: K4 folded over {K4_FOLD_C} chains")
+    err = check_folded_k4(level, torch)
+    times = time_folded_k4(level, torch)
+    runs = {}
+    for cfg_id, C, composed in AA_CHAIN_RUNS:
+        _phase(f"accept-aware chains: config {cfg_id}, n_chains={C}, "
+               f"composed factors {composed}")
+        runs[(cfg_id, C, composed)] = run_chains_accept_aware(
+            bench, chol, level, torch, cfg_id, C, composed,
+            **AA_DEPTH[cfg_id])
+    # the always-emit batched runs beside them: phase 16's, and config 4's
+    # at its own depth here
+    beside = dict((ch or {}).get("runs", {}))
+    for cfg_id, C, _ in AA_CHAIN_RUNS:
+        if (cfg_id, C) not in beside:
+            _phase(f"chains: config {cfg_id}, n_chains={C}, always-emit")
+            beside[(cfg_id, C)] = run_chains(bench, chol, level, torch,
+                                             cfg_id, C, **AA_DEPTH[cfg_id])
+    for cfg_id, composed in {(i, comp) for i, _, comp in AA_CHAIN_RUNS}:
+        k1 = {C: r["k1_per_iter"] for (i, C, comp), r in runs.items()
+              if (i, comp) == (cfg_id, composed)}
+        _check(len(set(k1.values())) == 1,
+               f"config {cfg_id} composed={composed}: K1 launches per "
+               f"iteration by chain count {k1}")
+    for (cfg_id, C, composed), r in runs.items():
+        ae = beside[(cfg_id, C)]
+        print(f"accept-aware chains table: config {cfg_id} C={C} composed="
+              f"{composed}: {r['chain_it_per_s']:.2f} chain-it/s, "
+              f"{r['ms_per_iter']:.2f} ms/it, K1 {r['k1_per_iter']:.2f}/it, "
+              f"K4 {r['k4_per_iter']:.2f}/it, peak "
+              f"{r['peak_mem_bytes'] / 1e9:.2f} GB, accept "
+              f"{np.round(r['accept_by_chain'], 3).tolist()}; always-emit "
+              f"({ae['iters']} its) {ae['chain_it_per_s']:.2f} chain-it/s, "
+              f"{ae['ms_per_iter']:.2f} ms/it, peak "
+              f"{ae['peak_mem_bytes'] / 1e9:.2f} GB, accept "
+              f"{np.round(ae['accept_by_chain'], 3).tolist()}", flush=True)
+    return dict(err=err, times=times, runs=runs,
+                beside={k: v for k, v in beside.items()
+                        if k not in (ch or {}).get("runs", {})})
 
 
 # -- phase 17: multi-device sampling ----------------------------------------
@@ -1822,7 +2099,8 @@ def main() -> int:
         torch.use_deterministic_algorithms(True)
         return 0 if resume_bits(bench, torch) else 1
     if sys.argv[1:] == ["--chains"]:
-        chains_phase(bench, chol, level, torch)
+        ch = chains_phase(bench, chol, level, torch)
+        accept_aware_chains_phase(bench, chol, level, torch, ch)
         return 0
     if sys.argv[1:] == ["--mesh"]:
         mesh_phase(bench, chol, level, torch)
@@ -1942,6 +2220,7 @@ def main() -> int:
     _phase("chains: K1 at the folded (C*B, S) shapes")
     ch = chains_phase(bench, chol, level, torch)
     mesh = mesh_phase(bench, chol, level, torch)
+    aa = accept_aware_chains_phase(bench, chol, level, torch, ch)
     print(f"chip_smoke: every phase passed in {time.time() - _T0:.1f} s",
           flush=True)
 
@@ -1974,6 +2253,13 @@ def main() -> int:
                 "c_config3"):
         for r, c in enumerate(mesh[key]["launches_by_rank"]):
             paths[f"mesh_{key}_rank{r}"] = c
+    # phase 18: the accept-aware batched runs, and the always-emit ones
+    # it ran beside them
+    for (i, C, comp), r in aa["runs"].items():
+        paths[f"config{i}_accept_aware_chains{C}_"
+              f"{'composed' if comp else 'joint'}"] = r
+    for (i, C), r in aa["beside"].items():
+        paths[f"config{i}_chains{C}"] = r
     def k1_path(rs):
         n = len(rs)
         return dict(ms=sum(r[2] for r in rs) / n,
@@ -2024,15 +2310,24 @@ def main() -> int:
         k1.update({f"{k}_{label}_c{K1_FOLD_C}": v for k, v in
                    k1_path(ch["times"][label]).items()})
         k1[f"max_abs_err_{label}_c{K1_FOLD_C}"] = ch["err"][label]
-    print(json.dumps({"kernels": [k1] + [entry(
-            name, level_src, replaces, a5[f"{key}_launches"],
-            a3[f"{key}_launches"], lerr["config5"][key], lerr["config3"][key],
-            level_path5(key), level_path3(key), key,
-            level_path(t4[key], len(thin4)), a4["level_err"][key])
+    k3, k4 = (entry(
+        name, level_src, replaces, a5[f"{key}_launches"],
+        a3[f"{key}_launches"], lerr["config5"][key], lerr["config3"][key],
+        level_path5(key), level_path3(key), key,
+        level_path(t4[key], len(thin4)), a4["level_err"][key])
         for name, key, replaces in (
             ("thin_gibbs", "k3", "spamtree_tpu/ops/pallas_level.py:306"),
-            ("thin_decision", "k4", "spamtree_tpu/ops/pallas_level.py:186"))
-    ]}))
+            ("thin_decision", "k4", "spamtree_tpu/ops/pallas_level.py:186")))
+    # phase 18: K4 folded over K4_FOLD_C chains at config 3's, config 4's
+    # and config 5's thin levels (mean per level), and its device ms
+    for label, (shapes, _) in _k4_fold_groups().items():
+        t = aa["times"][label]
+        c = f"{label}_c{K4_FOLD_C}"
+        k4.update({f"{k}_{c}": v
+                   for k, v in level_path(t, len(shapes)).items()})
+        k4[f"device_ms_{c}"] = t["dev"] / len(shapes)
+        k4[f"max_abs_err_{c}"] = aa["err"][label]
+    print(json.dumps({"kernels": [k1, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

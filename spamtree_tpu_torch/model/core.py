@@ -32,14 +32,14 @@ Above 256 MB of prediction operators (``pred_in_carry`` False) the
 sampler carries none and ``predict_recompute`` rebuilds them for the
 current theta at each kept iteration.
 
-Batched chains: ``sweep`` (full, not decision-only), ``gibbs_w`` (Gram
+Batched chains: ``sweep`` (full and decision-only), ``gibbs_w`` (Gram
 blocks formed in place), ``pred_operators_from_joint``, ``predict``,
 ``predict_recompute``, ``quad_loglik`` and the conjugate tail also take a
 leading chain axis C -- theta (C, n_theta), w and XB (C, n+1), tausq_inv
 (C, q), every level's H/prec (C, B, ...) -- and return one logdet, ok flag
 and quadratic form per chain.  Static level arrays have no chain axis;
 each reference level's Cholesky batch is folded to (C*B, S, S), one K1
-launch for all chains.
+launch for all chains, and each thin level's K4 batch to C*B blocks.
 """
 
 from __future__ import annotations
@@ -416,15 +416,18 @@ def _apply_parent_factor(parent_joint, lp_pos, Kxc, gc: int,
 
 def _hw_from_M(M, LAi, wpar, gc: int):
     """Prior conditional mean H wpar = M' (LAi wpar) without forming H
-    (exact: H = Kxc' LAi' LAi = M' LAi)."""
-    B, P, S = M.shape
+    (exact: H = Kxc' LAi' LAi = M' LAi).  A chain axis leads every tensor
+    when ``M`` has one."""
+    B, P, S = M.shape[-3:]
+    pre = tuple(M.shape[:-3])
     if gc <= 1:
-        u = torch.einsum("bpq,bq->bp", LAi, wpar)
-        return torch.einsum("bps,bp->bs", M, u)
+        u = torch.einsum("...bpq,...bq->...bp", LAi, wpar)
+        return torch.einsum("...bps,...bp->...bs", M, u)
     G = B // gc
-    u = torch.einsum("gpq,gcq->gcp", LAi, wpar.reshape(G, gc, P))
-    return torch.einsum("gcps,gcp->gcs", M.reshape(G, gc, P, S),
-                        u).reshape(B, S)
+    u = torch.einsum("...gpq,...gcq->...gcp", LAi,
+                     wpar.reshape(*pre, G, gc, P))
+    return torch.einsum("...gcps,...gcp->...gcs", M.reshape(*pre, G, gc, P, S),
+                        u).reshape(*pre, B, S)
 
 
 def _assemble_joint(LAi, Rinv, H, P, S, gc, pad: int = 0):
@@ -493,34 +496,38 @@ def _apply_parts_thin(parts, Kxc, wpar):
     rows].  Exactly J Kxc and M'(J wpar) for J = [[LAi, 0], [-Rinv H,
     Rinv]]:  M_top = LAi K_anc, M_bot = Rinv (K_par - H K_anc),
     hk = sum_p M_top^2 + sum_s M_bot^2, hw = M_top' u_top + M_bot' u_bot with
-    u_top = LAi w_anc and u_bot = Rinv (w_par - H w_anc)."""
+    u_top = LAi w_anc and u_bot = Rinv (w_par - H w_anc).  A chain axis
+    leads every tensor when ``Kxc`` has one."""
     LAi, H, Rinv, gc_p = parts
-    B, P, S = Kxc.shape
+    B, P, S = Kxc.shape[-3:]
+    pre = tuple(Kxc.shape[:-3])
     Pp = 0 if LAi is None else LAi.shape[-1]
-    K_anc, K_par = Kxc[:, :Pp, :], Kxc[:, Pp:, :]
-    w_anc, w_par = wpar[:, :Pp], wpar[:, Pp:]
+    K_anc, K_par = Kxc[..., :Pp, :], Kxc[..., Pp:, :]
+    w_anc, w_par = wpar[..., :Pp], wpar[..., Pp:]
     if Pp == 0:
         # parent is the root level: J = Rinv alone
-        M_bot = torch.einsum("bst,btu->bsu", Rinv, K_par)
-        hk = torch.sum(M_bot * M_bot, dim=1)
-        u_bot = torch.einsum("bst,bt->bs", Rinv, w_par)
-        return hk, torch.einsum("bsu,bs->bu", M_bot, u_bot)
+        M_bot = torch.einsum("...bst,...btu->...bsu", Rinv, K_par)
+        hk = torch.sum(M_bot * M_bot, dim=-2)
+        u_bot = torch.einsum("...bst,...bt->...bs", Rinv, w_par)
+        return hk, torch.einsum("...bsu,...bs->...bu", M_bot, u_bot)
     if gc_p <= 1:
-        M_top = torch.einsum("bpq,bqs->bps", LAi, K_anc)
-        u_top = torch.einsum("bpq,bq->bp", LAi, w_anc)
+        M_top = torch.einsum("...bpq,...bqs->...bps", LAi, K_anc)
+        u_top = torch.einsum("...bpq,...bq->...bp", LAi, w_anc)
     else:
         G = B // gc_p
-        M_top = torch.einsum("gpq,gcqs->gcps", LAi,
-                             K_anc.reshape(G, gc_p, Pp, S)).reshape(B, Pp, S)
-        u_top = torch.einsum("gpq,gcq->gcp", LAi,
-                             w_anc.reshape(G, gc_p, Pp)).reshape(B, Pp)
-    HK = torch.einsum("bsp,bpt->bst", H, K_anc)
-    M_bot = torch.einsum("bst,btu->bsu", Rinv, K_par - HK)
-    hk = torch.sum(M_top * M_top, dim=1) + torch.sum(M_bot * M_bot, dim=1)
-    u_bot = torch.einsum("bst,bt->bs", Rinv,
-                         w_par - torch.einsum("bsp,bp->bs", H, w_anc))
-    hw = (torch.einsum("bps,bp->bs", M_top, u_top)
-          + torch.einsum("bsu,bs->bu", M_bot, u_bot))
+        M_top = torch.einsum(
+            "...gpq,...gcqs->...gcps", LAi,
+            K_anc.reshape(*pre, G, gc_p, Pp, S)).reshape(*pre, B, Pp, S)
+        u_top = torch.einsum(
+            "...gpq,...gcq->...gcp", LAi,
+            w_anc.reshape(*pre, G, gc_p, Pp)).reshape(*pre, B, Pp)
+    HK = torch.einsum("...bsp,...bpt->...bst", H, K_anc)
+    M_bot = torch.einsum("...bst,...btu->...bsu", Rinv, K_par - HK)
+    hk = torch.sum(M_top * M_top, dim=-2) + torch.sum(M_bot * M_bot, dim=-2)
+    u_bot = torch.einsum("...bst,...bt->...bs", Rinv,
+                         w_par - torch.einsum("...bsp,...bp->...bs", H, w_anc))
+    hw = (torch.einsum("...bps,...bp->...bs", M_top, u_top)
+          + torch.einsum("...bsu,...bs->...bu", M_bot, u_bot))
     return hk, hw
 
 
@@ -652,7 +659,9 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
 
     Batched chains: theta (C, n_theta) and w (C, n+1) (``quad_prev`` with
     (C, B, ...) leaves) give (C,) logdet, ok and quadratic forms, each over
-    its own chain's blocks only; not with ``decision_only``.
+    its own chain's blocks only, ``decision_only`` included: factor parts
+    carry the chain axis, and K4 runs each thin level for all chains in one
+    launch (``level_ops.thin_decision_chains``).
 
     On a blocks mesh (``shard_model``) each rank sweeps its shard of every
     level: the leveldata and prediction operators it returns are its
@@ -662,7 +671,6 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
     if decision_only:
         assert quad_prev is not None, "decision_only requires quad_prev"
     cb = _chains(theta, 1)
-    assert not (cb and decision_only), "decision_only runs one chain"
     pre = tuple(theta.shape[:-1])
     params = unpack_theta(theta.to(ms.dtype), ms.spec)
     leveldata = []
@@ -737,19 +745,21 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
                     hk, hw = _apply_parts_thin(parent_joint, Kxc, wpar_full)
                     r = torch.where(lvl.rmask, kdiag - hk, 1.0)
                     okl = torch.isfinite(r) & (r > 0)
-                    ok = ok & torch.all(okl)
+                    ok = ok & _call(okl, cb)
                     r = torch.where(okl, r, 1.0)
-                    logdet = logdet - 0.5 * torch.sum(
-                        torch.where(lvl.rmask, torch.log(r), 0.0))
+                    logdet = logdet - 0.5 * _csum(
+                        torch.where(lvl.rmask, torch.log(r), 0.0), cb)
                     wx = w_r_full - hw
-                    qn = qn - 0.5 * torch.sum(wx * wx / r)
-                    wxc = w_r_full - torch.einsum("bsp,bp->bs", prev_t.H,
-                                                  wpar_full)
-                    qc = qc - 0.5 * torch.sum(prev_t.prec * wxc * wxc)
+                    qn = qn - 0.5 * _csum(wx * wx / r, cb)
+                    wxc = w_r_full - torch.einsum("...bsp,...bp->...bs",
+                                                  prev_t.H, wpar_full)
+                    qc = qc - 0.5 * _csum(prev_t.prec * wxc * wxc, cb)
                 else:
                     # fused thin-level kernel K4: the whole level's decision
-                    # quantities in one launch
-                    ld_b, ok_b, qn_b, qc_b = level_ops.thin_decision_level(
+                    # quantities in one launch, for every chain
+                    k4 = (level_ops.thin_decision_chains if cb
+                          else level_ops.thin_decision_level)
+                    ld_b, ok_b, qn_b, qc_b = k4(
                         Kxc.contiguous(), parent_joint.contiguous(),
                         lvl.lp_pos,
                         wpar_full.contiguous(), w_r_full.contiguous(),
@@ -828,7 +838,7 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
             elif H is not None:
                 hk = torch.einsum("...bsp,...bps->...bs", H, Kxc)
             else:
-                hk = torch.sum(M * M, dim=1)  # diag(M'M)
+                hk = torch.sum(M * M, dim=-2)  # diag(M'M)
             r = torch.where(lvl.rmask, kdiag - hk, 1.0)
             okl = torch.isfinite(r) & (r > 0)
             ok = ok & _call(okl, cb)

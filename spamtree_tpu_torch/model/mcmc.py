@@ -27,12 +27,13 @@ the drain is sequential and the sampler state, every generator and the
 moments are saved after each chunk (``utils.checkpoint``).
 
 ``run_mcmc_chains`` runs C chains as one batched step (the JAX package
-vmaps its step): every state leaf has a leading chain axis
-(``stack_chain_states``), each chain draws from its own generator, and
-each chain's accept decision is resolved on the device -- the step
-installs proposals with ``torch.where`` on a per-chain mask and reads
-nothing back.  Chain c is the single-chain run whose generator is seeded
-like chain c's.  Outputs carry the chain axis after the sample axis.
+vmaps its step), always-emit or accept-aware: every state leaf has a
+leading chain axis (``stack_chain_states``), each chain draws from its own
+generator, and each chain's accept decision is resolved on the device --
+the step installs proposals with ``torch.where`` on a per-chain mask and
+reads nothing back.  Chain c is the single-chain run whose generator is
+seeded like chain c's.  Outputs carry the chain axis after the sample
+axis.
 
 On a mesh (a model from ``parallel.sharding.shard_model``) every rank runs
 this loop: a blocks group's ranks hold the same state and draw the same
@@ -247,19 +248,14 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
 
     ``chains=True``: the batched step of ``run_mcmc_chains`` over states
     with a leading chain axis (``stack_chain_states``) and draws from
-    ``draw_chains``; always-emit (``accept_aware`` None resolves to off, as
-    in the JAX package's vmapped chains; True raises)."""
+    ``draw_chains``; always-emit unless ``cfg.accept_aware`` is True (None
+    resolves to off, as in the JAX package's vmapped chains)."""
     bnds = torch.as_tensor(np.asarray(bounds), dtype=ms.dtype, device=ms.device)
     Vi = torch.as_tensor(_as_matrix(cfg.beta_Vi, ms.p), dtype=ms.dtype,
                          device=ms.device)
     Vim = torch.zeros(ms.p, dtype=ms.dtype, device=ms.device)
     prior_fn = make_theta_prior(cfg.theta_prior)
     accept_aware = bool(cfg.accept_aware)  # None -> False
-    if chains and accept_aware:
-        raise NotImplementedError(
-            "accept_aware=True with n_chains > 1 is not ported (the "
-            "accept-aware step under a chain axis: K4 at C*B); chains run "
-            "the always-emit step")
 
     def propose(state: MCMCState, U):
         """The RAM proposal in the box (one per chain for (C, nt) U)."""
@@ -330,22 +326,37 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
         return theta, logdetCi, leveldata, gram, pred_data, ram
 
     def theta_step_chains(state: MCMCState, w, draws: StepDraws):
-        """The batched always-emit theta step: every chain's proposal sweep
-        in one, and each chain's accept resolved on the device and
-        installed leaf by leaf with ``torch.where`` -- no host read."""
+        """The batched theta step: every chain's proposal sweep in one, and
+        each chain's accept resolved on the device and installed leaf by
+        leaf with ``torch.where`` -- no host read.  Accept-aware, it runs
+        both branches of the JAX package's vmapped accept-cond: the
+        decision-only sweep, then the factor-emitting rebuild for every
+        chain, installed where the chain accepted and the rebuild's own
+        Cholesky flag holds."""
         theta, logdetCi, leveldata = state.theta, state.logdetCi, state.leveldata
         pred_data = state.pred_data
         prop = propose(state, draws.U)
-        new_ld, new_pj, new_logdet, ok, q_new, q_cur = sweep(
-            ms, prop, w, quad_prev=leveldata, emit_pred_joint=True,
-            coords_cache=coords_cache)
+        if accept_aware:
+            new_logdet, ok, q_new, q_cur = sweep(
+                ms, prop, w, quad_prev=leveldata, decision_only=True,
+                coords_cache=coords_cache)
+        else:
+            new_ld, new_pj, new_logdet, ok, q_new, q_cur = sweep(
+                ms, prop, w, quad_prev=leveldata, emit_pred_joint=True,
+                coords_cache=coords_cache)
         logaccept, finite, acceptp = log_accept(state, prop, new_logdet,
                                                 q_new, q_cur)
         accepted = (draws.u < acceptp) & ok  # (C,), stays on the device
+        install = accepted
+        if accept_aware:
+            new_ld, new_pj, new_logdet, ok2 = sweep(
+                ms, prop, w, build_pred=pred_data is not None,
+                emit_pred_joint=True, coords_cache=coords_cache)
+            install = accepted & ok2
 
         def sel(new, old):
             return torch.where(
-                accepted.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
+                install.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
 
         theta, logdetCi = sel(prop, theta), sel(new_logdet, logdetCi)
         leveldata = _tree_map(sel, new_ld, leveldata)

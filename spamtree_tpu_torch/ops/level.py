@@ -8,7 +8,8 @@ CUDA kernels in ``csrc/thin_level.cu``, which replace the Pallas TPU kernels
 kernel covers both).  ``thin_gibbs_level_plain`` and
 ``thin_decision_level_plain`` are the plain PyTorch versions of the same
 functions: the wrappers use them for tensors on the CPU, and the tests and
-``chip_smoke.py`` hold the kernels against them.
+``chip_smoke.py`` hold the kernels against them.  ``thin_decision_chains``
+runs K4 for C batched chains as one launch over their folded C*B blocks.
 
 Both kernels are opt-in on the model's paths, gated like the JAX package's
 by ``SPAMTREE_LEVEL_KERNELS`` (default off), read at call time.
@@ -148,10 +149,11 @@ def thin_gibbs_level(H, prec, wpar, z, ti, resid, rmask_f):
 
 
 def _decision_reduce(part):
-    """(B, 4) per-block partials (logdet, qn, qc, ok) -> the level's
-    (logdet, ok, qn, qc), as the JAX wrapper reduces its kernel's rows."""
-    return (part[:, 0].sum(), part[:, 3].min() > 0.5, part[:, 1].sum(),
-            part[:, 2].sum())
+    """(..., B, 4) per-block partials (logdet, qn, qc, ok) -> the level's
+    (logdet, ok, qn, qc), as the JAX wrapper reduces its kernel's rows; one
+    of each per chain for (C, B, 4)."""
+    return (part[..., 0].sum(-1), part[..., 3].amin(-1) > 0.5,
+            part[..., 1].sum(-1), part[..., 2].sum(-1))
 
 
 def thin_decision_partials_plain(Kxc, joint, lp_pos, wpar, w_r, prevH,
@@ -249,3 +251,44 @@ def thin_decision_level(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
     return _decision_reduce(thin_decision_partials(
         Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec, kdiag, rmask_f,
         aligned))
+
+
+def _fold_chains(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec, kdiag,
+                 rmask_f):
+    """The chains' level inputs as one batch of C*B blocks: block b of chain
+    c reads parent slab c*Bp + lp_pos[b]; lp_pos and rmask_f are repeated
+    per chain."""
+    if Kxc.dim() != 4 or joint.dim() != 4:
+        raise ValueError("thin_decision_chains: Kxc must be (C, B, P, S) and "
+                         "joint (C, Bp, P, P)")
+    C, Bp = joint.shape[:2]
+    fold = lambda a: a.reshape((-1,) + tuple(a.shape[2:]))
+    lp = lp_pos + Bp * torch.arange(C, device=lp_pos.device)[:, None]
+    return (fold(Kxc), fold(joint), lp.reshape(-1), fold(wpar), fold(w_r),
+            fold(prevH), fold(prevprec), fold(kdiag), rmask_f.repeat(C, 1))
+
+
+def thin_decision_chains_plain(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
+                               kdiag, rmask_f, aligned=False):
+    """(logdet, ok, qn, qc) of ``thin_decision_chains``, plain PyTorch on
+    the same fold."""
+    return _decision_reduce(thin_decision_partials_plain(
+        *_fold_chains(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec, kdiag,
+                      rmask_f), aligned).reshape(Kxc.shape[0], -1, 4))
+
+
+def thin_decision_chains(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
+                         kdiag, rmask_f, aligned=False):
+    """``thin_decision_level`` for C chains in one K4 launch: (logdet, ok,
+    qn, qc), each (C,) over its own chain's blocks.
+
+    Kxc (C,B,P,S); joint (C,Bp,P,P); wpar (C,B,P); w_r, prevprec, kdiag
+    (C,B,S); prevH (C,B,S,P); lp_pos (B,) and rmask_f (B,S) are the
+    level's, shared by the chains.  The chains fold into one batch of C*B
+    blocks: block b of chain c reads parent slab c*Bp + lp_pos[b] (aligned:
+    slab c*B + b, as Bp == B), and the (C*B, 4) partials are reduced per
+    chain.  CUDA tensors launch kernel K4 once; CPU tensors take
+    ``thin_decision_chains_plain``."""
+    return _decision_reduce(thin_decision_partials(
+        *_fold_chains(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec, kdiag,
+                      rmask_f), aligned).reshape(Kxc.shape[0], -1, 4))

@@ -26,14 +26,16 @@ with the variants of ``--ab`` in turns on the same chain:
   drains' share and the drains' own work), then the medians; no trace.
 
 ``--chains 1,2,4`` (instead of ``--ab``): the batched step of
-``run_mcmc_chains`` at each chain count C, every C's chains stacked from
-the same prepared state (``stack_chain_states``), beside the single-chain
-step ("single"), timed in turns (three rounds forward and back), then
-each traced once.  One JSON line per variant: ms per iteration (untraced
-median), aggregate chain-iterations per second (C x 1000 / ms), device-busy
-ms per iteration, idle share, kernels and K1 launches per iteration, K1's
-device ms per iteration and the peak device memory; then one line with
-the medians.
+``run_mcmc_chains`` at each chain count C, always-emit ("C<C>") and
+accept-aware ("C<C>_aa", ``MCMCConfig(accept_aware=True)`` with the gates
+as the environment sets them), every C's chains stacked from the same
+prepared state (``stack_chain_states``), beside the single-chain
+always-emit step ("single"), timed in turns (three rounds forward and
+back), then each traced once.  One JSON line per variant: ms per iteration
+(untraced median), aggregate chain-iterations per second (C x 1000 / ms),
+device-busy ms per iteration, idle share, kernels and K1 and K4 launches
+per iteration, K1's device ms per iteration and the peak device memory;
+then one line with the medians.
 
 Otherwise it traces ``--iters`` iterations of each variant with
 ``torch.profiler`` and prints JSON lines: median ms per iteration of each
@@ -196,7 +198,7 @@ def chains_ab(args):
         make_step,
         stack_chain_states,
     )
-    from spamtree_tpu_torch.ops import chol
+    from spamtree_tpu_torch.ops import chol, level
 
     c = bench.CONFIGS[args.config]
     y, _, _, X, coords, mv = c["maker"]()
@@ -209,10 +211,13 @@ def chains_ab(args):
     nt = fit.state.theta.shape[0]
     single = make_step(ms, fit.bounds, fit.cfg, coords_cache=cc)
     batched = make_step(ms, fit.bounds, fit.cfg, coords_cache=cc, chains=True)
+    batched_aa = make_step(ms, fit.bounds, fit.cfg._replace(accept_aware=True),
+                           coords_cache=cc, chains=True)
     variants = {"single": (1, single, fit.state, fit.gen)}
     for C in (int(x) for x in args.chains.split(",")):
-        states, gens = stack_chain_states(fit.state, 1 + np.arange(C))
-        variants[f"C{C}"] = (C, batched, states, gens)
+        for tag, step in (("", batched), ("_aa", batched_aa)):
+            states, gens = stack_chain_states(fit.state, 1 + np.arange(C))
+            variants[f"C{C}{tag}"] = (C, step, states, gens)
     live = {k: v[2] for k, v in variants.items()}
     peak = {}
 
@@ -240,16 +245,18 @@ def chains_ab(args):
     rows = {}
     for name in names:
         C = variants[name][0]
-        chol.LAUNCHES = 0
+        chol.LAUNCHES = level.LAUNCHES_DECISION = 0
         run(name, args.iters)
         k1_launches = chol.LAUNCHES / args.iters
+        k4_launches = level.LAUNCHES_DECISION / args.iters
         busy, kernels, k1_ms = _trace(lambda k: run(name, k), args.iters)
         med = float(np.median(ab[name]))
         rows[name] = dict(
             variant=name, chains=C, ms_per_iter=med,
             chain_it_per_s=C * 1e3 / med, device_busy_ms_per_iter=busy,
             device_idle_share=1.0 - busy / med, kernels_per_iter=kernels,
-            k1_launches_per_iter=k1_launches, k1_ms_per_iter=k1_ms,
+            k1_launches_per_iter=k1_launches,
+            k4_launches_per_iter=k4_launches, k1_ms_per_iter=k1_ms,
             peak_gb=peak[name], ab_runs=ab[name])
         print(json.dumps(rows[name]), flush=True)
     print(json.dumps(dict(config=args.config, n=ms.n, iters=args.iters,

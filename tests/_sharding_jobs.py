@@ -20,6 +20,7 @@ from spamtree_tpu_torch.model.core import (
 )
 from spamtree_tpu_torch.model.mcmc import (
     MCMCConfig,
+    draw_chains,
     draw_step,
     init_state,
     make_step,
@@ -120,18 +121,63 @@ def step_jobs(mesh):
 
 
 @contextlib.contextmanager
-def level_kernels(on):
-    """SPAMTREE_LEVEL_KERNELS=1 for a block when ``on``."""
-    old = os.environ.get("SPAMTREE_LEVEL_KERNELS")
-    if on:
-        os.environ["SPAMTREE_LEVEL_KERNELS"] = "1"
+def level_kernels(on, composed=True):
+    """SPAMTREE_LEVEL_KERNELS=1 for a block when ``on``, and
+    SPAMTREE_COMPOSED_FACTORS=0 unless ``composed``."""
+    gates = dict(SPAMTREE_LEVEL_KERNELS="1" if on else None,
+                 SPAMTREE_COMPOSED_FACTORS=None if composed else "0")
+    old = {k: os.environ.get(k) for k in gates}
+    os.environ.update({k: v for k, v in gates.items() if v is not None})
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop("SPAMTREE_LEVEL_KERNELS", None)
-        else:
-            os.environ["SPAMTREE_LEVEL_KERNELS"] = old
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# the blocks-mesh chain cases: (tree, composed factor parts); the level
+# kernels on in each (the plain K4 on each rank's fold of both chains)
+CHAIN_STEP_CASES = (("full", True), ("aligned", True), ("aligned", False))
+
+
+def chain_steps(ms, tspec, C=2, n=STEPS):
+    """``n`` accept-aware batched steps of C chains from init_state, chain
+    c's draws from generator 7 + c."""
+    cfg = MCMCConfig(keep=2, burn=1, accept_aware=True, mcmcsd=1e-4)
+    state = init_state(ms, tspec.bounds, tspec.start, cfg=cfg)
+    states, gens = stack_chain_states(state, 7 + np.arange(C))
+    step = make_step(ms, tspec.bounds, cfg, coords_cache=level_coords(ms),
+                     chains=True)
+    shape = tausq_shape(ms, cfg.tausq_ab)
+    for _ in range(n):
+        states = step(states, draw_chains(ms, gens, tspec.n_theta, shape),
+                      True)
+    return states
+
+
+def chain_step_result(st, ld):
+    """``_result`` of a batched state (per-chain accept counts)."""
+    return dict(w=st.w.numpy(), theta=st.theta.numpy(),
+                logdetCi=st.logdetCi.numpy(), beta=st.beta.numpy(),
+                accept=st.ram.accept_count.tolist(),
+                leveldata=[(d.H.numpy(), d.prec.numpy()) for d in ld])
+
+
+def chain_step_jobs(mesh):
+    """``chain_steps`` on this rank's shards for each of CHAIN_STEP_CASES,
+    the leveldata gathered whole."""
+    out = {}
+    for tree, composed in CHAIN_STEP_CASES:
+        with level_kernels(True, composed):
+            ms, tspec = model(tree, mesh.n_blocks, mesh)
+            st = chain_steps(ms, tspec)
+        ld = [LevelData(mesh.cat_blocks(d.H, 1), mesh.cat_blocks(d.prec, 1))
+              for d in st.leveldata]
+        out[(tree, composed)] = chain_step_result(st, ld)
+    return out
 
 
 CHAIN_CFG = MCMCConfig(keep=6, burn=4, thin=1, chunk=3)

@@ -1,16 +1,18 @@
 """Batched chains in the port (``mcmc.run_mcmc_chains``,
 ``spamtree(n_chains=)``) on the CPU in float64, one intra-op thread.
 
-* Each chain of a batched run at C = 3 is the single-chain run whose
-  generator is seeded like that chain's, to rtol 1e-8: the batched step
+* Each chain of a batched run at C = 3, always-emit or accept-aware, is
+  the single-chain run whose generator is seeded like that chain's, to
+  rtol 1e-8: the batched step
   runs the same algebra with a chain axis, but its products sum the chains'
   blocks in batched GEMMs, and the chains form their Gram blocks in place
   where a single chain carries them, so the draws agree to rounding.
 * Every core function with a chain axis gives, chain by chain, the single
   chain's result (rtol 1e-9, as tests/test_torch_core.py), also at a chain
-  axis of 1; one chain's failed Cholesky rejects that chain alone; the
-  step reads nothing from the device; K1 runs once per reference level for
-  all chains.
+  axis of 1; one chain's failed Cholesky rejects that chain alone, in
+  the decision-only sweep too; the step, always-emit or accept-aware,
+  reads nothing from the device; K1 runs once per reference level for all
+  chains.
 * ``spamtree(n_chains=2)`` returns the JAX package's keys and shapes, and
   the JAX package's chain tests run on the port: resume with chains
   (tests/test_e2e.py), sinks with chains, prediction from a multi-chain fit
@@ -70,22 +72,31 @@ def _prepared(q, collect="all", thin=2, n_chains=1, **kw):
                        n_chains=n_chains, **F64, **kw)
 
 
-@pytest.mark.parametrize("q,collect", [(1, "all"), (1, "summary"),
-                                       (2, "all"), (2, "summary")])
-def test_each_chain_is_its_single_chain_run(q, collect):
+@pytest.mark.parametrize("q,collect,accept_aware", [
+    pytest.param(1, "all", False, id="1-all"),
+    pytest.param(1, "summary", False, id="1-summary"),
+    pytest.param(2, "all", False, id="2-all"),
+    pytest.param(2, "summary", False, id="2-summary"),
+    pytest.param(1, "all", True, id="1-all-accept_aware"),
+    pytest.param(2, "all", True, id="2-all-accept_aware")])
+def test_each_chain_is_its_single_chain_run(q, collect, accept_aware):
     """C = 3 chains from one prepared state, generators seeded 100 + c:
     chain c's draws and accept count are run_mcmc's with that generator
-    (thin = 2; w draws, or w's posterior moments in summary mode)."""
+    (thin = 2; w draws, or w's posterior moments in summary mode), on the
+    always-emit step and on the accept-aware step (the batched one runs
+    the rebuild for every chain and installs it where the chain
+    accepted)."""
     fit = _prepared(q, collect)
     ms = fit.ms
+    cfg = fit.cfg._replace(accept_aware=accept_aware)
     assert {True, False} <= set(ms.level_is_ref)
     states, gens = mt.stack_chain_states(fit.state, 100 + np.arange(3))
-    rc = mt.run_mcmc_chains(ms, fit.bounds, fit.cfg, states, gens)
+    rc = mt.run_mcmc_chains(ms, fit.bounds, cfg, states, gens)
     keys = ("beta", "tausq", "theta") + (("w",) if collect == "all"
                                          else ("w_mean", "w_var"))
     for c in range(3):
         gen = torch.Generator().manual_seed(100 + c)
-        r1 = mt.run_mcmc(ms, fit.bounds, fit.cfg, fit.state, gen)
+        r1 = mt.run_mcmc(ms, fit.bounds, cfg, fit.state, gen)
         for k in keys:
             got = rc[k][c] if k.startswith("w_") else rc[k][:, c]
             _close(got, r1[k], f"chain {c} {k}", rtol=1e-8)
@@ -180,10 +191,12 @@ def test_batched_functions_are_per_chain(case, C):
     _per_chain(run(*args), singles, case)
 
 
-def test_failed_cholesky_rejects_its_chain_alone():
+def test_failed_cholesky_rejects_its_chain_alone(monkeypatch):
     """theta of shape (2, nt) whose first row fails Cholesky (a negative
     variance): ok == [False, True], and the good row's logdet and
-    quadratic forms equal its single-chain sweep's."""
+    quadratic forms equal its single-chain sweep's, in the full sweep and
+    in the decision-only sweep (with the level-kernel gate off and on: the
+    plain K4 on the fold of both chains)."""
     _, ms, rng = _models("univariate")
     good = _theta("univariate", 1, rng)
     bad = good.copy()
@@ -199,12 +212,21 @@ def test_failed_cholesky_rejects_its_chain_alone():
     assert both[3].tolist() == [False, True]
     for i in (2, 4, 5):
         _close(both[i][1], one[i], f"output {i}", rtol=1e-12)
+    for kernels in ("0", "1"):
+        monkeypatch.setenv("SPAMTREE_LEVEL_KERNELS", kernels)
+        dec1 = ct.sweep(ms, th[1], w, quad_prev=prev, decision_only=True)
+        dec = ct.sweep(ms, th, torch.stack([w, w]), quad_prev=prev2,
+                       decision_only=True)
+        assert dec[1].tolist() == [False, True]
+        for i in (0, 2, 3):
+            _close(dec[i][1], dec1[i], f"decision output {i}", rtol=1e-12)
 
 
-def _chain_step_setup():
+def _chain_step_setup(accept_aware=None):
     fit = _prepared(2, n_chains=2)
     ms = fit.ms
-    step = mt.make_step(ms, fit.bounds, fit.cfg,
+    step = mt.make_step(ms, fit.bounds,
+                        fit.cfg._replace(accept_aware=accept_aware),
                         coords_cache=ct.level_coords(ms), chains=True)
     draw = lambda: mt.draw_chains(ms, fit.gen, fit.state.theta.shape[1],
                                   ct.tausq_shape(ms, fit.cfg.tausq_ab))
@@ -212,22 +234,26 @@ def _chain_step_setup():
 
 
 def test_chain_step_reads_nothing_from_the_device(monkeypatch):
-    """Two iterations of the batched step (predicting and not) with every
-    tensor-to-host conversion made to raise."""
-    fit, step, draw = _chain_step_setup()
-    draws = [draw(), draw()]
+    """Two iterations of the batched step (predicting and not), always-emit
+    and accept-aware (with the level kernels on, K4's fold included), with
+    every tensor-to-host conversion made to raise."""
+    for accept_aware in (None, True):
+        fit, step, draw = _chain_step_setup(accept_aware)
+        draws = [draw(), draw()]
 
-    def read(*a, **k):
-        raise AssertionError("the chain step read a tensor on the host")
+        def read(*a, **k):
+            raise AssertionError("the chain step read a tensor on the host")
 
-    for name in ("item", "tolist", "numpy", "cpu", "__bool__", "__float__",
-                 "__int__", "__index__"):
-        monkeypatch.setattr(torch.Tensor, name, read)
-    st = step(fit.state, draws[0], True)
-    st = step(st, draws[1], False)
-    monkeypatch.undo()
-    assert st.theta.shape == fit.state.theta.shape
-    assert torch.isfinite(st.w).all()
+        monkeypatch.setenv("SPAMTREE_LEVEL_KERNELS",
+                           "1" if accept_aware else "0")
+        for name in ("item", "tolist", "numpy", "cpu", "__bool__",
+                     "__float__", "__int__", "__index__"):
+            monkeypatch.setattr(torch.Tensor, name, read)
+        st = step(fit.state, draws[0], True)
+        st = step(st, draws[1], False)
+        monkeypatch.undo()
+        assert st.theta.shape == fit.state.theta.shape
+        assert torch.isfinite(st.w).all()
 
 
 def test_k1_once_per_level_for_all_chains(monkeypatch):

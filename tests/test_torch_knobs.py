@@ -94,9 +94,10 @@ def test_other_setting_raises_naming_itself(key, value):
                                 dict(mesh=object())],
                          ids=["n_chains", "devices", "mesh"])
 def test_multi_chain_and_device_knobs_raise(kw):
-    """n_chains > 1 runs, but not with the accept-aware step (K4 under a
-    chain axis), which raises naming both; devices= naming a device the
-    host does not have raises naming the knob (no worker falls back to
+    """n_chains > 1 runs with the accept-aware step too: two chains
+    complete with finite draws (tests/test_torch_chains_accept_aware.py
+    holds them to the JAX package's vmapped step); devices= naming a device
+    the host does not have raises naming the knob (no worker falls back to
     another device), and so does a mesh= that is not a parallel.mesh.Mesh
     (tests/test_torch_sharding.py runs both knobs)."""
     if "accept_aware" in kw:
@@ -104,8 +105,10 @@ def test_multi_chain_and_device_knobs_raise(kw):
         fit = prepare_fit(y, X, coords, n_chains=2,
                           mcmc=dict(keep=2, burn=0), **CPU)
         cfg = fit.cfg._replace(accept_aware=True)
-        with pytest.raises(NotImplementedError, match="accept_aware.*n_chains"):
-            run_mcmc_chains(fit.ms, fit.bounds, cfg, fit.state, fit.gen)
+        res = run_mcmc_chains(fit.ms, fit.bounds, cfg, fit.state, fit.gen)
+        assert res["w"].shape == (2, 2, len(y))
+        for k in ("w", "beta", "tausq", "theta"):
+            assert np.isfinite(res[k]).all(), k
         return
     coords, X, y, *_ = _sim_univariate(SS=5)
     with pytest.raises((RuntimeError, TypeError), match=next(iter(kw))):

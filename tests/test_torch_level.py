@@ -1,6 +1,7 @@
 """The fused thin-level kernels (ops.level, K3 and K4/K5) and the sweeps
 that reach them: the plain versions against the Pallas kernels they replace
-(interpret mode on the CPU), the port's decision-only sweep and its K3
+(interpret mode on the CPU), K4 folded over chains against the Pallas
+kernel under ``jax.vmap``, the port's decision-only sweep and its K3
 w-Gibbs branch against the JAX package's, and -- on a CUDA card only -- the
 kernels against their plain versions.
 
@@ -84,6 +85,54 @@ def test_decision_plain_matches_pallas(case):
     assert part.shape == (c["B"], 4)
     assert part[:, 3].tolist() == [float(b != 4 or case != "not_ok")
                                    for b in range(c["B"])]
+
+
+def _chain_inputs(case, C=3, bad=1):
+    """C chains' K4 inputs of a DECISION_CASES level, stacked (C, ...) but
+    for the level's shared lp_pos and rmask_f; chain ``bad`` has an r <= 0
+    row in block 0."""
+    c = dict(DECISION_CASES[case])
+    per = [_decision_inputs(len(case) + 10 * k, **c) for k in range(C)]
+    per[bad]["kdiag"][0] = 1e-3
+    d = {k: np.stack([x[k] for x in per]) for k in per[0]}
+    d["lp_pos"], d["rmask_f"] = per[0]["lp_pos"], per[0]["rmask_f"]
+    return d, "lp_pos" not in c
+
+
+@pytest.mark.parametrize("case", sorted(DECISION_CASES))
+def test_decision_chains_is_per_chain(case):
+    """thin_decision_chains over three chains (one with a failing block):
+    each chain's (logdet, ok, qn, qc) is its own thin_decision_level, and
+    jax.vmap over the Pallas kernel (lp_pos and rmask_f unbatched, as in
+    the JAX package's vmapped chains) gives the same, rtol 1e-12."""
+    import jax
+    import jax.numpy as jnp
+    from spamtree_tpu.ops import pallas_level as plj
+
+    names = ("Kxc", "joint", "lp_pos", "wpar", "w_r", "prevH", "prevprec",
+             "kdiag", "rmask_f")
+    d, aligned = _chain_inputs(case)
+    got = level.thin_decision_chains(*(_t(d[k]) for k in names),
+                                     aligned=aligned)
+    assert got[1].tolist() == [True, False, True]
+    one = [level.thin_decision_level(*(_t(d[k] if k in ("lp_pos", "rmask_f")
+                                          else d[k][c]) for k in names),
+                                     aligned=aligned) for c in range(3)]
+    ref = jax.vmap(lambda *a: plj.thin_decision_level(
+        *a, aligned=aligned, interpret=True),
+        in_axes=tuple(None if k in ("lp_pos", "rmask_f") else 0
+                      for k in names))(
+        *(jnp.asarray(d[k], jnp.int32 if k == "lp_pos" else jnp.float64)
+          for k in names))
+    assert np.asarray(ref[1]).tolist() == got[1].tolist()
+    for i in (0, 2, 3):
+        np.testing.assert_allclose(got[i].numpy(), [float(o[i]) for o in one],
+                                   rtol=1e-12)
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(ref[i]),
+                                   rtol=1e-12)
+    with pytest.raises(ValueError, match="C, B, P, S"):
+        level.thin_decision_chains(*(_t(d[k][0] if k not in (
+            "lp_pos", "rmask_f") else d[k]) for k in names))
 
 
 def _cu_source():
@@ -671,6 +720,31 @@ def test_kernels_match_plain_on_card():
         torch.cuda.synchronize()
         for k, p in ((wk, wp), (mk, mp)):
             assert ((k - p).abs() <= tol * p.abs().clamp(min=1)).all()
+
+
+@pytest.mark.cuda
+def test_decision_chains_on_card():
+    """thin_decision_chains on the card, f32 and f64: one K4 launch over the
+    three chains' folded blocks, each chain's values within the tolerance
+    of thin_decision_chains_plain on the same inputs, and the failing
+    block's chain alone ok=False."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        for case in sorted(DECISION_CASES):
+            d, aligned = _chain_inputs(case)
+            a = {k: torch.as_tensor(v, device="cuda",
+                                    dtype=torch.int64 if k == "lp_pos"
+                                    else dtype) for k, v in d.items()}
+            before = level.LAUNCHES_DECISION
+            got = level.thin_decision_chains(**a, aligned=aligned)
+            torch.cuda.synchronize()
+            assert level.LAUNCHES_DECISION == before + 1
+            ref = level.thin_decision_chains_plain(**a, aligned=aligned)
+            assert got[1].tolist() == ref[1].tolist() == [True, False, True]
+            for i in (0, 2, 3):
+                assert ((got[i] - ref[i]).abs()
+                        <= tol * ref[i].abs().clamp(min=1)).all(), (case, i)
 
 
 @pytest.mark.cuda

@@ -8,7 +8,8 @@ job of tests/_sharding_jobs.py.  They pin (a) whole dummy blocks added for
 a blocks axis leave every output as it was, and as the JAX package's
 padded model gives; (b) the sharded step is the unsharded step -- full
 and limited tree, always-emit and accept-aware (the plain K3/K4 versions
-per shard) -- at the JAX package's rtol 1e-10; (c) chains over ranks are
+per shard), and two chains' batched accept-aware steps on a (1, 2)
+mesh -- at the JAX package's rtol 1e-10; (c) chains over ranks are
 the unsharded batched chains, (d) the public ``spamtree(devices=...)``
 equals the unsharded call at rtol 1e-9, resumes bit for bit and sums the
 same moments; (e) a failing worker raises in the caller, never hangs.
@@ -189,6 +190,32 @@ def test_sharded_step_matches_unsharded(sharded_steps, tree, accept_aware):
     assert not all(got["level_local"]) and not all(got["msg_local"])
     assert any(got["msg_local"]) and any(got["aligned"]) == (tree ==
                                                               "aligned")
+
+
+@pytest.fixture(scope="module")
+def sharded_chain_steps():
+    """Every blocks-mesh chain case on one (1, 2) mesh, in one launch."""
+    return _launch("chain_step_jobs", mesh=(1, 2))
+
+
+@pytest.mark.parametrize("tree,composed", J.CHAIN_STEP_CASES,
+                         ids=[f"{t}-{'composed' if c else 'joint'}"
+                              for t, c in J.CHAIN_STEP_CASES])
+def test_sharded_chain_step_matches_unsharded(sharded_chain_steps, tree,
+                                              composed):
+    """Two chains on a (1, 2) blocks mesh: three batched accept-aware steps
+    (the level kernels on: K4's fold of both chains per shard, or the
+    composed factor parts) equal the unsharded batched steps at the same
+    padding at rtol 1e-10: each chain's w, theta, logdetCi, beta, accepts
+    and every level's H and prec."""
+    with J.level_kernels(True, composed):
+        ms, tspec = J.model(tree, 2)
+        st = J.chain_steps(ms, tspec)
+    ref = J.chain_step_result(st, st.leveldata)
+    assert min(ref["accept"]) > 0
+    got = sharded_chain_steps[(tree, composed)]
+    assert got["accept"] == ref["accept"]
+    _same_step(got | dict(accept=0), ref | dict(accept=0))
 
 
 # -- (c) chains ---------------------------------------------------------------
