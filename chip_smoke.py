@@ -164,7 +164,24 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    every C (one fold for all chains), K3 never (chains carry no Gram
    blocks); each run prints chain-it/s, ms/it, K1 and K4 launches per
    iteration and peak memory beside the always-emit batched run at the
-   same C: phase 16's at config 3, one run here at config 4's depth.
+   same C: phase 16's at config 3, one run here at config 4's depth;
+19. the iteration as replayed CUDA graphs, which every run above without
+   a mesh already uses (run_mcmc's and run_mcmc_chains' default on the
+   card): configs 1, 3 and 5, one chain, always-emit and accept-aware with
+   the level kernels on, and config 3's batched chains at C = 2 and 4 on
+   both steps, each run eager (graphs=False) and graphed from one prepared
+   chain and the same generator seeds at keep=20, burn=10 (rounded to 20),
+   thin=2 (60 iterations): the kept draws, the final state and the
+   acceptance must be the same bits, each kernel's launches per iteration
+   the same on both paths, one chain 2-4 graph replays an iteration and
+   the chains one; at config 3's single always-emit chain two eager runs
+   must give the same bits too (the messages are summed in a fixed
+   order).  Each case prints, for both paths, ms/it and busy ms/it over a
+   window of 20 iterations (traced with torch.profiler), idle share,
+   kernels (graph kernel nodes) and replays per iteration, the capture's
+   seconds and the peak device memory of the run, and one chain's install
+   (graph I replayed alone) in device ms beside the bytes it copies and
+   the device ms of those copies alone.
 
 Kernel and plain times (the kernels record's ms and plain_ms) are CUDA
 events around eager calls of the wrappers the sweeps call, host time
@@ -185,6 +202,10 @@ runs phases 1-2, 16 and 18 alone (~5 min).
     python3 chip_smoke.py --mesh
 
 runs phases 1-2 and phase 17 alone, with its one-process runs.
+
+    python3 chip_smoke.py --graphs
+
+runs phases 1-2 and phase 19 alone.
 
     python3 chip_smoke.py --times
 
@@ -2080,6 +2101,201 @@ def mesh_phase(bench, chol, level, torch):
     return rec
 
 
+# -- phase 19: the iteration as replayed CUDA graphs -------------------------
+
+# (keep, burn, thin) of each graphed-against-eager pair: 50 iterations
+GRAPH_DEPTH = dict(keep=20, burn=10, thin=2)
+GRAPH_WINDOW = 20  # iterations timed, then traced, per path
+# (config, chains, accept-aware): one chain on both theta steps at configs
+# 1, 3 and 5; config 3's batched chains at C = 2 and 4 on both
+GRAPH_CASES = [(1, 0, False), (1, 0, True), (3, 0, False), (3, 0, True),
+               (3, 2, False), (3, 2, True), (3, 4, False), (3, 4, True),
+               (5, 0, False), (5, 0, True)]
+
+
+def _leaves(x):
+    """Every tensor of a (nested) sampler state, in order."""
+    if hasattr(x, "shape"):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for y in x for t in _leaves(y)]
+    return []
+
+
+def _graph_pair(fit, cfg, C, chol, level, torch):
+    """run_mcmc (C = 0) or run_mcmc_chains eager, then graphed, from one
+    prepared chain with the same generator seeds: each run's result,
+    launch counts and peak device memory."""
+    from spamtree_tpu_torch.model.mcmc import (
+        run_mcmc,
+        run_mcmc_chains,
+        stack_chain_states,
+    )
+
+    out = {}
+    for graphs in (False, True):
+        _reset_counts(chol, level)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if C:
+            states, gens = stack_chain_states(fit.state, 1 + np.arange(C))
+            res = run_mcmc_chains(fit.ms, fit.bounds, cfg, states, gens,
+                                  yhat_seed=1, graphs=graphs)
+        else:
+            gen = torch.Generator(device=fit.ms.device).manual_seed(11)
+            res = run_mcmc(fit.ms, fit.bounds, cfg, fit.state, gen,
+                           yhat_seed=1, graphs=graphs)
+        torch.cuda.synchronize()
+        out[graphs] = dict(res=res, counts=_counts(chol, level),
+                           peak=torch.cuda.max_memory_allocated())
+    return out
+
+
+def _same_chain(a, b):
+    """(the same bits?, what differs): the kept draws and the final state."""
+    diff = [k for k in ("w", "beta", "tausq", "theta")
+            if not np.array_equal(a[k], b[k])]
+    la, lb = _leaves(a["state"]), _leaves(b["state"])
+    diff += [f"state leaf {i}" for i, (x, y) in enumerate(zip(la, lb))
+             if not bool(((x == y) | (x.isnan() & y.isnan())).all())]
+    if a["accept_ratio"] != b["accept_ratio"]:
+        diff.append("accept_ratio")
+    return not diff and len(la) == len(lb), diff
+
+
+def _graph_window(torch, fit, cfg, C, graphs):
+    """ms per iteration (host clock, synchronised) over GRAPH_WINDOW
+    iterations after three warm-up ones (the graphs captured at the
+    first), then device-busy ms, kernels (graph kernel nodes when graphed)
+    and graph replays per iteration over GRAPH_WINDOW traced ones; and,
+    graphed, one chain's install (part I) replayed alone: device ms per
+    replay, the bytes it copies (read and written) and the device ms of
+    those copies alone (eager copy_ into spare tensors)."""
+    from spamtree_tpu_torch.utils.profile_step import Iterations, _trace
+
+    it = Iterations(fit, cfg, chains=C, graphs=graphs,
+                    n_iters=3 + 2 * GRAPH_WINDOW)
+    it(3)
+    t0 = time.time()
+    it(GRAPH_WINDOW)
+    ms_it = 1e3 * (time.time() - t0) / GRAPH_WINDOW
+    reps = it.replays
+    busy, kernels, _ = _trace(it, GRAPH_WINDOW)
+    rec = dict(ms_per_iter=ms_it, busy_ms_per_iter=busy,
+               idle=1.0 - busy / ms_it, kernels_per_iter=kernels,
+               replays_per_iter=(it.replays - reps) / GRAPH_WINDOW)
+    r = it.runner
+    if graphs and not C and "I" in r.graphs:
+        st = r.state
+        installed = _leaves((st.theta, st.logdetCi, st.leveldata, st.gram,
+                             st.pred_data))
+        rec["install_bytes"] = 2 * sum(x.numel() * x.element_size()
+                                       for x in installed)
+        # the whole install (the Gram blocks and prediction operators
+        # formed, then copied), and its copies alone into spare tensors
+        spare = [torch.empty_like(x) for x in installed]
+        for key, fn in (("install_ms", r.graphs["I"].replay),
+                        ("install_copy_ms", lambda: [
+                            d.copy_(x) for d, x in zip(spare, installed)])):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            for _ in range(10):
+                fn()
+            e1.record()
+            torch.cuda.synchronize()
+            rec[key] = e0.elapsed_time(e1) / 10
+        del spare
+    if r is not None:
+        r.release()
+    return rec
+
+
+def graphs_phase(bench, chol, level, torch):
+    """Phase 19: for each of GRAPH_CASES, one prepared chain per config run
+    eager (graphs=False) and graphed (the default) at GRAPH_DEPTH from the
+    same generator seeds: the same bits (kept draws, final state,
+    acceptance) and each kernel's launches the same on both paths; at
+    config 3's single always-emit chain two eager runs too, which must give
+    the same bits (the fixed-order message sums).  Then a window of each
+    path: ms/it, busy ms/it, idle share, kernels and graph replays per
+    iteration, capture seconds, peak GB, one chain's install cost.
+    Returns the records."""
+    from spamtree_tpu_torch.api import prepare_fit
+
+    recs = {}
+    fits = {}
+    for cfg_id, C, aa in GRAPH_CASES:
+        c = bench.CONFIGS[cfg_id]
+        what = (f"config {cfg_id}, "
+                + (f"C = {C}" if C else "single chain") + ", "
+                + ("accept-aware, level kernels" if aa else "always-emit"))
+        _phase(f"graphs: {what}")
+        if cfg_id not in fits:
+            fits.clear()  # one configuration's model on the card at a time
+            y, _, _, X, coords, mv = _data(bench, cfg_id)
+            fits[cfg_id] = prepare_fit(
+                y - np.nanmean(y), X, coords, mv_id=mv, cell_size=25,
+                mcmc=GRAPH_DEPTH, settings=dict(chunk=10, wire_dtype="none"),
+                seed=1, device="cuda", **c.get("kwargs", {}))
+        fit = fits[cfg_id]
+        cfg = fit.cfg._replace(accept_aware=aa)
+        with _env(SPAMTREE_LEVEL_KERNELS="1" if aa else "0"):
+            pair = _graph_pair(fit, cfg, C, chol, level, torch)
+            repeat = None
+            if (cfg_id, C, aa) == (3, 0, False):
+                again = _graph_pair(fit, cfg, C, chol, level,
+                                    torch)[False]["res"]
+                repeat = _same_chain(pair[False]["res"], again)[0]
+            win = {g: _graph_window(torch, fit, cfg, C, g)
+                   for g in (True, False)}
+        e, g = pair[False], pair[True]
+        iters = e["res"]["burn_actual"] + GRAPH_DEPTH["keep"] * GRAPH_DEPTH[
+            "thin"]
+        same, diff = _same_chain(e["res"], g["res"])
+        per_it = {k: {p: pair[p]["counts"][k] / iters for p in (False, True)}
+                  for k in ("k1_launches", "k3_launches", "k4_launches")}
+        rec = dict(
+            phase="graphs", config=cfg_id, chains=C,
+            step="accept_aware" if aa else "always_emit", iters=iters,
+            same_bits=same, differs_in=diff, eager_repeats_bits=repeat,
+            launches_per_iter=per_it,
+            capture_s=g["res"]["compile_time_s"],
+            replays_per_iter_run=g["res"]["graph_replays"] / iters,
+            peak_gb={"graphed": g["peak"] / 1e9, "eager": e["peak"] / 1e9},
+            accept=e["res"]["accept_ratio"],
+            graphed=win[True], eager=win[False])
+        print(json.dumps(rec), flush=True)
+        wg, we = win[True], win[False]
+        print(f"graphs table: {what}: graphed {wg['ms_per_iter']:.2f} ms/it "
+              f"(busy {wg['busy_ms_per_iter']:.2f}, idle {wg['idle']:.3f}, "
+              f"{wg['replays_per_iter']:.2f} replays and "
+              f"{wg['kernels_per_iter']:.1f} kernel nodes an iteration, "
+              f"capture {rec['capture_s']:.2f} s, peak "
+              f"{rec['peak_gb']['graphed']:.2f} GB); eager "
+              f"{we['ms_per_iter']:.2f} ms/it (busy "
+              f"{we['busy_ms_per_iter']:.2f}, idle {we['idle']:.3f}, "
+              f"{we['kernels_per_iter']:.1f} kernels, peak "
+              f"{rec['peak_gb']['eager']:.2f} GB)"
+              + (f"; install {wg['install_ms']:.3f} ms, its copies "
+                 f"{wg['install_copy_ms']:.3f} ms for "
+                 f"{wg['install_bytes'] / 1e9:.3f} GB" if "install_ms" in wg
+                 else ""), flush=True)
+        _check(same, f"graphs, {what}: the graphed chain differs from the "
+               f"eager one in {diff}")
+        _check(repeat is not False, f"graphs, {what}: two eager runs differ")
+        for k, v in per_it.items():
+            _check(v[False] == v[True], f"graphs, {what}: {k} per iteration "
+                   f"{v[True]} graphed, {v[False]} eager")
+        _check(per_it["k1_launches"][True] > 0, f"graphs, {what}: no K1")
+        _check(not aa or C or per_it["k3_launches"][True] > 0,
+               f"graphs, {what}: no K3 with the level kernels on")
+        reps = rec["replays_per_iter_run"]
+        _check((reps <= 1.0) if C else (2.0 <= reps <= 4.0),
+               f"graphs, {what}: {reps} replays an iteration")
+        recs[(cfg_id, C, aa)] = rec
+    return recs
+
+
 def main() -> int:
     import torch
 
@@ -2104,6 +2320,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--mesh"]:
         mesh_phase(bench, chol, level, torch)
+        return 0
+    if sys.argv[1:] == ["--graphs"]:
+        graphs_phase(bench, chol, level, torch)
         return 0
     if sys.argv[1:] == ["--times"]:
         _phase("K1, K2, K3, K4 times")
@@ -2221,6 +2440,7 @@ def main() -> int:
     ch = chains_phase(bench, chol, level, torch)
     mesh = mesh_phase(bench, chol, level, torch)
     aa = accept_aware_chains_phase(bench, chol, level, torch, ch)
+    graphs_phase(bench, chol, level, torch)
     print(f"chip_smoke: every phase passed in {time.time() - _T0:.1f} s",
           flush=True)
 

@@ -185,7 +185,8 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     ``spamtree`` run (same arguments), without running the chain; with
     ``resume_from`` the state and generators of that checkpoint instead of
     the tuner and the initial sweep.  ``precompile`` is accepted and does
-    nothing: the eager port compiles no program.  ``n_chains > 1``: the
+    nothing: the port captures its CUDA graphs at the chain's first
+    iteration (``mcmc.StepRunner``).  ``n_chains > 1``: the
     tuner runs once and every chain starts from its state and proposal
     (``mcmc.stack_chain_states``), chain c's generator seeded ``seed +
     c``.
@@ -424,7 +425,12 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         caller's row order).
     debug : dict(sample_beta=, sample_tausq=, sample_theta=, sample_w=,
         sample_predicts=) switch each sampler off.
-    precompile : accepted and ignored (the port compiles no program).
+    precompile : accepted and ignored.  On a CUDA device without a mesh
+        every iteration runs as replayed CUDA graphs, captured at the
+        chain's first iteration (``mcmc.StepRunner``: the eager step's
+        chain, bit for bit); the capture's seconds are
+        setup_breakdown["keep_compile_s"].  Mesh runs and the CPU run the
+        eager step.
     seed : seeds the tree, the device generators and the host yhat noise.
     dtype : torch.float32 or torch.float64.
     device : where the model runs; "cuda" raises when CUDA is absent.
@@ -512,6 +518,8 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         init_moments=r.init_moments if r else None,
         base_counts=r.base_counts if r else (0, 0),
         yhat_rngs=r.yhat_rngs if r else None)
+    # the JAX package's key for the keep program's compile
+    fit.setup_breakdown["keep_compile_s"] = round(res["compile_time_s"], 2)
     mv_id = (np.ones(len(fit.order), dtype=np.int64) if mv_id is None
              else np.asarray(mv_id, dtype=np.int64))
     tree = fit.tree

@@ -294,8 +294,9 @@ class ModelStatic:
 
         # Gibbs-message routing: segment a of child level t targets parent
         # level seg_level[t][a]; anc_pos[(t, a)] is each child's parent
-        # position in that level's batch (sentinel Bp = dropped), and the
-        # child->parent sum is an index_add_ over it.
+        # position in that level's batch (sentinel Bp = dropped), and
+        # child_table[(t, a)] lists each parent's children for the
+        # fixed-order child->parent sum (see child_tables).
         level_of_block = np.full(nb + 1, -1, dtype=np.int64)
         for t, p in enumerate(sched.levels):
             level_of_block[np.asarray(p.block_ids)] = t
@@ -321,13 +322,40 @@ class ModelStatic:
                 self.anc_pos[(t, a)] = _put(
                     pos_table[np.minimum(anc_a, nb)], torch.long)
             self.seg_level.append(segs)
+        self.child_table = child_tables(
+            self.anc_pos, {k: staged[self.seg_level[k[0]][k[1]]]["rows"]
+                           .shape[0] for k in self.anc_pos})
 
     def tausq_long(self, tausq_inv):
         """(n+1,) per-row noise precision ((C, n+1) for (C, q) chains);
         sentinel slot = 0."""
         t = tausq_inv[..., self.mv]
-        t[..., self.n] = 0.0
+        t[..., self.n].zero_()  # a kernel, where "= 0.0" copies from the host
         return t
+
+
+def child_tables(anc_pos: dict, n_parents: dict) -> dict:
+    """{(t, a): (Bp, K) int64}: row p lists, in ascending order, the
+    children whose ``anc_pos[(t, a)]`` is p, padded with Bc (the index of
+    a zero row appended to the children); children at the sentinel Bp =
+    ``n_parents[(t, a)]`` are dropped.  ``_scatter_parents`` gathers
+    through it and sums along K, an order that is the same in every run,
+    where an ``index_add_`` on the card adds in whatever order its atomics
+    land."""
+    out = {}
+    for key, pos_t in anc_pos.items():
+        pos, Bp = pos_t.cpu().numpy(), n_parents[key]
+        child = np.nonzero(pos < Bp)[0]  # ascending
+        par = pos[child]
+        order = np.argsort(par, kind="stable")
+        child, par = child[order], par[order]
+        counts = np.bincount(par, minlength=Bp)
+        table = np.full((Bp, max(int(counts.max(initial=0)), 1)), len(pos),
+                        dtype=np.int64)
+        table[par, np.arange(len(par)) - (np.cumsum(counts) - counts)[par]] = \
+            child
+        out[key] = torch.as_tensor(table, device=pos_t.device)
+    return out
 
 
 def _tree_map(fn, *xs):
@@ -1001,14 +1029,16 @@ def _msg_level(ms: ModelStatic, tp: int) -> LevelArrays:
 
 
 def _scatter_parents(ms: ModelStatic, t: int, a: int, x, cb: int = 0):
-    """Sum child rows ``x`` (Bc, ...) into their segment-a parents:
-    (Bp, ...) with dropped children routed to the sentinel row Bp.  With
-    ``cb`` chain dims ahead of the block axis the sum runs along it, for
-    every chain in one ``index_add_``."""
-    tp = ms.seg_level[t][a]
-    Bp = _msg_level(ms, tp).rows.shape[0]
-    buf = x.new_zeros(x.shape[:cb] + (Bp + 1,) + tuple(x.shape[cb + 1:]))
-    return buf.index_add_(cb, ms.anc_pos[(t, a)], x).narrow(cb, 0, Bp)
+    """Sum child rows ``x`` (Bc, ...) into their segment-a parents: (Bp,
+    ...), dropped children left out.  A gather through the padded child
+    table (``child_tables``) and a sum along it, so the children are added
+    in the same order in every run.  With ``cb`` chain dims ahead of the
+    block axis the sum runs along it, for every chain at once."""
+    table = ms.child_table[(t, a)]
+    lead, rest = tuple(x.shape[:cb]), tuple(x.shape[cb + 1:])
+    xz = torch.cat([x, x.new_zeros(lead + (1,) + rest)], dim=cb)
+    return xz.index_select(cb, table.reshape(-1)).reshape(
+        lead + tuple(table.shape) + rest).sum(cb + 1)
 
 
 def _route_messages(ms: ModelStatic, acc: dict, t: int, outs,

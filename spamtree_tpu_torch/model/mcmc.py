@@ -35,6 +35,13 @@ reads nothing back.  Chain c is the single-chain run whose generator is
 seeded like chain c's.  Outputs carry the chain axis after the sample
 axis.
 
+On a CUDA device without a mesh both run each iteration as CUDA graphs
+captured once per run and replayed (``StepRunner``, the counterpart of the
+JAX package's jitted ``lax.scan`` chunk): the carried state lives in
+static buffers, draws are filled outside the graphs, and the chain is the
+eager step's (``make_step``) bit for bit.  ``graphs=False`` runs the eager
+step; the CPU, a mesh and deterministic-algorithms mode run it by default.
+
 On a mesh (a model from ``parallel.sharding.shard_model``) every rank runs
 this loop: a blocks group's ranks hold the same state and draw the same
 numbers, the step's sweeps shard the levels; a chains rank runs its own
@@ -70,13 +77,21 @@ from spamtree_tpu_torch.model.core import (
     tausq_shape,
 )
 from spamtree_tpu_torch.model.priors import make_theta_prior
-from spamtree_tpu_torch.model.ram import RAMState, ram_adapt, ram_init
+from spamtree_tpu_torch.model.ram import (
+    G0,
+    RAMState,
+    ram_adapt,
+    ram_eta_table,
+    ram_init,
+)
 from spamtree_tpu_torch.model.transforms import (
     calc_jacobian,
     clamp_bounds,
     transf_back,
     transf_fwd,
 )
+from spamtree_tpu_torch.ops import chol as chol_ops
+from spamtree_tpu_torch.ops import level as level_ops
 
 
 class MCMCState(NamedTuple):
@@ -144,26 +159,51 @@ class StepDraws(NamedTuple):
 
 
 def draw_step(ms: ModelStatic, gen: torch.Generator, n_theta: int,
-              gamma_shape: torch.Tensor) -> StepDraws:
-    """One iteration's draws from ``gen`` (a generator on ms.device)."""
+              gamma_shape: torch.Tensor, out: StepDraws | None = None
+              ) -> StepDraws:
+    """One iteration's draws from ``gen`` (a generator on ms.device);
+    ``out``: fill these tensors in place instead (the same numbers)."""
     kw = dict(generator=gen, dtype=ms.dtype, device=ms.device)
-    return StepDraws(
-        z_w=torch.randn(ms.n + 1, **kw),
-        U=torch.randn(n_theta, **kw),
-        u=torch.rand((), **kw),
-        z_pred=torch.randn(ms.n + 1, **kw),
-        g=torch._standard_gamma(gamma_shape, generator=gen),
-        z_beta=torch.randn(ms.p, ms.q, **kw),
-    )
+    if out is None:
+        return StepDraws(
+            z_w=torch.randn(ms.n + 1, **kw),
+            U=torch.randn(n_theta, **kw),
+            u=torch.rand((), **kw),
+            z_pred=torch.randn(ms.n + 1, **kw),
+            g=torch._standard_gamma(gamma_shape, generator=gen),
+            z_beta=torch.randn(ms.p, ms.q, **kw),
+        )
+    torch.randn(ms.n + 1, generator=gen, out=out.z_w)
+    torch.randn(n_theta, generator=gen, out=out.U)
+    torch.rand((), generator=gen, out=out.u)
+    torch.randn(ms.n + 1, generator=gen, out=out.z_pred)
+    out.g.copy_(torch._standard_gamma(gamma_shape, generator=gen))
+    torch.randn(ms.p, ms.q, generator=gen, out=out.z_beta)
+    return out
 
 
 def draw_chains(ms: ModelStatic, gens, n_theta: int,
-                gamma_shape: torch.Tensor) -> StepDraws:
+                gamma_shape: torch.Tensor, out: StepDraws | None = None
+                ) -> StepDraws:
     """One iteration's draws for C chains, (C, ...) each: chain c's from
     ``gens[c]`` in ``draw_step``'s order, so chain c draws what a single
-    chain with that generator would."""
-    ds = [draw_step(ms, g, n_theta, gamma_shape) for g in gens]
-    return StepDraws(*(torch.stack(f) for f in zip(*ds)))
+    chain with that generator would; ``out``: fill these in place."""
+    if out is None:
+        ds = [draw_step(ms, g, n_theta, gamma_shape) for g in gens]
+        return StepDraws(*(torch.stack(f) for f in zip(*ds)))
+    for c, g in enumerate(gens):
+        draw_step(ms, g, n_theta, gamma_shape,
+                  out=StepDraws(*(f[c] for f in out)))
+    return out
+
+
+def _draws_like(ms: ModelStatic, n_theta: int, chains: int) -> StepDraws:
+    """Empty draw buffers of one iteration (``chains`` > 0: (C, ...))."""
+    lead = (chains,) if chains else ()
+    e = lambda *shape: torch.empty(lead + shape, dtype=ms.dtype,
+                                   device=ms.device)
+    return StepDraws(z_w=e(ms.n + 1), U=e(n_theta), u=e(), z_pred=e(ms.n + 1),
+                     g=e(ms.q), z_beta=e(ms.p, ms.q))
 
 
 def stack_chain_states(state: MCMCState, seeds):
@@ -239,175 +279,523 @@ def init_state(ms: ModelStatic, bounds: np.ndarray, start_theta: np.ndarray,
         ram=ram_init(t(_as_matrix(cfg.mcmcsd, len(st)))), it=0, gram=gram)
 
 
-def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
-              coords_cache=None, chains: bool = False):
-    """The single-iteration transition ``step(state, draws, predicting)``:
-    the JAX package's always-emit theta step, or its accept-aware step with
-    ``cfg.accept_aware``.  ``coords_cache`` is core.level_coords(ms), built
-    once per run.
+class _Parts:
+    """The pieces of one iteration, shared by the eager step
+    (``make_step``) and the capture-ready one (``StepRunner``), so that
+    both compute the same operations on the same values."""
 
-    ``chains=True``: the batched step of ``run_mcmc_chains`` over states
-    with a leading chain axis (``stack_chain_states``) and draws from
-    ``draw_chains``; always-emit unless ``cfg.accept_aware`` is True (None
-    resolves to off, as in the JAX package's vmapped chains)."""
-    bnds = torch.as_tensor(np.asarray(bounds), dtype=ms.dtype, device=ms.device)
-    Vi = torch.as_tensor(_as_matrix(cfg.beta_Vi, ms.p), dtype=ms.dtype,
-                         device=ms.device)
-    Vim = torch.zeros(ms.p, dtype=ms.dtype, device=ms.device)
-    prior_fn = make_theta_prior(cfg.theta_prior)
-    accept_aware = bool(cfg.accept_aware)  # None -> False
+    def __init__(self, ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
+                 coords_cache=None, chains: bool = False):
+        self.ms, self.cfg, self.cc, self.chains = ms, cfg, coords_cache, chains
+        self.bnds = torch.as_tensor(np.asarray(bounds), dtype=ms.dtype,
+                                    device=ms.device)
+        self.Vi = torch.as_tensor(_as_matrix(cfg.beta_Vi, ms.p),
+                                  dtype=ms.dtype, device=ms.device)
+        self.Vim = torch.zeros(ms.p, dtype=ms.dtype, device=ms.device)
+        self.prior_fn = make_theta_prior(cfg.theta_prior)
+        self.accept_aware = bool(cfg.accept_aware)  # None -> False
 
-    def propose(state: MCMCState, U):
+    def gibbs(self, state: MCMCState, draws: StepDraws):
+        """w after its Gibbs update (``state.w`` itself with sample_w off)."""
+        if not self.cfg.sample_w:
+            return state.w
+        # chains carry no gram: gibbs_w forms the Gram blocks in place
+        gram, routed = state.gram if state.gram else (None, None)
+        return gibbs_w(self.ms, state.leveldata, state.w, state.tausq_inv,
+                       state.XB, draws.z_w, gram=gram, routed=routed)
+
+    def propose(self, state: MCMCState, U):
         """The RAM proposal in the box (one per chain for (C, nt) U)."""
-        paramsd = state.ram.paramsd
+        paramsd, bnds = state.ram.paramsd, self.bnds
         step = (paramsd @ U if U.dim() == 1
                 else (paramsd @ U[..., None])[..., 0])
         return clamp_bounds(
             transf_back(transf_fwd(state.theta, bnds) + step, bnds), bnds)[0]
 
-    def log_accept(state: MCMCState, prop, new_logdet, q_new, q_cur):
+    def log_accept(self, state: MCMCState, prop, new_logdet, q_new, q_cur):
         """(log MH ratio, its finiteness, the accept probability)."""
         logaccept = (new_logdet + q_new) - (state.logdetCi + q_cur) \
-            + calc_jacobian(prop, state.theta, bnds)
-        if prior_fn is not None:
-            logaccept = logaccept + prior_fn(prop) - prior_fn(state.theta)
+            + calc_jacobian(prop, state.theta, self.bnds)
+        if self.prior_fn is not None:
+            logaccept = logaccept + self.prior_fn(prop) \
+                - self.prior_fn(state.theta)
         finite = torch.isfinite(logaccept)
         acceptp = torch.where(finite, torch.exp(torch.clamp(logaccept, max=0.0)),
                               0.0)
         return logaccept, finite, acceptp
 
-    def adapt(state: MCMCState, U, logaccept, ok, finite) -> RAMState:
+    def adapt(self, state: MCMCState, U, logaccept, ok, finite,
+              eta=None) -> RAMState:
         ram = state.ram
-        if cfg.adapting:
+        if self.cfg.adapting:
             alpha = torch.where(ok & finite,
                                 torch.clamp(torch.exp(logaccept), max=1.0), 0.0)
             ram = ram_adapt(ram, U, alpha, state.it,
-                            reference_warmup=cfg.ram_reference_warmup)
+                            reference_warmup=self.cfg.ram_reference_warmup,
+                            eta=eta)
         return ram
 
-    def theta_step(state: MCMCState, w, draws: StepDraws):
-        """The theta Metropolis step: (theta, logdetCi, leveldata, gram,
-        pred_data, ram)."""
-        theta, logdetCi, leveldata = state.theta, state.logdetCi, state.leveldata
-        gram, pred_data = state.gram, state.pred_data
-        prop = propose(state, draws.U)
-        # both quadratic forms (proposal and current factors) ride the
-        # proposal sweep's level loop
-        if accept_aware:
+    def decide(self, state: MCMCState, w, draws: StepDraws, eta=None):
+        """The proposal, its sweep (both quadratic forms, for the proposal
+        and the current factors, ride its level loop; decision-only on the
+        accept-aware step), the MH decision on the device and the RAM
+        adaptation: (prop, (new_ld, new_pj, new_logdet) or None on the
+        accept-aware step, accepted (device bool), ram)."""
+        ms, cc = self.ms, self.cc
+        prop = self.propose(state, draws.U)
+        if self.accept_aware:
             new_logdet, ok, q_new, q_cur = sweep(
-                ms, prop, w, quad_prev=leveldata, decision_only=True,
-                coords_cache=coords_cache)
+                ms, prop, w, quad_prev=state.leveldata, decision_only=True,
+                coords_cache=cc)
+            emitted = None
         else:
             new_ld, new_pj, new_logdet, ok, q_new, q_cur = sweep(
-                ms, prop, w, quad_prev=leveldata, emit_pred_joint=True,
-                coords_cache=coords_cache)
-        logaccept, finite, acceptp = log_accept(state, prop, new_logdet,
-                                                q_new, q_cur)
-        accepted = bool(((draws.u < acceptp) & ok).item())  # host sync
-        install = accepted
-        if accepted and accept_aware:
-            # the factor-emitting rebuild; it installs only if its own
-            # Cholesky flag holds (it can differ from the decision's only at
-            # a borderline block), else the old state is kept
-            new_ld, new_pj, new_logdet, ok2 = sweep(
-                ms, prop, w, build_pred=pred_data is not None,
-                emit_pred_joint=True, coords_cache=coords_cache)
-            install = bool(ok2.item())
-        if install:
-            # the factor swap and the state derived from the factors
-            theta, logdetCi, leveldata = prop, new_logdet, new_ld
-            gram = gram_full(ms, new_ld)
-            if pred_data is not None:
-                pred_data = pred_operators_from_joint(ms, prop, new_pj,
-                                                      coords_cache)
-        ram = adapt(state, draws.U, logaccept, ok, finite)
-        ram = ram._replace(propos_count=ram.propos_count + 1.0,
-                           accept_count=ram.accept_count + float(accepted))
-        return theta, logdetCi, leveldata, gram, pred_data, ram
+                ms, prop, w, quad_prev=state.leveldata, emit_pred_joint=True,
+                coords_cache=cc)
+            emitted = (new_ld, new_pj, new_logdet)
+        logaccept, finite, acceptp = self.log_accept(state, prop, new_logdet,
+                                                     q_new, q_cur)
+        accepted = (draws.u < acceptp) & ok
+        ram = self.adapt(state, draws.U, logaccept, ok, finite, eta)
+        return prop, emitted, accepted, ram
 
-    def theta_step_chains(state: MCMCState, w, draws: StepDraws):
+    def rebuild(self, state: MCMCState, prop, w):
+        """The accept-aware step's factor-emitting sweep: ((new_ld, new_pj,
+        new_logdet), its own Cholesky flag ok2)."""
+        new_ld, new_pj, new_logdet, ok2 = sweep(
+            self.ms, prop, w, build_pred=state.pred_data is not None,
+            emit_pred_joint=True, coords_cache=self.cc)
+        return (new_ld, new_pj, new_logdet), ok2
+
+    def derived(self, prop, new_ld, new_pj, pred_data):
+        """The state derived from installed factors: (gram, pred_data) --
+        one chain's Gram blocks (chains carry none), and the prediction
+        operators where the state carries them."""
+        gram = () if self.chains else gram_full(self.ms, new_ld)
+        if pred_data is not None:
+            pred_data = pred_operators_from_joint(self.ms, prop, new_pj,
+                                                  self.cc)
+        return gram, pred_data
+
+    def theta_chains(self, state: MCMCState, w, draws: StepDraws, eta=None,
+                     inplace: bool = False):
         """The batched theta step: every chain's proposal sweep in one, and
         each chain's accept resolved on the device and installed leaf by
         leaf with ``torch.where`` -- no host read.  Accept-aware, it runs
         both branches of the JAX package's vmapped accept-cond: the
         decision-only sweep, then the factor-emitting rebuild for every
         chain, installed where the chain accepted and the rebuild's own
-        Cholesky flag holds."""
-        theta, logdetCi, leveldata = state.theta, state.logdetCi, state.leveldata
-        pred_data = state.pred_data
-        prop = propose(state, draws.U)
-        if accept_aware:
-            new_logdet, ok, q_new, q_cur = sweep(
-                ms, prop, w, quad_prev=leveldata, decision_only=True,
-                coords_cache=coords_cache)
-        else:
-            new_ld, new_pj, new_logdet, ok, q_new, q_cur = sweep(
-                ms, prop, w, quad_prev=leveldata, emit_pred_joint=True,
-                coords_cache=coords_cache)
-        logaccept, finite, acceptp = log_accept(state, prop, new_logdet,
-                                                q_new, q_cur)
-        accepted = (draws.u < acceptp) & ok  # (C,), stays on the device
+        Cholesky flag holds.  ``inplace``: the selections write into the
+        state's own theta, logdetCi, leveldata and pred_data.  Returns
+        (theta, logdetCi, leveldata, pred_data, ram)."""
+        prop, emitted, accepted, ram = self.decide(state, w, draws, eta)
         install = accepted
-        if accept_aware:
-            new_ld, new_pj, new_logdet, ok2 = sweep(
-                ms, prop, w, build_pred=pred_data is not None,
-                emit_pred_joint=True, coords_cache=coords_cache)
+        if self.accept_aware:
+            emitted, ok2 = self.rebuild(state, prop, w)
             install = accepted & ok2
+        new_ld, new_pj, new_logdet = emitted
 
         def sel(new, old):
-            return torch.where(
-                install.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
+            m = install.reshape((-1,) + (1,) * (old.dim() - 1))
+            return (torch.where(m, new, old, out=old) if inplace
+                    else torch.where(m, new, old))
 
-        theta, logdetCi = sel(prop, theta), sel(new_logdet, logdetCi)
-        leveldata = _tree_map(sel, new_ld, leveldata)
+        theta, logdetCi = sel(prop, state.theta), sel(new_logdet,
+                                                      state.logdetCi)
+        leveldata = _tree_map(sel, new_ld, state.leveldata)
+        pred_data = state.pred_data
         if pred_data is not None:
             # built every iteration and selected per chain, as the JAX
             # package's vmapped accept-cond runs both branches
-            pred_data = _tree_map(sel, pred_operators_from_joint(
-                ms, prop, new_pj, coords_cache), pred_data)
-        ram = adapt(state, draws.U, logaccept, ok, finite)
+            pred_data = _tree_map(sel, self.derived(
+                prop, new_ld, new_pj, pred_data)[1], pred_data)
         ram = ram._replace(propos_count=ram.propos_count + 1.0,
                            accept_count=ram.accept_count
                            + accepted.to(ram.accept_count.dtype))
-        return theta, logdetCi, leveldata, (), pred_data, ram
+        return theta, logdetCi, leveldata, pred_data, ram
 
-    ts = theta_step_chains if chains else theta_step
-
-    def step(state: MCMCState, draws: StepDraws, predicting: bool) -> MCMCState:
-        w = state.w
-        if cfg.sample_w:
-            # chains carry no gram: gibbs_w forms the Gram blocks in place
-            gram, routed = state.gram if state.gram else (None, None)
-            w = gibbs_w(ms, state.leveldata, w, state.tausq_inv, state.XB,
-                        draws.z_w, gram=gram, routed=routed)
-        if cfg.sample_theta:
-            theta, logdetCi, leveldata, gram, pred_data, ram = ts(
-                state, w, draws)
-        else:
-            theta, logdetCi, leveldata = (state.theta, state.logdetCi,
-                                          state.leveldata)
-            gram, pred_data, ram = state.gram, state.pred_data, state.ram
-
+    def tail(self, state: MCMCState, w, theta, pred_data, draws: StepDraws,
+             predicting: bool):
+        """Prediction on a kept iteration, then the conjugate tail:
+        (w, tausq_inv, beta, XB)."""
+        ms, cfg = self.ms, self.cfg
         if predicting and cfg.sample_predicts and cfg.sample_w:
             # above 256 MB of prediction operators (pred_in_carry False)
             # they are rebuilt for the current theta at each kept iteration
             w = (predict(ms, pred_data, w, draws.z_pred) if ms.pred_in_carry
-                 else predict_recompute(ms, theta, w, draws.z_pred,
-                                        coords_cache))
+                 else predict_recompute(ms, theta, w, draws.z_pred, self.cc))
         tausq_inv, beta, XB = state.tausq_inv, state.beta, state.XB
         if cfg.sample_tausq and cfg.sample_beta:
             tausq_inv, beta, XB = gibbs_beta_tausq(
-                ms, w, state.XB, draws.g, draws.z_beta, cfg.tausq_ab, Vi, Vim)
+                ms, w, state.XB, draws.g, draws.z_beta, cfg.tausq_ab, self.Vi,
+                self.Vim)
         else:
             if cfg.sample_tausq:
-                tausq_inv = gibbs_tausq(ms, w, state.XB, draws.g, cfg.tausq_ab)
+                tausq_inv = gibbs_tausq(ms, w, state.XB, draws.g,
+                                        cfg.tausq_ab)
             if cfg.sample_beta:
-                beta, XB = gibbs_beta(ms, w, tausq_inv, draws.z_beta, Vi, Vim)
+                beta, XB = gibbs_beta(ms, w, tausq_inv, draws.z_beta, self.Vi,
+                                      self.Vim)
+        return w, tausq_inv, beta, XB
+
+
+def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
+              coords_cache=None, chains: bool = False):
+    """The single-iteration transition ``step(state, draws, predicting)``:
+    the JAX package's always-emit theta step, or its accept-aware step with
+    ``cfg.accept_aware``.  ``coords_cache`` is core.level_coords(ms), built
+    once per run.  Eager and functional: a new state, the input untouched.
+
+    ``chains=True``: the batched step of ``run_mcmc_chains`` over states
+    with a leading chain axis (``stack_chain_states``) and draws from
+    ``draw_chains``; always-emit unless ``cfg.accept_aware`` is True (None
+    resolves to off, as in the JAX package's vmapped chains)."""
+    parts = _Parts(ms, bounds, cfg, coords_cache, chains)
+
+    def theta_step(state: MCMCState, w, draws: StepDraws):
+        """The theta Metropolis step: (theta, logdetCi, leveldata, gram,
+        pred_data, ram)."""
+        theta, logdetCi, leveldata = state.theta, state.logdetCi, state.leveldata
+        gram, pred_data = state.gram, state.pred_data
+        prop, emitted, accepted, ram = parts.decide(state, w, draws)
+        accepted = bool(accepted.item())  # host sync
+        install = accepted
+        if accepted and parts.accept_aware:
+            # the factor-emitting rebuild; it installs only if its own
+            # Cholesky flag holds (it can differ from the decision's only at
+            # a borderline block), else the old state is kept
+            emitted, ok2 = parts.rebuild(state, prop, w)
+            install = bool(ok2.item())
+        if install:
+            # the factor swap and the state derived from the factors
+            new_ld, new_pj, new_logdet = emitted
+            theta, logdetCi, leveldata = prop, new_logdet, new_ld
+            gram, pred_data = parts.derived(prop, new_ld, new_pj, pred_data)
+        ram = ram._replace(propos_count=ram.propos_count + 1.0,
+                           accept_count=ram.accept_count + float(accepted))
+        return theta, logdetCi, leveldata, gram, pred_data, ram
+
+    def step(state: MCMCState, draws: StepDraws, predicting: bool) -> MCMCState:
+        w = parts.gibbs(state, draws)
+        theta, logdetCi, leveldata = (state.theta, state.logdetCi,
+                                      state.leveldata)
+        gram, pred_data, ram = state.gram, state.pred_data, state.ram
+        if cfg.sample_theta:
+            if chains:
+                theta, logdetCi, leveldata, pred_data, ram = \
+                    parts.theta_chains(state, w, draws)
+            else:
+                theta, logdetCi, leveldata, gram, pred_data, ram = \
+                    theta_step(state, w, draws)
+        w, tausq_inv, beta, XB = parts.tail(state, w, theta, pred_data, draws,
+                                            predicting)
         return MCMCState(w=w, beta=beta, tausq_inv=tausq_inv, XB=XB,
                          theta=theta, leveldata=leveldata, pred_data=pred_data,
                          logdetCi=logdetCi, ram=ram, it=state.it + 1, gram=gram)
 
     return step
+
+
+def _launch_counts():
+    """The hand-written kernels' launch counters (K1, K3, K4)."""
+    return (chol_ops.LAUNCHES, level_ops.LAUNCHES_GIBBS,
+            level_ops.LAUNCHES_DECISION)
+
+
+def _set_launch_counts(counts):
+    (chol_ops.LAUNCHES, level_ops.LAUNCHES_GIBBS,
+     level_ops.LAUNCHES_DECISION) = counts
+
+
+class _Graph:
+    """One part of the iteration captured in a CUDA graph on ``stream``
+    (memory from ``pool``): ``out`` holds what the part returned, in the
+    graph's own memory, which each replay overwrites.  A replay adds to the
+    kernels' launch counters what the capture's calls would have added; the
+    capture itself launches nothing and leaves them as they were.  A
+    capture that fails raises, naming the part: the error it wraps names
+    the operation that broke it."""
+
+    def __init__(self, name: str, fn, pool, stream):
+        before = _launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                self.out = fn()
+        except Exception as e:
+            raise RuntimeError(
+                f"capturing part {name} of the MCMC iteration in a CUDA graph "
+                f"failed: {type(e).__name__}: {e}") from e
+        finally:
+            after = _launch_counts()
+            _set_launch_counts(before)
+        self.launches = tuple(a - b for a, b in zip(after, before))
+
+    def replay(self):
+        self.graph.replay()
+        _set_launch_counts(tuple(
+            a + b for a, b in zip(_launch_counts(), self.launches)))
+
+
+def _copy_tree(dst, src):
+    """Copy every tensor leaf of ``src`` into the matching leaf of ``dst``
+    (nested tuples, None leaves skipped)."""
+    _tree_map(lambda d, s_: d.copy_(s_), dst, src)
+
+
+class StepRunner:
+    """The iteration of ``run_mcmc`` (``chains=0``) or ``run_mcmc_chains``
+    (``chains=C``) as the JAX package compiles it -- its carry donated,
+    its accept install and prediction behind ``lax.cond`` -- here as CUDA
+    graphs captured once and replayed, with no per-op host dispatch.
+
+    The carried state lives in static buffers (``state``, a copy of the
+    given one) that the graphs read and write in place; ``it``, the single
+    chain's accept counters and the warmup flag stay host values.
+    ``draw(out)`` fills the static draw buffers (``draw_step``/
+    ``draw_chains`` with ``out=``) before each iteration, outside the
+    graphs, so the graphed chain draws what the eager one draws.  The RAM
+    step size comes from a table indexed by a device iteration counter
+    (``ram_eta_table``, ``n_iters`` iterations from the state's).
+
+    One chain: the parts mirror the JAX package's ``lax.cond`` -- only the
+    branch taken runs.  A: gibbs_w, the proposal, its sweep (decision-only
+    on the accept-aware step), the MH decision on the device and the RAM
+    adaptation; the host reads the decision; R (accept-aware, on accept):
+    the factor-emitting rebuild, its ok flag read; I (on install): the
+    factor swap, the Gram blocks and the prediction operators; T: the
+    prediction (two variants: predicting or not) and the conjugate tail.
+    The install copies the proposal's factors (graph A's or R's output)
+    into the carried ones.  Chains: one graph per predicting variant for
+    the whole step, which reads nothing back; their selections write in
+    place into the carried buffers.
+
+    On a CUDA device the first graph-eligible iteration runs eagerly on a
+    side stream (the chain's own first iteration, with its own draws),
+    every other part is run once more there without writing the state,
+    and then every part is captured (``capture_s`` seconds; one shared
+    memory pool); later iterations replay.  With ``ram_reference_warmup``
+    the iterations up to the warmup's switch-on (``it`` <= G0) run eagerly,
+    as its branches follow the host's iteration count, and the capture
+    comes after them.  On the CPU, where there are no graphs, every part
+    runs as a plain call on the same buffers -- the capture-ready step,
+    run eagerly.  A mesh is refused: its collectives cannot be captured."""
+
+    def __init__(self, ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
+                 state: MCMCState, draw, chains: int = 0, n_iters: int = 0):
+        if ms.mesh is not None:
+            raise ValueError("CUDA graphs do not run on a mesh: its "
+                             "collectives cannot be captured (graphs=False)")
+        self.ms, self.cfg, self.C, self.draw = ms, cfg, chains, draw
+        self.P = _Parts(ms, bounds, cfg, level_coords(ms), bool(chains))
+        self.capture = ms.device.type == "cuda"
+        c = lambda x: _tree_map(torch.clone, x)
+        ram = state.ram
+        counts = ({} if not chains else dict(
+            propos_count=c(ram.propos_count), accept_count=c(ram.accept_count)))
+        self.state = state._replace(
+            w=c(state.w), beta=c(state.beta), tausq_inv=c(state.tausq_inv),
+            XB=c(state.XB), theta=c(state.theta), leveldata=c(state.leveldata),
+            pred_data=c(state.pred_data), logdetCi=c(state.logdetCi),
+            gram=c(state.gram), ram=ram._replace(
+                paramsd=c(ram.paramsd), prodparam=c(ram.prodparam), **counts))
+        nt = state.theta.shape[-1]
+        self.d = _draws_like(ms, nt, chains)
+        n_tab = state.it + n_iters
+        self.eta = torch.as_tensor(
+            ram_eta_table(nt, n_tab, cfg.ram_reference_warmup),
+            device=ms.device).to(ms.dtype)
+        self.it_dev = torch.full((1,), state.it, dtype=torch.long,
+                                 device=ms.device)
+        self.out = {}  # each part's outputs (graph memory once captured)
+        self.graphs = None
+        self.capture_s = 0.0
+        self.replays = 0
+
+    # -- the parts: each reads the static buffers, and with ``commit``
+    # writes its results into them --------------------------------------
+
+    def _eta(self, warm: bool):
+        # the step size at the device counter; None where the reference
+        # warmup's host branches still run (eager iterations only)
+        return None if warm else self.eta.index_select(
+            0, self.it_dev).reshape(())
+
+    def _commit_ram(self, ram):
+        s = self.state.ram
+        s.paramsd.copy_(ram.paramsd)
+        s.prodparam.copy_(ram.prodparam)
+        self.it_dev.add_(1)
+        return ram.started
+
+    def _part_A(self, commit=True, warm=False):
+        s, P = self.state, self.P
+        w = P.gibbs(s, self.d)
+        out = {}
+        if self.cfg.sample_theta:
+            prop, emitted, accepted, ram = P.decide(s, w, self.d,
+                                                    self._eta(warm))
+            out = dict(prop=prop, emitted=emitted, accepted=accepted)
+        if commit:
+            s.w.copy_(w)
+            if self.cfg.sample_theta:
+                out["started"] = self._commit_ram(ram)
+        return out
+
+    def _part_R(self, commit=True):
+        emitted, ok2 = self.P.rebuild(self.state, self.out["A"]["prop"],
+                                      self.state.w)
+        return dict(emitted=emitted, ok2=ok2)
+
+    def _part_I(self, commit=True):
+        s = self.state
+        src = self.out["R" if self.P.accept_aware else "A"]["emitted"]
+        prop = self.out["A"]["prop"]
+        new_ld, new_pj, new_logdet = src
+        gram, pred_data = self.P.derived(prop, new_ld, new_pj, s.pred_data)
+        if commit:
+            s.theta.copy_(prop)
+            s.logdetCi.copy_(new_logdet)
+            _copy_tree(s.leveldata, new_ld)
+            _copy_tree(s.gram, gram)
+            _copy_tree(s.pred_data, pred_data)
+        return {}
+
+    def _part_T(self, predicting, commit=True):
+        s = self.state
+        w, tausq_inv, beta, XB = self.P.tail(s, s.w, s.theta, s.pred_data,
+                                             self.d, predicting)
+        if commit:
+            s.w.copy_(w)
+            s.tausq_inv.copy_(tausq_inv)
+            s.beta.copy_(beta)
+            s.XB.copy_(XB)
+        return {}
+
+    def _part_C(self, predicting, commit=True, warm=False):
+        """The batched chains' whole step."""
+        s, P = self.state, self.P
+        w = P.gibbs(s, self.d)
+        theta, pred_data = s.theta, s.pred_data
+        out = {}
+        if self.cfg.sample_theta:
+            theta, _, _, pred_data, ram = P.theta_chains(
+                s, w, self.d, self._eta(warm), inplace=commit)
+        w, tausq_inv, beta, XB = P.tail(s, w, theta, pred_data, self.d,
+                                        predicting)
+        if commit:
+            if self.cfg.sample_theta:
+                out["started"] = self._commit_ram(ram)
+                s.ram.propos_count.copy_(ram.propos_count)
+                s.ram.accept_count.copy_(ram.accept_count)
+            s.w.copy_(w)
+            s.tausq_inv.copy_(tausq_inv)
+            s.beta.copy_(beta)
+            s.XB.copy_(XB)
+        return out
+
+    def _parts(self):
+        """{name: part function} of every part a graph is captured for."""
+        if self.C:
+            return {f"C{int(p)}": (lambda p=p, **k: self._part_C(p, **k))
+                    for p in (False, True)}
+        parts = {"A": self._part_A}
+        if self.cfg.sample_theta:
+            if self.P.accept_aware:
+                parts["R"] = self._part_R
+            parts["I"] = self._part_I
+        parts.update({f"T{int(p)}": (lambda p=p, **k: self._part_T(p, **k))
+                      for p in (False, True)})
+        return parts
+
+    def _run(self, name: str, fn, **kw):
+        if self.graphs is None:
+            self.out[name] = fn(**kw)
+        else:
+            self.graphs[name].replay()
+            self.replays += 1
+        return self.out[name]
+
+    # -- the iteration -----------------------------------------------------
+
+    def _iterate(self, predicting: bool, warm: bool = False, ran=None):
+        """One iteration through the parts (replayed once captured); the
+        names of the parts run go into ``ran``."""
+        ran = set() if ran is None else ran
+        s, cfg = self.state, self.cfg
+        if self.C:
+            name = f"C{int(predicting)}"
+            out = self._run(name, lambda: self._part_C(predicting, warm=warm))
+            ran.add(name)
+        else:
+            out = self._run("A", lambda: self._part_A(warm=warm))
+            ran.add("A")
+            if cfg.sample_theta:
+                accepted = bool(out["accepted"].item())  # host sync
+                install = accepted
+                if accepted and self.P.accept_aware:
+                    install = bool(self._run("R", self._part_R)["ok2"].item())
+                    ran.add("R")
+                if install:
+                    self._run("I", self._part_I)
+                    ran.add("I")
+                ram = s.ram
+                s = s._replace(ram=ram._replace(
+                    propos_count=ram.propos_count + 1.0,
+                    accept_count=ram.accept_count + float(accepted)))
+            name = f"T{int(predicting)}"
+            self._run(name, lambda: self._part_T(predicting))
+            ran.add(name)
+        if cfg.sample_theta and cfg.adapting and cfg.ram_reference_warmup:
+            # the warmup's flag, from the eager iterations (True once
+            # captured: capture comes after the switch-on)
+            s = s._replace(ram=s.ram._replace(
+                started=self.graphs is not None or out["started"]))
+        self.state = s._replace(it=s.it + 1)
+
+    def step(self, predicting: bool) -> MCMCState:
+        """One iteration; returns the state (the static buffers, which the
+        next iteration overwrites)."""
+        if self.state.it >= self.eta.shape[0]:
+            raise ValueError(f"StepRunner: iteration {self.state.it} is past "
+                             f"the {self.eta.shape[0]} it was built for")
+        self.draw(self.d)
+        warm = (self.cfg.ram_reference_warmup and self.cfg.adapting
+                and self.cfg.sample_theta and self.state.it <= G0)
+        if not self.capture or self.graphs is not None or warm:
+            self._iterate(predicting, warm=warm)
+        else:
+            self._warm_up_and_capture(predicting)
+        return self.state
+
+    def _warm_up_and_capture(self, predicting: bool):
+        side = torch.cuda.Stream(self.ms.device)
+        side.wait_stream(torch.cuda.current_stream(self.ms.device))
+        parts = self._parts()
+        with torch.cuda.stream(side):
+            ran = set()
+            self._iterate(predicting, ran=ran)
+            t0 = time.time()
+            # every part once on this stream before its capture, without
+            # writing the state and uncounted (not the chain's work); A
+            # ran first, so R and I have its output
+            counts = _launch_counts()
+            for name in [n for n in parts if n not in ran]:
+                self.out[name] = parts[name](commit=False)
+            _set_launch_counts(counts)
+        torch.cuda.current_stream(self.ms.device).wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        graphs = {}
+        for name, fn in parts.items():
+            graphs[name] = _Graph(name, fn, pool, side)
+            self.out[name] = graphs[name].out
+        self.graphs = graphs
+        torch.cuda.synchronize(self.ms.device)
+        self.capture_s = time.time() - t0
+
+    def release(self):
+        """Drop the graphs and their memory (the state stays)."""
+        self.graphs, self.out = None, {}
 
 
 def chunk_sizes(cfg: MCMCConfig):
@@ -799,12 +1187,47 @@ def _summary_result(res, acc: Moments, empty_shape):
         res["yhat"] = np.zeros(empty_shape)
 
 
+def _graphed(ms: ModelStatic, graphs) -> bool:
+    """Resolve run_mcmc's ``graphs``: None = on for CUDA without a mesh,
+    unless deterministic algorithms are on (their ``index_put_`` reads its
+    index range back to the host, which no graph can capture)."""
+    if graphs is None:
+        return (ms.device.type == "cuda" and ms.mesh is None
+                and not torch.are_deterministic_algorithms_enabled())
+    return bool(graphs)
+
+
+def _runner(ms, bounds, cfg, state, draw, chains):
+    """(StepRunner, its ``one(state, predicting)`` for ``_drive``, whether
+    the keep loop may drain pipelined: not where a reference warmup longer
+    than the burn would put the capture inside it, as no other thread may
+    touch the device while a graph is captured.  A capture at the first
+    kept iteration of a run without burn is safe: the drain's worker waits
+    on its empty queue until that chunk is queued)."""
+    _, ipc, _, n_burn_chunks = chunk_sizes(cfg)
+    burn_actual = n_burn_chunks * ipc
+    r = StepRunner(ms, bounds, cfg, state, draw, chains=chains,
+                   n_iters=burn_actual + cfg.keep * cfg.thin)
+    late = (r.capture and cfg.ram_reference_warmup and cfg.adapting
+            and cfg.sample_theta and G0 + 1 - state.it >= burn_actual)
+    return r, (lambda s, predicting: r.step(predicting)), not late
+
+
+def _graph_result(res: dict, runner):
+    """The capture's seconds (under the JAX package's key for its compile)
+    and the graph replays."""
+    res["compile_time_s"] = runner.capture_s if runner else 0.0
+    res["graph_replays"] = runner.replays if runner else 0
+    if runner is not None:
+        runner.release()
+
+
 def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
              state: MCMCState, gen: torch.Generator, verbose: bool = False,
              yhat_seed: int = 0, checkpoint_path: str | None = None,
              sink_dir: str | None = None, sink_append: bool = False,
              init_moments: Moments | None = None, base_counts=(0, 0),
-             yhat_rngs=None) -> dict:
+             yhat_rngs=None, graphs=None) -> dict:
     """Burn, then keep in chunks; returns host-side sample arrays.
 
     Burn runs ``n_burn_chunks * mc * thin`` iterations (``burn_actual``)
@@ -819,17 +1242,32 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     ``base_counts`` = (burn_done, kept_done) of the runs this one continues
     and ``init_moments`` their moments (``api.spamtree``'s resume).
     ``sink_dir``: w/yhat draws stream to files there instead of RAM
-    (``sink_append`` continues them)."""
-    step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms))
+    (``sink_append`` continues them).
+
+    ``graphs`` (default None: on for a CUDA model without a mesh, off
+    under ``torch.use_deterministic_algorithms``): each iteration runs as
+    replayed CUDA graphs (``StepRunner``), the same chain bit for bit;
+    ``res["compile_time_s"]`` holds the capture's seconds and
+    ``res["graph_replays"]`` the replays.  False runs the eager step
+    (``make_step``).  True on the CPU runs the capture-ready step's parts
+    as plain calls; on a mesh it raises.  ``state`` is not modified."""
     nt = state.theta.shape[0]
     shape = tausq_shape(ms, cfg.tausq_ab)
+    runner, pipeline = None, True
+    if _graphed(ms, graphs):
+        runner, one, pipeline = _runner(
+            ms, bounds, cfg, state,
+            lambda out: draw_step(ms, gen, nt, shape, out=out), 0)
+    else:
+        step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms))
 
-    def one(s, predicting):
-        return step(s, draw_step(ms, gen, nt, shape), predicting)
+        def one(s, predicting):
+            return step(s, draw_step(ms, gen, nt, shape), predicting)
 
     res = _drive(ms, cfg, state, one, gen, 0, verbose, yhat_seed,
                  checkpoint_path, sink_dir, sink_append, init_moments,
-                 base_counts, yhat_rngs)
+                 base_counts, yhat_rngs, pipeline)
+    _graph_result(res, runner)
     ram = res["state"].ram
     res["accept_ratio"] = ram.accept_count / max(ram.propos_count, 1)
     return res
@@ -840,7 +1278,7 @@ def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
                     yhat_seed: int = 0, checkpoint_path: str | None = None,
                     sink_dir: str | None = None, sink_append: bool = False,
                     init_moments: Moments | None = None, base_counts=(0, 0),
-                    yhat_rngs=None) -> dict:
+                    yhat_rngs=None, graphs=None) -> dict:
     """``run_mcmc`` for C chains in one batched step: ``states`` with a
     leading chain axis and ``gens`` their C generators
     (``stack_chain_states``).  The same chunk geometry, burn rounding,
@@ -854,20 +1292,29 @@ def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     n), beta (keep, C, p, q), tausq (keep, C, q), theta (keep, C, nt);
     ``accept_ratio`` over all chains and ``accept_by_chain`` (C,).  On a
     mesh with a chains axis, ``states`` and ``gens`` are this rank's
-    chains, contiguous in rank order, and the outputs hold every rank's."""
-    step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms),
-                     chains=True)
+    chains, contiguous in rank order, and the outputs hold every rank's.
+    ``graphs`` as in ``run_mcmc``: one graph per iteration variant
+    (predicting or not) on CUDA without a mesh."""
     C, nt = states.theta.shape
     if len(gens) != C:
         raise ValueError(f"{len(gens)} generators for {C} chains")
     shape = tausq_shape(ms, cfg.tausq_ab)
+    runner, pipeline = None, True
+    if _graphed(ms, graphs):
+        runner, one, pipeline = _runner(
+            ms, bounds, cfg, states,
+            lambda out: draw_chains(ms, gens, nt, shape, out=out), C)
+    else:
+        step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms),
+                         chains=True)
 
-    def one(s, predicting):
-        return step(s, draw_chains(ms, gens, nt, shape), predicting)
+        def one(s, predicting):
+            return step(s, draw_chains(ms, gens, nt, shape), predicting)
 
     res = _drive(ms, cfg, states, one, gens, C, verbose, yhat_seed,
                  checkpoint_path, sink_dir, sink_append, init_moments,
-                 base_counts, yhat_rngs)
+                 base_counts, yhat_rngs, pipeline)
+    _graph_result(res, runner)
     gather = _chain_gather(ms, C)
     acc = _host(gather(res["state"].ram.accept_count, 0))
     prop = _host(gather(res["state"].ram.propos_count, 0))
@@ -894,11 +1341,11 @@ def _check_theta(state: MCMCState):
 
 def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
            checkpoint_path, sink_dir, sink_append, init_moments, base_counts,
-           yhat_rngs) -> dict:
+           yhat_rngs, pipeline_ok=True) -> dict:
     """The chunked burn/keep loop of ``run_mcmc`` (``chains=0``) and
     ``run_mcmc_chains`` (``chains=C``): ``one(state, predicting)`` runs one
     iteration; ``gens`` (the generator, or the chains' list) is what a
-    checkpoint saves."""
+    checkpoint saves; ``pipeline_ok`` False drains sequentially."""
     if cfg.collect not in ("all", "summary"):
         raise ValueError(f"collect={cfg.collect!r}: 'all' or 'summary'")
     n = ms.n
@@ -976,7 +1423,7 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
     drained = 0
     # pipelined drain (see _drain_loop); sequential when checkpointing, so
     # the saved state never runs ahead of the drained samples
-    pipeline = checkpoint_path is None
+    pipeline = checkpoint_path is None and pipeline_ok
     ring = HostRing(_QUEUE_DEPTH + 1 if pipeline else 1, ms.device, mc)
 
     def _dispatch(ki):
@@ -997,9 +1444,12 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
                                 device=ms.device)
                 acc = _moments_add(ms, acc, state,
                                    z.narrow(0, c0, chains) if chains else z)
-            small.append((state.beta, 1.0 / state.tausq_inv, state.theta))
+            # copies: a graphed run's state is buffers the next iteration
+            # overwrites
+            small.append((state.beta.clone(), 1.0 / state.tausq_inv,
+                          state.theta.clone()))
             if not summary or (use_sub and j % sub_stride == 0):
-                ws.append(state.w[..., :n])
+                ws.append(state.w[..., :n].clone())
         iter_s += time.time() - t_it
         dev = {k: gather(torch.stack(v), 1)
                for k, v in zip(("beta", "tausq", "theta"), zip(*small))}

@@ -20,23 +20,19 @@ def lognormal_logdens(x, mu, sigma):
             - 0.5 * ((lx - mu) / sigma) ** 2)
 
 
-def _lgamma(x, a):
-    return torch.lgamma(torch.as_tensor(a, dtype=x.dtype, device=x.device))
-
-
 def gamma_logdens(x, a, b):
     """Shape a, rate b."""
-    return (a * math.log(b) - _lgamma(x, a) + (a - 1.0) * torch.log(x)
+    return (a * math.log(b) - math.lgamma(a) + (a - 1.0) * torch.log(x)
             - b * x)
 
 
 def invgamma_logdens(x, a, b):
-    return (a * math.log(b) - _lgamma(x, a) - (a + 1.0) * torch.log(x)
+    return (a * math.log(b) - math.lgamma(a) - (a + 1.0) * torch.log(x)
             - b / x)
 
 
 def beta_logdens(x, a, b):
-    lbeta = _lgamma(x, a) + _lgamma(x, b) - _lgamma(x, a + b)
+    lbeta = math.lgamma(a) + math.lgamma(b) - math.lgamma(a + b)
     return (a - 1.0) * torch.log(x) + (b - 1.0) * torch.log(1.0 - x) - lbeta
 
 

@@ -52,8 +52,22 @@ def ram_set_proposal(ram: RAMState, cov) -> RAMState:
     return ram._replace(paramsd=pa, prodparam=pa / (G0 + 1.0))
 
 
+def ram_eta(p: int, i: int) -> float:
+    """The step size of the rank-1 update at its i-th adapting iteration."""
+    return min(1.0, p * (i + 1.0) ** (-GAMMA))
+
+
+def ram_eta_table(p: int, n: int, reference_warmup: bool = False):
+    """(n,) float64 numpy: the step size ``ram_adapt`` takes at iterations
+    0..n-1 (0 where the reference warmup only accumulates), for a step that
+    reads it from the device instead of computing it from a host counter."""
+    off = G0 if reference_warmup else 0
+    return np.array([ram_eta(p, i - off) if i >= off else 0.0
+                     for i in range(n)], dtype=np.float64)
+
+
 def ram_adapt(state: RAMState, U: torch.Tensor, alpha: torch.Tensor, mc: int,
-              reference_warmup: bool = False) -> RAMState:
+              reference_warmup: bool = False, eta=None) -> RAMState:
     """One adaptation step at iteration ``mc``.
 
     Default: plain Vihola (2012) rank-1 coercion of the proposal factor from
@@ -62,17 +76,22 @@ def ram_adapt(state: RAMState, U: torch.Tensor, alpha: torch.Tensor, mc: int,
     iterations and replace the proposal factor with it at switch-on.
 
     ``U`` (p,) and ``alpha`` () for one chain, or (C, p) and (C,) with the
-    state's factors (C, p, p): each chain adapts its own factor."""
+    state's factors (C, p, p): each chain adapts its own factor.
+
+    ``eta``: the step size as a 0-d tensor of U's type (``ram_eta_table``'s
+    entry for ``mc``, read on the device) in place of ``ram_eta`` of the
+    host's ``mc``: the same value, rounded alike, and a CUDA graph can
+    replay it.  The warmup's branches still follow ``mc``."""
     p = U.shape[-1]
     outer = U[..., :, None] * U[..., None, :]
     # per-chain scalars against the (p, p) matrices
     mat = (lambda x: x) if U.dim() == 1 else (lambda x: x[..., None, None])
 
     def rank1(paramsd, i):
-        eta = min(1.0, p * (i + 1.0) ** (-GAMMA))
+        e = ram_eta(p, i) if eta is None else eta
         a = torch.clamp(alpha, max=1.0)
         Sigma = (torch.eye(p, dtype=U.dtype, device=U.device)
-                 + eta * mat(a - ALPHA_STAR) * outer
+                 + e * mat(a - ALPHA_STAR) * outer
                  / mat(torch.sum(U * U, dim=-1)))
         new_sd, info = torch.linalg.cholesky_ex(paramsd @ Sigma @ paramsd.mT)
         ok = (info == 0) & torch.isfinite(new_sd).flatten(-2).all(-1)

@@ -86,14 +86,16 @@ def vec_to_symmat(x: torch.Tensor, q: int) -> torch.Tensor:
     into a symmetric (q, q) matrix with zero diagonal
     (reference: covariance_functions.cpp:77-92); leading dimensions of
     ``x`` (a chain axis) lead the result."""
-    rows, cols = [], []
+    # stacked entry by entry: an index list would cross to the device as a
+    # host copy on every call, which a CUDA graph cannot capture
+    zero = x.new_zeros(x.shape[:-1])
+    low, k = {}, 0
     for j in range(q):
         for i in range(j + 1, q):
-            rows.append(i)
-            cols.append(j)
-    res = torch.zeros(x.shape[:-1] + (q, q), dtype=x.dtype, device=x.device)
-    if rows:
-        res[..., rows, cols] = x
+            low[(i, j)] = x[..., k]
+            k += 1
+    res = torch.stack([torch.stack([low.get((i, j), zero) for j in range(q)],
+                                   dim=-1) for i in range(q)], dim=-2)
     return res + res.mT
 
 

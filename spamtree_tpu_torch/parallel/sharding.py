@@ -39,7 +39,11 @@ import copy
 import numpy as np
 import torch
 
-from spamtree_tpu_torch.model.core import LevelArrays, ModelStatic
+from spamtree_tpu_torch.model.core import (
+    LevelArrays,
+    ModelStatic,
+    child_tables,
+)
 
 
 def _shard(lvl: LevelArrays, rank: int, n: int):
@@ -119,11 +123,14 @@ def shard_model(ms: ModelStatic, mesh) -> ModelStatic:
             pos, pos < Bp, b(ms.levels_full[t]), Bp // D, Bp // D)))
     sm.msg_local = [all(loc is not None for _, _, loc in routes.get(tp, []))
                     for tp in range(len(ms.levels_full))]
-    sm.anc_pos = {}
+    sm.anc_pos, n_par = {}, {}
     for tp, rs in routes.items():
+        Bp = ms.levels_full[tp].rows.shape[0]
         for (t, a), pos, loc in rs:
             sm.anc_pos[(t, a)] = own(loc if sm.msg_local[tp] else pos,
                                      ms.levels_full[t])
+            n_par[(t, a)] = Bp // D if sm.msg_local[tp] else Bp
+    sm.child_table = child_tables(sm.anc_pos, n_par)
     # gibbs_w's closing gather: the rows this rank samples, over all
     # levels, and every rank's in rank order
     sm.shard_rows_local = torch.cat([lvl.rows.reshape(-1)

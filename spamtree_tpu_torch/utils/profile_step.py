@@ -1,13 +1,20 @@
 """Where one MCMC iteration's time goes, on one CUDA card.
 
     python -m spamtree_tpu_torch.utils.profile_step [--config 3] [--iters 20]
-        [--ab k1|step|drain] [--chains 1,2,4]
+        [--ab k1|step|drain] [--chains 1,2,4] [--eager]
 
 Run from the repository root (it takes its data and the configuration's
 own keywords, such as config 5's ``limited_tree=True``, from ``bench.py``).
 Sets the chain up as ``spamtree`` does, runs warm-up iterations,
 then times runs of ``--iters`` iterations on the host clock (synchronised)
-with the variants of ``--ab`` in turns on the same chain:
+with the variants of ``--ab`` in turns, each on its own chain from the
+same start.  Every variant runs its iterations as ``run_mcmc`` does on the
+card: replayed CUDA graphs (``mcmc.StepRunner``, captured at the first
+iteration after the warm-up's first; ``--eager``: each variant also runs
+as the eager step, ``<variant>_eager``, in the same turns).  The profiler
+attributes the kernels of a replayed graph as it does eager launches (one
+device event per kernel node); each variant's line also carries its graph
+replays per iteration and its capture seconds:
 
 * ``k1`` (default): the always-emit step with kernel K1 and with its plain
   version, five rounds of (K1, plain, plain, K1);
@@ -16,7 +23,8 @@ with the variants of ``--ab`` in turns on the same chain:
   fused level kernels K3/K4 on (``SPAMTREE_LEVEL_KERNELS=1``), five rounds
   of (always-emit, accept-aware, accept-aware + kernels, and back).
 
-* ``drain``: whole ``run_mcmc`` runs at the configuration's own keep,
+* ``drain``: whole ``run_mcmc`` runs (graphed; eager with ``--eager``)
+  at the configuration's own keep,
   burn, thin and chunk instead of single iterations, all from one prepared
   chain and the same generator seed (so the same chain): collect="all"
   with the pipelined drain, the same with ``checkpoint_path`` (the
@@ -72,66 +80,65 @@ def main():
     ap.add_argument("--ab", choices=("k1", "step", "drain"), default="k1")
     ap.add_argument("--chains", default="",
                     help="comma-separated chain counts, e.g. 1,2,4")
+    ap.add_argument("--eager", action="store_true",
+                    help="also run every variant as the eager step")
     args = ap.parse_args()
     if args.chains:
         return chains_ab(args)
     if args.ab == "drain":
-        return drain_ab(args.config)
+        return drain_ab(args.config, args.eager)
 
     import bench
     from spamtree_tpu_torch.api import prepare_fit
-    from spamtree_tpu_torch.model.core import level_coords, tausq_shape
-    from spamtree_tpu_torch.model.mcmc import draw_step, make_step
 
     cfg = bench.CONFIGS[args.config]
     y, _, _, X, coords, mv = cfg["maker"]()
     fit = prepare_fit(y - np.nanmean(y), X, coords, mv_id=mv,
                       mcmc=dict(keep=1, burn=1, thin=1), device="cuda",
                       **cfg["kwargs"])
-    ms, state = fit.ms, fit.state
-    cc = level_coords(ms)
-    shape = tausq_shape(ms, fit.cfg.tausq_ab)
-    nt = state.theta.shape[0]
-    always_emit = make_step(ms, fit.bounds, fit.cfg, coords_cache=cc)
-    accept_aware = make_step(ms, fit.bounds,
-                             fit.cfg._replace(accept_aware=True),
-                             coords_cache=cc)
-    # name -> (step, K1 on, SPAMTREE_LEVEL_KERNELS)
+    ms = fit.ms
+    aa = fit.cfg._replace(accept_aware=True)
+    # name -> (config, K1 on, SPAMTREE_LEVEL_KERNELS)
     variants = {
-        "k1": {"k1": (always_emit, True, "0"),
-               "plain_chol": (always_emit, False, "0")},
-        "step": {"always_emit": (always_emit, True, "0"),
-                 "accept_aware": (accept_aware, True, "0"),
-                 "accept_aware_kernels": (accept_aware, True, "1")},
+        "k1": {"k1": (fit.cfg, True, "0"),
+               "plain_chol": (fit.cfg, False, "0")},
+        "step": {"always_emit": (fit.cfg, True, "0"),
+                 "accept_aware": (aa, True, "0"),
+                 "accept_aware_kernels": (aa, True, "1")},
     }[args.ab]
+    if args.eager:
+        variants |= {f"{k}_eager": v for k, v in variants.items()}
     names = list(variants)
     order = (names + names[::-1]) * 5
+    # each variant's own chain from the same start: graphs are captured
+    # with the variant's switches, at its first iteration past the first
+    chains = {k: Iterations(fit, v[0], graphs=not k.endswith("_eager"))
+              for k, v in variants.items()}
 
-    def run(s, k, name):
-        step, ms.use_kernel, gate = variants[name]
+    def run(k, name):
+        _, ms.use_kernel, gate = variants[name]
         os.environ["SPAMTREE_LEVEL_KERNELS"] = gate
-        for i in range(k):
-            s = step(s, draw_step(ms, fit.gen, nt, shape), i % 2 == 1)
-        torch.cuda.synchronize()
-        return s
+        chains[name](k)
 
-    state = run(state, args.warmup, names[-1])
+    for name in names:
+        run(args.warmup, name)
     ab = {k: [] for k in names}
     for name in order:
         t0 = time.time()
-        state = run(state, args.iters, name)
+        run(args.iters, name)
         ab[name].append(1e3 * (time.time() - t0) / args.iters)
-    traced = names[0] if args.ab == "k1" else names[-1]
+    graphed = [n for n in names if not n.endswith("_eager")]
+    traced = graphed[0] if args.ab == "k1" else graphed[-1]
 
     def trace(name):
         """Device time, kernel count and accept-sync time per iteration of
         ``--iters`` traced iterations of variant ``name``."""
-        nonlocal state
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
+        reps = chains[name].replays
         t0 = time.time()
         with torch.profiler.profile(activities=acts) as prof:
-            state = run(state, args.iters, name)
+            run(args.iters, name)
         wall = time.time() - t0
         rows, sync_us = [], 0.0
         for e in prof.key_averages():
@@ -149,7 +156,9 @@ def main():
                / 1e3 / args.iters for k, v in KERNELS.items()},
             sync_wait_ms_per_iter_traced=sync_us / 1e3 / args.iters,
             kernels_per_iter=sum(r[2] for r in rows) / args.iters,
-            traced_ms_per_iter=1e3 * wall / args.iters)
+            traced_ms_per_iter=1e3 * wall / args.iters,
+            graph_replays_per_iter=(chains[name].replays - reps) / args.iters,
+            capture_s=chains[name].capture_s)
 
     per_variant = {}
     for name in names:
@@ -163,11 +172,72 @@ def main():
         out[f"ms_per_iter_{name}"] = float(np.median(ab[name]))
         out[f"ab_runs_{name}"] = ab[name]
     out["per_variant"] = per_variant
-    out["accept"] = state.ram.accept_count / max(state.ram.propos_count, 1.0)
+    st = chains[traced].state
+    out["accept"] = st.ram.accept_count / max(st.ram.propos_count, 1.0)
     print(json.dumps(out))
     for name, us, count in rows[: args.top]:
         print(json.dumps(dict(kernel=name[:90], ms_per_iter=us / 1e3 / args.iters,
                               calls_per_iter=count / args.iters)))
+
+
+class Iterations:
+    """``it(k)``: k more iterations of one chain (predicting every other
+    one, as thin=2 keeps), synchronised at the end -- replayed CUDA graphs
+    (``mcmc.StepRunner``) with ``graphs``, else the eager step.  ``fit``
+    from ``api.prepare_fit``; ``chains`` C > 0: C chains stacked from its
+    state, generators seeded 1..C (one chain: ``fit.gen``).  ``replays``
+    and ``capture_s``: the runner's (0 eager); ``state``: the live state."""
+
+    def __init__(self, fit, cfg, chains: int = 0, graphs: bool = True,
+                 n_iters: int = 100_000):
+        from spamtree_tpu_torch.model.core import level_coords, tausq_shape
+        from spamtree_tpu_torch.model.mcmc import (
+            StepRunner,
+            draw_chains,
+            draw_step,
+            make_step,
+            stack_chain_states,
+        )
+
+        ms = fit.ms
+        shape = tausq_shape(ms, cfg.tausq_ab)
+        nt = fit.state.theta.shape[-1]
+        state, gens = fit.state, fit.gen
+        if chains:
+            state, gens = stack_chain_states(fit.state, 1 + np.arange(chains))
+        draw = ((lambda out=None: draw_chains(ms, gens, nt, shape, out=out))
+                if chains else
+                (lambda out=None: draw_step(ms, gens, nt, shape, out=out)))
+        self.runner = self.step = None
+        if graphs:
+            self.runner = StepRunner(ms, fit.bounds, cfg, state, draw,
+                                     chains=chains, n_iters=n_iters)
+        else:
+            self.step = make_step(ms, fit.bounds, cfg,
+                                  coords_cache=level_coords(ms),
+                                  chains=bool(chains))
+            self._state, self.draw = state, draw
+
+    def __call__(self, k: int):
+        for i in range(k):
+            if self.runner is not None:
+                self.runner.step(i % 2 == 1)
+            else:
+                self._state = self.step(self._state, self.draw(), i % 2 == 1)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    @property
+    def state(self):
+        return self.runner.state if self.runner is not None else self._state
+
+    @property
+    def replays(self):
+        return self.runner.replays if self.runner is not None else 0
+
+    @property
+    def capture_s(self):
+        return self.runner.capture_s if self.runner is not None else 0.0
 
 
 def _trace(run, iters):
@@ -191,13 +261,6 @@ def chains_ab(args):
     """``--chains`` (see the module docstring)."""
     import bench
     from spamtree_tpu_torch.api import prepare_fit
-    from spamtree_tpu_torch.model.core import level_coords, tausq_shape
-    from spamtree_tpu_torch.model.mcmc import (
-        draw_chains,
-        draw_step,
-        make_step,
-        stack_chain_states,
-    )
     from spamtree_tpu_torch.ops import chol, level
 
     c = bench.CONFIGS[args.config]
@@ -206,30 +269,20 @@ def chains_ab(args):
                       mcmc=dict(keep=1, burn=1, thin=1), device="cuda",
                       **c.get("kwargs", {}))
     ms = fit.ms
-    cc = level_coords(ms)
-    shape = tausq_shape(ms, fit.cfg.tausq_ab)
-    nt = fit.state.theta.shape[0]
-    single = make_step(ms, fit.bounds, fit.cfg, coords_cache=cc)
-    batched = make_step(ms, fit.bounds, fit.cfg, coords_cache=cc, chains=True)
-    batched_aa = make_step(ms, fit.bounds, fit.cfg._replace(accept_aware=True),
-                           coords_cache=cc, chains=True)
-    variants = {"single": (1, single, fit.state, fit.gen)}
+    aa = fit.cfg._replace(accept_aware=True)
+    # name -> (C, config); C = 0: the single chain's step
+    variants = {"single": (0, fit.cfg)}
     for C in (int(x) for x in args.chains.split(",")):
-        for tag, step in (("", batched), ("_aa", batched_aa)):
-            states, gens = stack_chain_states(fit.state, 1 + np.arange(C))
-            variants[f"C{C}{tag}"] = (C, step, states, gens)
-    live = {k: v[2] for k, v in variants.items()}
+        variants |= {f"C{C}": (C, fit.cfg), f"C{C}_aa": (C, aa)}
+    if args.eager:
+        variants |= {f"{k}_eager": v for k, v in variants.items()}
+    live = {k: Iterations(fit, cfg, chains=C,
+                          graphs=not k.endswith("_eager"))
+            for k, (C, cfg) in variants.items()}
     peak = {}
 
     def run(name, k):
-        C, step, _, gens = variants[name]
-        s = live[name]
-        for i in range(k):
-            d = (draw_step(ms, gens, nt, shape) if name == "single"
-                 else draw_chains(ms, gens, nt, shape))
-            s = step(s, d, i % 2 == 1)
-        torch.cuda.synchronize()
-        live[name] = s
+        live[name](k)
 
     names = list(variants)
     for name in names:  # warm-up, and each variant's peak memory
@@ -244,11 +297,13 @@ def chains_ab(args):
         ab[name].append(1e3 * (time.time() - t0) / args.iters)
     rows = {}
     for name in names:
-        C = variants[name][0]
+        C = max(variants[name][0], 1)
         chol.LAUNCHES = level.LAUNCHES_DECISION = 0
+        reps = live[name].replays
         run(name, args.iters)
         k1_launches = chol.LAUNCHES / args.iters
         k4_launches = level.LAUNCHES_DECISION / args.iters
+        replays = (live[name].replays - reps) / args.iters
         busy, kernels, k1_ms = _trace(lambda k: run(name, k), args.iters)
         med = float(np.median(ab[name]))
         rows[name] = dict(
@@ -257,6 +312,7 @@ def chains_ab(args):
             device_idle_share=1.0 - busy / med, kernels_per_iter=kernels,
             k1_launches_per_iter=k1_launches,
             k4_launches_per_iter=k4_launches, k1_ms_per_iter=k1_ms,
+            graph_replays_per_iter=replays, capture_s=live[name].capture_s,
             peak_gb=peak[name], ab_runs=ab[name])
         print(json.dumps(rows[name]), flush=True)
     print(json.dumps(dict(config=args.config, n=ms.n, iters=args.iters,
@@ -266,8 +322,9 @@ def chains_ab(args):
                                         "device_idle_share")})))
 
 
-def drain_ab(config: int):
-    """``--ab drain`` (see the module docstring)."""
+def drain_ab(config: int, eager: bool = False):
+    """``--ab drain`` (see the module docstring); graphed, or eager with
+    ``eager``."""
     import tempfile
 
     import bench
@@ -290,7 +347,7 @@ def drain_ab(config: int):
             gen = torch.Generator(device=fit.ms.device).manual_seed(1)
             ck = os.path.join(d, "ck.npz") if name == "sequential" else None
             r = run_mcmc(fit.ms, fit.bounds, cfg, fit.state, gen,
-                         checkpoint_path=ck)
+                         checkpoint_path=ck, graphs=not eager)
             rec = dict(mode=name, mcmc_time=r["mcmc_time"],
                        iter_s=r["iter_s"], save_s=r["save_s"],
                        drain_s=r["mcmc_time"] - r["iter_s"] - r["save_s"],
