@@ -177,11 +177,33 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    the chains one; at config 3's single always-emit chain two eager runs
    must give the same bits too (the messages are summed in a fixed
    order).  Each case prints, for both paths, ms/it and busy ms/it over a
-   window of 20 iterations (traced with torch.profiler), idle share,
+   window of 10 iterations (traced with torch.profiler), idle share,
    kernels (graph kernel nodes) and replays per iteration, the capture's
    seconds and the peak device memory of the run, and one chain's install
    (graph I replayed alone) in device ms beside the bytes it copies and
-   the device ms of those copies alone.
+   the device ms of those copies alone.  Then config 3's
+   always-emit chain alone and at C = 2, and config 5's limited tree on
+   both steps (accept-aware with the level kernels), graphed once more
+   under torch.use_deterministic_algorithms (CUBLAS_WORKSPACE_CONFIG set),
+   which must give the bits of the default graphed run and of the eager
+   run and the same launches, with its own window; config 3's and config 5's
+   always-emit chains graphed with the carry copied and donated
+   (run_mcmc(donate=True)): the same bits, the carried state's bytes and
+   each run's peak memory above its start; config 1 with the reference
+   warmup past a burn of 20, whose capture falls inside the keep loop:
+   the drain stays pipelined and the run has the bits of a checkpointed
+   (sequential) run and of the eager one;
+20. spamtree_predict's draws as replayed CUDA graphs: phase 8's config-5
+   fit at phase 11's 10^4 held-out rows (50 draws) and phase 5's config-3
+   fit, a full tree, at 2000 held-out rows (20 draws), each staged once
+   (api.stage_predict) and drawn through model.predict.DrawRunner eager
+   and graphed with the same seed: the same w_pred bits and the same K1
+   launches per draw (one per reference level that _joints_upto factors)
+   on both paths, and the graphed draws once more under
+   torch.use_deterministic_algorithms with the same bits and launches;
+   each prints ms/draw of the run, then ms/draw and busy ms/draw over a
+   window of 10 more draws (traced with torch.profiler), idle share, the
+   capture's seconds and the peak memory above the run's start.
 
 Kernel and plain times (the kernels record's ms and plain_ms) are CUDA
 events around eager calls of the wrappers the sweeps call, host time
@@ -205,7 +227,17 @@ runs phases 1-2 and phase 17 alone, with its one-process runs.
 
     python3 chip_smoke.py --graphs
 
-runs phases 1-2 and phase 19 alone.
+runs phases 1-2, phase 19 and phase 20 alone (phase 20 after its own
+config-5 and config-3 fits).
+
+    python3 chip_smoke.py --probe-writes
+
+runs the probe that chose the row writes, alone: every candidate for
+them at config 5's levels captured in a CUDA graph with deterministic
+algorithms off and on -- index_put_, index_copy_ and scatter_ a level at
+a time, put_rows once for all levels -- each held to index_put_'s bits,
+with its device ms or the error of its capture; put_rows must capture in
+both modes.
 
     python3 chip_smoke.py --times
 
@@ -2105,12 +2137,18 @@ def mesh_phase(bench, chol, level, torch):
 
 # (keep, burn, thin) of each graphed-against-eager pair: 50 iterations
 GRAPH_DEPTH = dict(keep=20, burn=10, thin=2)
-GRAPH_WINDOW = 20  # iterations timed, then traced, per path
+GRAPH_WINDOW = 10  # iterations timed, then traced, per path
 # (config, chains, accept-aware): one chain on both theta steps at configs
 # 1, 3 and 5; config 3's batched chains at C = 2 and 4 on both
 GRAPH_CASES = [(1, 0, False), (1, 0, True), (3, 0, False), (3, 0, True),
                (3, 2, False), (3, 2, True), (3, 4, False), (3, 4, True),
                (5, 0, False), (5, 0, True)]
+# run once more graphed under deterministic algorithms: config 3 alone and
+# chained, config 5's limited tree on both steps (K3/K4 when accept-aware)
+GRAPH_DET_CASES = [(3, 0, False), (3, 2, False), (5, 0, False),
+                   (5, 0, True)]
+# run graphed with the carry copied and donated, peak memory beside
+GRAPH_DONATE_CASES = [(3, 0, False), (5, 0, False)]
 
 
 def _leaves(x):
@@ -2122,10 +2160,10 @@ def _leaves(x):
     return []
 
 
-def _graph_pair(fit, cfg, C, chol, level, torch):
-    """run_mcmc (C = 0) or run_mcmc_chains eager, then graphed, from one
-    prepared chain with the same generator seeds: each run's result,
-    launch counts and peak device memory."""
+def _graph_pair(fit, cfg, C, chol, level, torch, paths=(False, True)):
+    """run_mcmc (C = 0) or run_mcmc_chains eager, then graphed (``paths``),
+    from one prepared chain with the same generator seeds: each run's
+    result, launch counts and peak device memory."""
     from spamtree_tpu_torch.model.mcmc import (
         run_mcmc,
         run_mcmc_chains,
@@ -2133,7 +2171,7 @@ def _graph_pair(fit, cfg, C, chol, level, torch):
     )
 
     out = {}
-    for graphs in (False, True):
+    for graphs in paths:
         _reset_counts(chol, level)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2207,6 +2245,237 @@ def _graph_window(torch, fit, cfg, C, graphs):
         del spare
     if r is not None:
         r.release()
+    return rec
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """torch.use_deterministic_algorithms(True) for a block, with the
+    cuBLAS workspace setting it asks for."""
+    with _env(CUBLAS_WORKSPACE_CONFIG=":4096:8"):
+        torch.use_deterministic_algorithms(True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def _det_case(fit, cfg, C, chol, level, torch, pair, what):
+    """Phase 19's graphed run once more under deterministic algorithms:
+    the bits of the default graphed run and of the eager one, the same
+    launches, and a window (ms/it, busy, idle)."""
+    import torch.utils.deterministic as tud
+
+    with _deterministic(torch):
+        d = _graph_pair(fit, cfg, C, chol, level, torch, paths=(True,))[True]
+        win = _graph_window(torch, fit, cfg, C, True)
+        # the same without deterministic mode's NaN fill of every new
+        # tensor, which the graphs replay too
+        fill = tud.fill_uninitialized_memory
+        tud.fill_uninitialized_memory = False
+        try:
+            win_nofill = _graph_window(torch, fit, cfg, C, True)
+        finally:
+            tud.fill_uninitialized_memory = fill
+    same_g = _same_chain(pair[True]["res"], d["res"])
+    same_e = _same_chain(pair[False]["res"], d["res"])
+    rec = dict(same_as_graphed=same_g[0], same_as_eager=same_e[0],
+               differs_in=same_g[1], counts=d["counts"],
+               capture_s=d["res"]["compile_time_s"], peak_gb=d["peak"] / 1e9,
+               window=win, window_no_fill=win_nofill)
+    print(json.dumps(dict(phase="graphs_deterministic", case=what, **rec)),
+          flush=True)
+    print(f"graphs table: {what}, deterministic algorithms: graphed "
+          f"{win['ms_per_iter']:.2f} ms/it (busy {win['busy_ms_per_iter']:.2f}"
+          f", idle {win['idle']:.3f}, {win['kernels_per_iter']:.1f} kernel "
+          f"nodes, capture {rec['capture_s']:.2f} s, peak "
+          f"{rec['peak_gb']:.2f} GB; without the NaN fill of new tensors "
+          f"{win_nofill['ms_per_iter']:.2f} ms/it, busy "
+          f"{win_nofill['busy_ms_per_iter']:.2f}, "
+          f"{win_nofill['kernels_per_iter']:.1f} nodes); same bits as the "
+          f"default graphed run {same_g[0]}, as the eager run {same_e[0]}",
+          flush=True)
+    _check(same_g[0] and same_e[0], f"graphs, {what}, deterministic: the "
+           f"chain differs in {same_g[1]} / {same_e[1]}")
+    _check(d["counts"] == pair[True]["counts"],
+           f"graphs, {what}, deterministic: launches {d['counts']}")
+    _check(d["res"]["graph_replays"] > 0, f"graphs, {what}, deterministic: "
+           "no graph replayed")
+    return rec
+
+
+def _donate_pair(fit, cfg, torch, what):
+    """run_mcmc graphed with the carry copied (donate=False) and donated (a
+    copy of the prepared state given up, made before the run), from one
+    prepared chain and the same seed: the carried state's bytes, each
+    run's peak device memory above what was allocated at its start, and
+    the same bits."""
+    from spamtree_tpu_torch.model.core import _tree_map
+    from spamtree_tpu_torch.model.mcmc import run_mcmc
+
+    st = fit.state
+    carried = _leaves((st.w, st.beta, st.tausq_inv, st.XB, st.theta,
+                       st.leveldata, st.pred_data, st.logdetCi, st.gram,
+                       st.ram.paramsd, st.ram.prodparam))
+    nbytes = sum(x.numel() * x.element_size() for x in carried)
+    out = {}
+    for donate in (False, True):
+        given = (_tree_map(lambda x: x.clone() if hasattr(x, "clone") else x,
+                           st) if donate else st)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=fit.ms.device).manual_seed(11)
+        res = run_mcmc(fit.ms, fit.bounds, cfg, given, gen, yhat_seed=1,
+                       donate=donate)
+        torch.cuda.synchronize()
+        out[donate] = dict(res=res, peak=torch.cuda.max_memory_allocated()
+                           - base, peak_abs=torch.cuda.max_memory_allocated())
+        del given
+    same, diff = _same_chain(out[False]["res"], out[True]["res"])
+    fall = out[False]["peak"] - out[True]["peak"]
+    rec = dict(state_bytes=nbytes, peak_cloned=out[False]["peak"],
+               peak_donated=out[True]["peak"],
+               peak_abs_cloned=out[False]["peak_abs"],
+               peak_abs_donated=out[True]["peak_abs"],
+               fall_over_state=fall / nbytes, same_bits=same)
+    print(json.dumps(dict(phase="graphs_donate", case=what, **rec)),
+          flush=True)
+    print(f"graphs table: {what}, donated carry: carried state "
+          f"{nbytes / 1e9:.3f} GB; the run's peak above its start "
+          f"{out[False]['peak'] / 1e9:.3f} GB copied, "
+          f"{out[True]['peak'] / 1e9:.3f} GB donated (fell by "
+          f"{fall / nbytes:.3f} x the state); same bits {same}", flush=True)
+    _check(same, f"graphs, {what}: the donated run differs in {diff}")
+    return rec
+
+
+def _late_capture_drain(bench, torch, tmp):
+    """Config 1 with the reference warmup and burn = 20, keep = 40, thin =
+    1, chunk = 4: the capture at iteration G0 + 1 falls inside the keep
+    loop while the drain thread works; the run must still drain pipelined
+    and give the bits of a checkpointed (sequential) run and of the eager
+    one."""
+    from spamtree_tpu_torch.api import prepare_fit
+    from spamtree_tpu_torch.model import mcmc
+
+    y, _, _, X, coords, mv = _data(bench, 1)
+    fit = prepare_fit(y - np.nanmean(y), X, coords, mv_id=mv, cell_size=25,
+                      mcmc=dict(keep=40, burn=20, thin=1), seed=1,
+                      settings=dict(chunk=4, wire_dtype="none",
+                                    ram_reference_warmup=True),
+                      device="cuda", **bench.CONFIGS[1].get("kwargs", {}))
+    seen, loop = [], mcmc._drain_loop
+
+    def spy(n, dispatch, drain, pipeline):
+        seen.append(pipeline)
+        return loop(n, dispatch, drain, pipeline)
+
+    mcmc._drain_loop = spy
+    try:
+        runs = [mcmc.run_mcmc(
+            fit.ms, fit.bounds, fit.cfg, fit.state,
+            torch.Generator(device="cuda").manual_seed(11), yhat_seed=1,
+            graphs=g, checkpoint_path=ck)
+            for g, ck in ((None, None), (None, os.path.join(tmp, "ck.pt")),
+                          (False, None))]
+    finally:
+        mcmc._drain_loop = loop
+    same = [_same_chain(runs[0], r)[0] for r in runs[1:]]
+    rec = dict(pipelined=seen, same_as_sequential=same[0],
+               same_as_eager=same[1], replays=runs[0]["graph_replays"],
+               it=runs[0]["state"].it)
+    print(json.dumps(dict(phase="late_capture_drain", **rec)), flush=True)
+    _check(seen == [True, False, True] and all(same)
+           and runs[0]["graph_replays"] > 0 and runs[0]["state"].it > 51,
+           f"late capture with the pipelined drain: {rec}")
+    return rec
+
+
+def _row_write_inputs(torch, n=1_000_000, pad=0.05, seed=3):
+    """A write of config 5's levels (CONFIG5_SHAPES, CONFIG5_THIN) into an
+    (n+1,) w: each level's (B, S) rows, distinct real rows with a share
+    ``pad`` of the slots padded to the sentinel n, and its values, masked
+    to 0 there as gibbs_w's are."""
+    rng = np.random.default_rng(seed)
+    shapes = CONFIG5_SHAPES + [(b, s_) for b, s_, _ in CONFIG5_THIN]
+    slots = sum(b * s_ for b, s_ in shapes)
+    real = rng.uniform(size=slots) >= pad
+    flat = np.full(slots, n, dtype=np.int64)
+    flat[real] = rng.choice(n, size=int(real.sum()), replace=False)
+    rows, vals, o = [], [], 0
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for b, s_ in shapes:
+        r = torch.as_tensor(flat[o: o + b * s_].reshape(b, s_),
+                            device="cuda")
+        o += b * s_
+        rows.append(r)
+        vals.append(torch.where(r < n, torch.randn(
+            (b, s_), generator=g, device="cuda"), 0.0))
+    return n, rows, vals, flat
+
+
+def probe_row_writes(torch):
+    """``--probe-writes``: every candidate for gibbs_w's row writes
+    at config 5's levels, captured in a CUDA graph with deterministic
+    algorithms off and then on -- ``index_put_`` (the write put_rows
+    replaced), ``index_copy_`` and ``scatter_``, one call a level, and
+    ``put_rows``, one gather through a RowTable for all levels.  Each is
+    first run eagerly and held bitwise to index_put_'s result; a capture
+    that fails is reported with its error, then the card is checked to
+    still run.  Prints one JSON record: device ms per write of all levels
+    (replayed), or the error; put_rows must capture in both modes and
+    give index_put_'s bits."""
+    from types import SimpleNamespace
+
+    from spamtree_tpu_torch.model.core import put_rows, row_table
+
+    n, rows, vals, flat = _row_write_inputs(torch)
+    table = row_table(flat, n, "cuda")
+    ms = SimpleNamespace(mesh=None)
+    w0 = torch.randn(n + 1, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(1))
+    w = w0.clone()
+    frows = [r.reshape(-1) for r in rows]
+    fvals = [v.reshape(-1) for v in vals]
+    cands = {
+        "put_rows": lambda: w.copy_(put_rows(ms, w, vals, table)),
+        "index_put_": lambda: [w.index_put_((r,), v)
+                               for r, v in zip(frows, fvals)],
+        "index_copy_": lambda: [w.index_copy_(0, r, v)
+                                for r, v in zip(frows, fvals)],
+        "scatter_": lambda: [w.scatter_(0, r, v)
+                             for r, v in zip(frows, fvals)],
+    }
+    w.copy_(w0)
+    cands["index_put_"]()
+    want = w.clone()
+    rec = dict(phase="row_write_probe", n=n, levels=len(rows),
+               slots=int(flat.size), bytes_w=4 * (n + 1))
+    for det in (False, True):
+        torch.use_deterministic_algorithms(det)
+        for name, f in cands.items():
+            key = f"{name}_{'det' if det else 'default'}"
+            w.copy_(w0)
+            f()
+            torch.cuda.synchronize()
+            same = bool(torch.equal(w, want))
+            try:
+                rec[key] = dict(ms=_graph_ms(torch, f, 10), same_bits=same)
+            except Exception as e:  # noqa: BLE001 (the probe's finding)
+                ok = float(torch.ones(8, device="cuda").sum()) == 8.0
+                rec[key] = dict(error=f"{type(e).__name__}: {e}"[:300],
+                                same_bits=same, card_runs_after=ok)
+    torch.use_deterministic_algorithms(False)
+    print(json.dumps(rec), flush=True)
+    print("row writes, device ms per write of config 5's "
+          f"{rec['levels']} levels: " + ", ".join(
+              f"{k} {v['ms']:.4f}" if "ms" in v else f"{k} not captured"
+              for k, v in rec.items() if isinstance(v, dict)), flush=True)
+    for mode in ("default", "det"):
+        r = rec[f"put_rows_{mode}"]
+        _check("ms" in r and r["same_bits"],
+               f"put_rows under the {mode} mode: {r}")
     return rec
 
 
@@ -2286,6 +2555,12 @@ def graphs_phase(bench, chol, level, torch):
         for k, v in per_it.items():
             _check(v[False] == v[True], f"graphs, {what}: {k} per iteration "
                    f"{v[True]} graphed, {v[False]} eager")
+        if (cfg_id, C, aa) in GRAPH_DET_CASES:
+            with _env(SPAMTREE_LEVEL_KERNELS="1" if aa else "0"):
+                rec["deterministic"] = _det_case(fit, cfg, C, chol, level,
+                                                 torch, pair, what)
+        if (cfg_id, C, aa) in GRAPH_DONATE_CASES:
+            rec["donate"] = _donate_pair(fit, cfg, torch, what)
         _check(per_it["k1_launches"][True] > 0, f"graphs, {what}: no K1")
         _check(not aa or C or per_it["k3_launches"][True] > 0,
                f"graphs, {what}: no K3 with the level kernels on")
@@ -2293,7 +2568,143 @@ def graphs_phase(bench, chol, level, torch):
         _check((reps <= 1.0) if C else (2.0 <= reps <= 4.0),
                f"graphs, {what}: {reps} replays an iteration")
         recs[(cfg_id, C, aa)] = rec
+    fits.clear()
+    _phase("graphs: a capture inside the keep loop, pipelined drain")
+    with tempfile.TemporaryDirectory() as tmp:
+        recs["late_capture"] = _late_capture_drain(bench, torch, tmp)
     return recs
+
+
+# -- phase 20: spamtree_predict's draws as replayed CUDA graphs -------------
+
+# (config, new rows m, draws): phase 8's config-5 fit as phase 11 predicts
+# from it, and phase 5's config-3 fit (a full tree: K1 at every reference
+# level up to the prediction parent, several shapes in one graph)
+PREDICT_CASES = [(5, 10_000, 50), (3, 2000, 20)]
+PREDICT_WINDOW = 10  # draws timed, then traced, per path
+
+
+def _predict_path(torch, chol, level, st, graphs, n_draws):
+    """spamtree_predict's draws of a staged prediction through a
+    DrawRunner, eager or graphed: the draws, the run's launches, seconds
+    and peak device memory above its start, then PREDICT_WINDOW more draws
+    timed on the host clock and PREDICT_WINDOW traced (busy ms, kernels
+    per draw)."""
+    from spamtree_tpu_torch.api import predict_draws
+    from spamtree_tpu_torch.model.predict import DrawRunner
+    from spamtree_tpu_torch.utils.profile_step import _trace
+
+    r = DrawRunner(st.ms, st.theta_draws.shape[1], st.new_pos, st.cc,
+                   graphs=graphs)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(chol, level)
+    t0 = time.time()
+    w = predict_draws(st, r, seed=1)
+    wall = time.time() - t0
+    counts = _counts(chol, level)
+    peak = torch.cuda.max_memory_allocated() - base
+
+    def window(k):
+        predict_draws(st._replace(sel=st.sel[:k]), r, seed=2)
+
+    window(2)
+    t0 = time.time()
+    window(PREDICT_WINDOW)
+    ms_draw = 1e3 * (time.time() - t0) / PREDICT_WINDOW
+    busy, kernels, _ = _trace(window, PREDICT_WINDOW)
+    rec = dict(ms_per_draw_run=1e3 * wall / n_draws, ms_per_draw=ms_draw,
+               busy_ms_per_draw=busy, idle=1.0 - busy / ms_draw,
+               kernels_per_draw=kernels, capture_s=r.capture_s,
+               replays=r.replays, peak_gb=peak / 1e9, **counts,
+               k1_per_draw=counts["k1_launches"] / n_draws)
+    r.release()
+    return w, rec
+
+
+def predict_phase(bench, chol, level, torch, fits):
+    """Phase 20: for each of PREDICT_CASES, the prediction staged once
+    (stage_predict) from the fit in ``fits`` at m held-out rows, then its
+    draws eager (graphs=False) and graphed (spamtree_predict's default on
+    the card) with the same seed: the same w_pred bits and K1 launches per
+    draw on both paths, one launch per reference level that _joints_upto
+    factors; each path's ms/draw, busy ms/draw, idle share, capture
+    seconds and peak memory."""
+    from spamtree_tpu_torch.api import stage_predict
+
+    recs = {}
+    for cfg_id, m, n_draws in PREDICT_CASES:
+        what = f"config {cfg_id}, m = {m}, {n_draws} draws"
+        _phase(f"predict: {what}, eager and graphed")
+        fit = fits[cfg_id]
+        y, _, miss, X, coords, mv = _data(bench, cfg_id)
+        pick = np.sort(np.random.default_rng(0).choice(
+            np.flatnonzero(miss), size=m, replace=False))
+        st = stage_predict(fit, y - np.nanmean(y), X, coords,
+                           coords_new=coords[pick], x_new=X[pick], mv_id=mv,
+                           mv_id_new=mv[pick], n_draws=n_draws,
+                           device="cuda")
+        out = {g: _predict_path(torch, chol, level, st, g, n_draws)
+               for g in (False, True)}
+        with _deterministic(torch):
+            out["det"] = _predict_path(torch, chol, level, st, True,
+                                       n_draws)
+        limited = fit["fit_config"]["limited_tree"]
+        per_draw = (1 if limited
+                    else fit["schedule"].pred_buckets[0].lp_level + 1)
+        same = bool(np.array_equal(out[False][0], out[True][0]))
+        same_det = bool(np.array_equal(out["det"][0], out[True][0]))
+        e, g, d = out[False][1], out[True][1], out["det"][1]
+        rec = dict(phase="predict_graphs", config=cfg_id, m=m,
+                   n_draws=n_draws, limited_tree=limited, same_bits=same,
+                   deterministic_same_bits=same_det,
+                   k1_per_draw_expected=per_draw, stage=st.breakdown,
+                   eager=e, graphed=g, graphed_deterministic=d)
+        print(json.dumps(rec), flush=True)
+        print(f"predict table: {what}: graphed {g['ms_per_draw']:.2f} "
+              f"ms/draw (busy {g['busy_ms_per_draw']:.2f}, idle "
+              f"{g['idle']:.3f}, capture {g['capture_s']:.2f} s, peak "
+              f"{g['peak_gb']:.2f} GB, the run's {g['ms_per_draw_run']:.2f} "
+              f"ms/draw); eager {e['ms_per_draw']:.2f} ms/draw (busy "
+              f"{e['busy_ms_per_draw']:.2f}, idle {e['idle']:.3f}, peak "
+              f"{e['peak_gb']:.2f} GB, the run's {e['ms_per_draw_run']:.2f}"
+              f"); K1 {g['k1_per_draw']:.2f} / {e['k1_per_draw']:.2f} a draw; "
+              f"graphed under deterministic algorithms "
+              f"{d['ms_per_draw']:.2f} ms/draw (busy "
+              f"{d['busy_ms_per_draw']:.2f}), same bits {same_det}",
+              flush=True)
+        _check(same, f"predict, {what}: graphed w_pred differs from eager")
+        _check(np.isfinite(out[True][0]).all()
+               and out[True][0].shape == (n_draws, m),
+               f"predict, {what}: w_pred")
+        _check(e["k1_launches"] == g["k1_launches"] == per_draw * n_draws,
+               f"predict, {what}: K1 launches {g['k1_launches']} graphed, "
+               f"{e['k1_launches']} eager, {per_draw} x {n_draws} expected")
+        _check(g["replays"] > 0 and g["capture_s"] > 0,
+               f"predict, {what}: no graph replayed")
+        _check(same_det and d["k1_launches"] == g["k1_launches"]
+               and d["replays"] > 0, f"predict, {what}: graphed under "
+               f"deterministic algorithms: same bits {same_det}, K1 "
+               f"{d['k1_launches']}, {d['replays']} replays")
+        recs[cfg_id] = rec
+        del st
+    return recs
+
+
+def _predict_fits(bench, chol, level, torch):
+    """Phase 20's fits when it runs alone (``--graphs``): phase 8's
+    config-5 run and phase 5's config-3 run."""
+    c5 = bench.CONFIGS[5]
+    _phase("predict: config 5 fit (phase 8's)")
+    fit5 = run_config(bench, chol, level, torch, 5, keep=c5["keep"] // 2,
+                      burn=c5["burn"] // 2, thin=c5["thin"],
+                      chunk=c5["chunk"],
+                      limited=c5["kwargs"]["limited_tree"])[2]
+    _phase("predict: config 3 fit (phase 5's)")
+    fit3 = run_config(bench, chol, level, torch, 3, keep=100, burn=200,
+                      thin=2)[2]
+    return {5: fit5, 3: fit3}
 
 
 def main() -> int:
@@ -2307,6 +2718,10 @@ def main() -> int:
     import spamtree_tpu_torch  # noqa: F401  (sets the f32 precision pins)
     from spamtree_tpu_torch.ops import _build, chol, level
 
+    if sys.argv[1:] == ["--probe-writes"]:
+        with _env(CUBLAS_WORKSPACE_CONFIG=":4096:8"):
+            probe_row_writes(torch)
+        return 0
     _phase("card")
     card_info(torch)
     _phase("build K1, K3, K4")
@@ -2323,6 +2738,8 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--graphs"]:
         graphs_phase(bench, chol, level, torch)
+        predict_phase(bench, chol, level, torch,
+                      _predict_fits(bench, chol, level, torch))
         return 0
     if sys.argv[1:] == ["--times"]:
         _phase("K1, K2, K3, K4 times")
@@ -2340,8 +2757,8 @@ def main() -> int:
     # the whole run near half its time limit
     run_config(bench, chol, level, torch, 1, keep=500, burn=500, thin=2)
     _phase("config 3")
-    r3, thin3, _ = run_config(bench, chol, level, torch, 3, keep=100,
-                              burn=200, thin=2)
+    r3, thin3, fit3 = run_config(bench, chol, level, torch, 3, keep=100,
+                                 burn=200, thin=2)
     _check(len(thin3) == 1, f"config 3 thin levels {thin3}")
     _phase(f"K3/K4 vs plain (config 3 thin level {thin3[0]})")
     lerr = check_level_kernels(level, torch, thin3[0])
@@ -2410,7 +2827,6 @@ def main() -> int:
     print(f"spamtree_predict: {r11['s_per_draw'] * 1e3:.2f} ms per draw, "
           f"K1 launches {r11['k1_launches']} for {r11['n_draws']} draws, "
           f"setup {r11['breakdown']}", flush=True)
-    del fit8
 
     c2, c4 = bench.CONFIGS[2], bench.CONFIGS[4]
     _phase("config 2, always-emit")
@@ -2441,6 +2857,8 @@ def main() -> int:
     mesh = mesh_phase(bench, chol, level, torch)
     aa = accept_aware_chains_phase(bench, chol, level, torch, ch)
     graphs_phase(bench, chol, level, torch)
+    r20 = predict_phase(bench, chol, level, torch, {5: fit8, 3: fit3})
+    del fit8, fit3
     print(f"chip_smoke: every phase passed in {time.time() - _T0:.1f} s",
           flush=True)
 
@@ -2462,6 +2880,8 @@ def main() -> int:
     # its level shapes, timed after the run.
     paths = {"config5_always_emit": r8, "config5_summary": r9,
              "config5_predict": r11, "config2": r2, "config4": r4,
+             "config5_predict_graphed": r20[5]["graphed"],
+             "config3_predict_graphed": r20[3]["graphed"],
              "config4_accept_aware": a4, "oracle_f64": ro} | {
                  f"config{i}_chains{C}": r for (i, C), r in ch["runs"].items()}
     # phase 17: each mesh run's launches per rank (each rank counts its

@@ -19,11 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from spamtree_tpu_torch.model.core import (
-    ModelStatic,
-    level_coords,
-    predict_recompute,
-)
+from spamtree_tpu_torch.model.core import ModelStatic, level_coords
 from spamtree_tpu_torch.model.mcmc import (
     MCMCConfig,
     chunk_sizes,
@@ -33,6 +29,7 @@ from spamtree_tpu_torch.model.mcmc import (
     stack_chain_states,
 )
 from spamtree_tpu_torch.model.params import auto_start_theta, make_theta_spec
+from spamtree_tpu_torch.model.predict import DrawRunner
 from spamtree_tpu_torch.model.tuning import (
     curvature_sd_from_lls,
     prepare_chain,
@@ -517,7 +514,7 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         sink_append=r is not None,
         init_moments=r.init_moments if r else None,
         base_counts=r.base_counts if r else (0, 0),
-        yhat_rngs=r.yhat_rngs if r else None)
+        yhat_rngs=r.yhat_rngs if r else None, donate=True)
     # the JAX package's key for the keep program's compile
     fit.setup_breakdown["keep_compile_s"] = round(res["compile_time_s"], 2)
     mv_id = (np.ones(len(fit.order), dtype=np.int64) if mv_id is None
@@ -597,11 +594,59 @@ def spamtree_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
     The conditional-normal draws come from a device generator seeded with
     ``seed``, one (n + m + 1,) vector per draw in draw order, so the draws
     do not depend on ``chunk``; the observation noise from a numpy
-    generator seeded with ``seed``.
+    generator seeded with ``seed``.  On a CUDA device each draw replays a
+    CUDA graph of one ``predict_recompute`` (``model.predict.DrawRunner``),
+    the eager loop's draws bit for bit.
 
     Returns dict(w_pred (S, m), yhat_pred (S, m), draw_indices,
-    predict_breakdown {tree_s, stage_s, draws_s}) in the row order of
-    ``coords_new``."""
+    predict_breakdown {tree_s, stage_s, draws_s, capture_s}) in the row
+    order of ``coords_new``."""
+    st = stage_predict(fit, y, x, coords, coords_new, x_new, mv_id=mv_id,
+                       mv_id_new=mv_id_new, n_draws=n_draws, device=device)
+    runner = DrawRunner(st.ms, st.theta_draws.shape[1], st.new_pos, st.cc)
+    t_ = time.time()
+    w_pred = predict_draws(st, runner, seed, chunk, verbose)
+    tb = dict(st.breakdown, draws_s=round(time.time() - t_, 3),
+              capture_s=round(runner.capture_s, 3))
+    runner.release()
+
+    # yhat = X_new beta_s (own margin) + w_new + tausq noise, on the host as
+    # the fit's yhat is
+    sel, m = st.sel, len(st.new_pos)
+    rng = np.random.default_rng(seed)
+    mvn0 = np.searchsorted(st.uniq, st.mv_id_new)
+    xb = np.einsum("np,spq->snq", st.x_new,
+                   st.beta_draws[sel])[:, np.arange(m), mvn0]
+    noise_sd = np.sqrt(st.tausq_draws[sel][:, mvn0])
+    yhat_pred = xb + w_pred + noise_sd * rng.standard_normal(w_pred.shape)
+    return {"w_pred": w_pred, "yhat_pred": yhat_pred, "draw_indices": sel,
+            "predict_breakdown": tb}
+
+
+class PredictStage(NamedTuple):
+    """``spamtree_predict``'s model over the augmented data and the fit's
+    draws mapped onto it (``stage_predict``)."""
+
+    ms: ModelStatic
+    cc: tuple  # level_coords(ms)
+    sel: np.ndarray  # the kept draws predicted from
+    w_draws: np.ndarray  # (S_all, n) the fit's, sorted rows, its dtype
+    theta_draws: np.ndarray  # (S_all, n_theta)
+    beta_draws: np.ndarray  # (S_all, p, q)
+    tausq_draws: np.ndarray  # (S_all, q)
+    w_src: torch.Tensor  # (n + m + 1,) each augmented row's fit row, or n
+    new_pos: np.ndarray  # the new rows' augmented positions, caller's order
+    x_new: np.ndarray
+    mv_id_new: np.ndarray
+    uniq: np.ndarray  # the fit's margin labels
+    breakdown: dict  # tree_s, stage_s
+
+
+def stage_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
+                  mv_id_new=None, n_draws=None,
+                  device="cuda") -> PredictStage:
+    """``spamtree_predict``'s checks, tree and model over the fit's data
+    with the new rows appended, and the fit's draws mapped onto it."""
     fc = fit.get("fit_config")
     if fc is None:
         raise ValueError("fit has no 'fit_config'; re-run spamtree() to use "
@@ -609,7 +654,7 @@ def spamtree_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but CUDA is not available")
-    w_draws = np.asarray(fit["w_mcmc"], dtype=np.float64)
+    w_draws = np.asarray(fit["w_mcmc"])
     theta_draws = np.asarray(fit["theta_mcmc"], dtype=np.float64)
     beta_draws = np.asarray(fit["beta_mcmc"], dtype=np.float64)
     tausq_draws = np.asarray(fit["tausq_mcmc"], dtype=np.float64)
@@ -721,37 +766,44 @@ def spamtree_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
     src = inv_fit_order[order[old_rows]]
     new_pos_sorted = np.flatnonzero(~old_rows)
     new_pos = new_pos_sorted[np.argsort(order[~old_rows] - n)]  # caller's order
+    # augmented sorted row r takes the fit's sorted row w_src[r]; the new
+    # rows and the sentinel take a zero appended at n
+    w_src = np.full(n_aug + 1, n, dtype=np.int64)
+    w_src[:n_aug][old_rows] = src
 
     sel = (np.linspace(0, S_all - 1, int(n_draws)).round().astype(int)
            if n_draws is not None and n_draws < S_all else np.arange(S_all))
-    S = len(sel)
-    new_pos_t = torch.as_tensor(new_pos, device=ms.device)
+    return PredictStage(ms, cc, sel, w_draws, theta_draws, beta_draws,
+                        tausq_draws, torch.as_tensor(w_src, device=ms.device),
+                        new_pos, x_new, mv_id_new, uniq, tb)
+
+
+def predict_draws(st: PredictStage, runner: DrawRunner, seed: int,
+                  chunk: int = 32, verbose: bool = False) -> np.ndarray:
+    """The (S, m) new-row draws of the kept draws ``st.sel`` through
+    ``runner`` (a ``DrawRunner`` of ``st.ms``),
+    ``chunk`` of them crossing to the device at a time and laid out on the
+    augmented rows there; z from a device generator seeded ``seed``, one
+    vector per draw in draw order."""
+    ms, sel = st.ms, st.sel
+    S, m, n_aug = len(sel), len(st.new_pos), ms.n
     gen = torch.Generator(device=ms.device).manual_seed(seed)
+    fill_z = lambda z: torch.randn(n_aug + 1, generator=gen, dtype=ms.dtype,
+                                   device=ms.device, out=z)
     w_pred = np.empty((S, m), dtype=np.float64)
-    t_ = time.time()
     for lo in range(0, S, chunk):
         idx = sel[lo: lo + chunk]
-        wb = np.zeros((len(idx), n_aug + 1))
-        wb[:, :n_aug][:, old_rows] = w_draws[idx][:, src]
-        wb_t = torch.as_tensor(wb, dtype=dt, device=ms.device)
-        th_t = torch.as_tensor(theta_draws[idx], dtype=dt, device=ms.device)
-        outs = []
+        w_fit = torch.as_tensor(st.w_draws[idx], device=ms.device).to(
+            ms.dtype)
+        wb_t = torch.cat([w_fit, w_fit.new_zeros(len(idx), 1)],
+                         dim=1).index_select(1, st.w_src)
+        th_t = torch.as_tensor(st.theta_draws[idx], dtype=ms.dtype,
+                               device=ms.device)
+        out = torch.empty((len(idx), m), dtype=ms.dtype, device=ms.device)
         for i in range(len(idx)):
-            z = torch.randn(n_aug + 1, generator=gen, dtype=dt,
-                            device=ms.device)
-            outs.append(predict_recompute(ms, th_t[i], wb_t[i], z,
-                                          cc)[new_pos_t])
-        w_pred[lo: lo + len(idx)] = torch.stack(outs).cpu().numpy()
+            out[i].copy_(runner.draw(th_t[i], wb_t[i], fill_z))
+        w_pred[lo: lo + len(idx)] = out.cpu().numpy()
         if verbose:
             print(f"[predict] draws {lo + len(idx)}/{S}")
-    tb["draws_s"] = round(time.time() - t_, 3)
+    return w_pred
 
-    # yhat = X_new beta_s (own margin) + w_new + tausq noise, on the host as
-    # the fit's yhat is
-    rng = np.random.default_rng(seed)
-    mvn0 = np.searchsorted(uniq, mv_id_new)
-    xb = np.einsum("np,spq->snq", x_new, beta_draws[sel])[:, np.arange(m), mvn0]
-    noise_sd = np.sqrt(tausq_draws[sel][:, mvn0])
-    yhat_pred = xb + w_pred + noise_sd * rng.standard_normal((S, m))
-    return {"w_pred": w_pred, "yhat_pred": yhat_pred, "draw_indices": sel,
-            "predict_breakdown": tb}

@@ -20,6 +20,11 @@ JAX package.
 
 Every padded slot of a level scatters into the sentinel row ``w[n]``; its
 values are masked to 0, so the duplicate writes agree and ``w[n]`` stays 0.
+The draws of a pass are written into w at once, as a gather through a
+table of the rows (``RowTable``, ``put_rows``): deterministic by
+construction, and as cheap with deterministic algorithms on as off, where
+``index_put_`` takes a sort-based path (~165x the gather's time at config
+5's levels on an H100, ``chip_smoke.py`` phase 19).
 
 The decision-only sweep of the accept-aware step (``sweep(decision_only=
 True)``) propagates joint factors only to sweep levels, lets a reference
@@ -83,6 +88,44 @@ class LevelData(NamedTuple):
 
     H: torch.Tensor  # (B, S, P) conditional mean operator
     prec: torch.Tensor  # (B, S, S) ref levels / (B, S) thin levels
+
+
+class RowTable(NamedTuple):
+    """Where a write of flat values lands in an (n+1,) w (``put_rows``):
+    ``hit`` (n+1,) bool marks the rows written, ``src`` (n+1,) int64 the
+    flat position each one takes its value from."""
+
+    hit: torch.Tensor
+    src: torch.Tensor
+
+
+def row_table(rows: np.ndarray, n: int, device) -> RowTable:
+    """The RowTable of a write of values at the flat ``rows`` (each real
+    row at most once; padded slots name the sentinel n, whose value is
+    taken from the first of them, all holding 0)."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+    u, first = np.unique(rows, return_index=True)
+    assert len(u) + int((rows == n).sum()) - int(n in u) == len(rows), \
+        "a row is written twice"
+    hit = np.zeros(n + 1, dtype=bool)
+    src = np.zeros(n + 1, dtype=np.int64)
+    hit[u], src[u] = True, first
+    return RowTable(torch.as_tensor(hit, device=device),
+                    torch.as_tensor(src, device=device))
+
+
+def put_rows(ms: "ModelStatic", w, vals, table: RowTable):
+    """A new w with the (..., B, S) draws ``vals`` (a list, in the order
+    of ``table``'s rows) written at their rows: a gather through the table
+    and a select, the same bits as ``w[..., rows] = vals`` with no scatter
+    (deterministic in either mode of ``torch.use_deterministic_algorithms``,
+    whose ``index_put_`` sorts its indices).
+    On a blocks mesh ``vals`` are this rank's shards, joined over the ranks
+    first (``table`` lists every rank's rows in rank order)."""
+    flat = torch.cat([v.flatten(-2) for v in vals], dim=-1)
+    if ms.mesh is not None:
+        flat = ms.mesh.cat_blocks(flat, flat.dim() - 1)
+    return torch.where(table.hit, flat.index_select(-1, table.src), w)
 
 
 class ModelStatic:
@@ -325,6 +368,14 @@ class ModelStatic:
         self.child_table = child_tables(
             self.anc_pos, {k: staged[self.seg_level[k[0]][k[1]]]["rows"]
                            .shape[0] for k in self.anc_pos})
+        # put_rows' tables: every level's rows in level order (gibbs_w,
+        # prior_sample_w), every prediction bucket's (predict)
+        self.level_rows = row_table(
+            np.concatenate([s["rows"].reshape(-1) for s in staged]), n,
+            self.device)
+        self.pred_rows = (row_table(np.concatenate(
+            [s["rows"].reshape(-1) for s in staged_pred]), n, self.device)
+            if staged_pred else None)
 
     def tausq_long(self, tausq_inv):
         """(n+1,) per-row noise precision ((C, n+1) for (C, q) chains);
@@ -1110,7 +1161,10 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
     On a blocks mesh each rank samples its shard of every level: the
     messages a level receives are summed over the ranks before it is
     sampled, and the sampled rows go to every rank at the end, so every
-    rank returns the whole new w."""
+    rank returns the whole new w.
+
+    No level reads w after the joint rows are built up front, so every
+    level's draws are written at the end, at once (``put_rows``)."""
     if routed is not None:
         assert gram is not None, "routed requires the matching gram blocks"
     if y is None:
@@ -1118,13 +1172,13 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
     cb = _chains(w, 1)
     assert not (cb and gram is not None), "batched chains carry no gram"
     pre = tuple(w.shape[:-1])
-    w = w.clone()
     tl = ms.tausq_long(tausq_inv)
     acc = {}  # per-parent-level accumulated messages {t: (Sigi, Smu)}
     # every wpar read sees pre-pass ancestor values (deeper updates never
     # touch shallower rows), so the joint w rows are built once up front
     wjs = _w_joints(ms, w, _wj_parents_needed(ms))
     aux = torch.stack([tl, tl * (y - XB), z], dim=-1)  # (..., n+1, 3)
+    wus = {}  # each level's draws
 
     for t in reversed(range(len(ms.levels))):
         lvl_full = ms.levels[t]
@@ -1157,7 +1211,7 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
             wu, msg_full = level_ops.thin_gibbs_level(
                 data.H.contiguous(), data.prec.contiguous(),
                 wpar.contiguous(), zz, ti, resid, lvl.rmask.to(ms.dtype))
-            w[lvl.rows] = wu
+            wus[t] = wu
             vs = tuple(msg_full[:, o : o + sa] + torch.einsum(
                 "bpq,bq->bp", gram_t[a], wpar[:, o : o + sa])
                 for a, (o, sa) in enumerate(zip(seg_off, seg_size)))
@@ -1165,7 +1219,7 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
                             vs_only=routed is not None)
             continue
 
-        def level_body(w, args, P=P, is_ref=is_ref, wj_src=wj_src,
+        def level_body(carry, args, P=P, is_ref=is_ref, wj_src=wj_src,
                        al=ms.level_aligned[t], gc=ms.level_group_c[t]):
             lvl, data, acc_sl, gram_sl = args
             B, S = lvl.rows.shape
@@ -1194,9 +1248,8 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
                 sig = data.prec + ti
                 wu = (data.prec * hw_prior + resid) / sig + zz / torch.sqrt(sig)
             wu = torch.where(lvl.rmask, wu, 0.0)
-            w[..., lvl.rows] = wu
             if P == 0:
-                return w, ()
+                return carry, (wu,)
             # messages to every ancestor (reference: .cpp:1158-1210):
             # msg_full = H' prec (w_u - H w_par) as two products; ancestor
             # a's rows are the static slice [off_a, off_a + s_a) of wpar
@@ -1217,28 +1270,16 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
                 vs.append(msg_full[..., o : o + sa] + torch.einsum(
                     "...bpq,...bq->...bp", G_aa, wpar[..., o : o + sa]))
                 Gs.append(G_aa)
-            return w, (tuple(Gs), tuple(vs))
+            return carry, (wu, tuple(Gs), tuple(vs))
 
-        w, outs = _run_level((lvl_full, leveldata[t], acc_t, gram_t),
-                             ms.level_chunks[t], w, level_body, cb,
-                             chained=(1, 2, 3))
+        _, (wus[t], *outs) = _run_level(
+            (lvl_full, leveldata[t], acc_t, gram_t), ms.level_chunks[t],
+            None, level_body, cb, chained=(1, 2, 3))
         if P > 0:
             _route_messages(ms, acc, t, outs, vs_only=routed is not None)
-    if ms.mesh is not None:
-        # every rank's sampled rows, one gather for all levels
-        w[..., ms.shard_rows] = ms.mesh.cat_blocks(
-            w[..., ms.shard_rows_local], cb)
-    return w
-
-
-def _put_rows(ms: ModelStatic, w, vals, lvl, lvl_whole):
-    """Write a level's (..., B, S) draws ``vals`` into w at ``lvl.rows``; on
-    a blocks mesh every rank's shard of them, gathered, at the whole
-    level's rows ``lvl_whole.rows``."""
-    if ms.mesh is None:
-        w[..., lvl.rows] = vals
-    else:
-        w[..., lvl_whole.rows] = ms.mesh.cat_blocks(vals, _chains(vals, 2))
+    # on a blocks mesh every rank's sampled rows, one gather for all levels
+    return put_rows(ms, w, [wus[t] for t in range(len(ms.levels))],
+                    ms.level_rows)
 
 
 def _wj_pred_need(ms: ModelStatic) -> set:
@@ -1258,16 +1299,15 @@ def predict(ms: ModelStatic, pred_data, w, z):
     w; the input is not modified.  Chains: (C, ...) operators, w and z."""
     if ms.pred_arrays is None or pred_data is None:
         return w
-    w = w.clone()
     wjs = _w_joints(ms, w, _wj_pred_need(ms))
+    wus = []
     for bi, (lvl, pd, al) in enumerate(zip(ms.pred_arrays, pred_data,
                                            ms.pred_aligned)):
         wpar = _wpar_from(_wj_src(ms, wjs, bi, pred=True), lvl.lp_pos, al, 1)
         mean = torch.einsum("...bsp,...bp->...bs", pd.H, wpar)
-        _put_rows(ms, w, torch.where(
-            lvl.rmask, mean + torch.sqrt(pd.prec) * z[..., lvl.rows], 0.0),
-            lvl, ms.pred_full[bi])
-    return w
+        wus.append(torch.where(
+            lvl.rmask, mean + torch.sqrt(pd.prec) * z[..., lvl.rows], 0.0))
+    return put_rows(ms, w, wus, ms.pred_rows)
 
 
 def _joints_upto(ms: ModelStatic, params, upto: int, coords_cache=None):
@@ -1338,8 +1378,8 @@ def predict_recompute(ms: ModelStatic, theta, w, z, coords_cache=None):
     params = unpack_theta(theta.to(ms.dtype), ms.spec)
     parent_joint = _joints_upto(ms, params, ms.pred_lp, coords_cache)
     gathered = {}
-    w = w.clone()
     wjs = _w_joints(ms, w, _wj_pred_need(ms))
+    wus = []
 
     def body(carry, args, bi, al=False):
         lvl, cxr, mvr, cxp, mvp = args
@@ -1366,8 +1406,8 @@ def predict_recompute(ms: ModelStatic, theta, w, z, coords_cache=None):
         _, (wu,) = _run_level((plvl, *cx), nc, None,
                               lambda c, a, bi=bi, al=al: body(c, a, bi, al),
                               cb)
-        _put_rows(ms, w, wu, plvl, ms.pred_full[bi])
-    return w
+        wus.append(wu)
+    return put_rows(ms, w, wus, ms.pred_rows)
 
 
 def prior_sample_w(ms: ModelStatic, leveldata, z):
@@ -1376,8 +1416,11 @@ def prior_sample_w(ms: ModelStatic, leveldata, z):
     conditional precisions (reference levels: L_u = chol(prec)^-T; thin
     levels: sqrt(1 / prec)).  ``z`` is the (n+1,) standard-normal draw;
     returns a new (n+1,) w.  Used by the Geweke test and for forward
-    simulation from a fitted tree."""
+    simulation from a fitted tree.  Each level reads its ancestors' rows,
+    so w is rewritten after each level, the levels not yet drawn as 0."""
     w = z.new_zeros(ms.n + 1)
+    wus = [torch.zeros(lvl.rows.shape, dtype=z.dtype, device=z.device)
+           for lvl in ms.levels]
     for t, lvl in enumerate(ms.levels):
         data = leveldata[t]
         zt = z[lvl.rows]
@@ -1389,8 +1432,8 @@ def prior_sample_w(ms: ModelStatic, leveldata, z):
             draw = tri_solve(Lp, zt[..., None], trans=True)[..., 0]
         else:
             draw = zt / torch.sqrt(data.prec)
-        _put_rows(ms, w, torch.where(lvl.rmask, mean + draw, 0.0), lvl,
-                  ms.levels_full[t])
+        wus[t] = torch.where(lvl.rmask, mean + draw, 0.0)
+        w = put_rows(ms, w, wus, ms.level_rows)
     return w
 
 

@@ -39,8 +39,10 @@ On a CUDA device without a mesh both run each iteration as CUDA graphs
 captured once per run and replayed (``StepRunner``, the counterpart of the
 JAX package's jitted ``lax.scan`` chunk): the carried state lives in
 static buffers, draws are filled outside the graphs, and the chain is the
-eager step's (``make_step``) bit for bit.  ``graphs=False`` runs the eager
-step; the CPU, a mesh and deterministic-algorithms mode run it by default.
+eager step's (``make_step``) bit for bit, under deterministic algorithms
+too.  ``graphs=False`` runs the eager step; the CPU and a mesh run it by
+default.  ``donate=True`` lets the run take the caller's state tensors as
+its buffers instead of copies (the JAX package donates its carry).
 
 On a mesh (a model from ``parallel.sharding.shard_model``) every rank runs
 this loop: a blocks group's ranks hold the same state and draw the same
@@ -508,23 +510,27 @@ def _set_launch_counts(counts):
 
 
 class _Graph:
-    """One part of the iteration captured in a CUDA graph on ``stream``
-    (memory from ``pool``): ``out`` holds what the part returned, in the
-    graph's own memory, which each replay overwrites.  A replay adds to the
-    kernels' launch counters what the capture's calls would have added; the
-    capture itself launches nothing and leaves them as they were.  A
-    capture that fails raises, naming the part: the error it wraps names
-    the operation that broke it."""
+    """One part of the iteration (or of a prediction draw, ``what``)
+    captured in a CUDA graph on ``stream`` (memory from ``pool``): ``out``
+    holds what the part returned, in the graph's own memory, which each
+    replay overwrites.  A replay adds to the kernels' launch counters what
+    the capture's calls would have added; the capture itself launches
+    nothing and leaves them as they were.  The capture bars host syncs on
+    its own thread only, so the keep loop's drain thread may wait on its
+    copies meanwhile.  A capture that fails raises, naming the part: the
+    error it wraps names the operation that broke it."""
 
-    def __init__(self, name: str, fn, pool, stream):
+    def __init__(self, name: str, fn, pool, stream,
+                 what: str = "the MCMC iteration"):
         before = _launch_counts()
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
                 self.out = fn()
         except Exception as e:
             raise RuntimeError(
-                f"capturing part {name} of the MCMC iteration in a CUDA graph "
+                f"capturing part {name} of {what} in a CUDA graph "
                 f"failed: {type(e).__name__}: {e}") from e
         finally:
             after = _launch_counts()
@@ -549,9 +555,11 @@ class StepRunner:
     its accept install and prediction behind ``lax.cond`` -- here as CUDA
     graphs captured once and replayed, with no per-op host dispatch.
 
-    The carried state lives in static buffers (``state``, a copy of the
-    given one) that the graphs read and write in place; ``it``, the single
-    chain's accept counters and the warmup flag stay host values.
+    The carried state lives in static buffers (``state``: a copy of the
+    given one, or with ``donate`` the given tensors themselves, which the
+    run then overwrites) that the graphs read and write in place; ``it``,
+    the single chain's accept counters and the warmup flag stay host
+    values.
     ``draw(out)`` fills the static draw buffers (``draw_step``/
     ``draw_chains`` with ``out=``) before each iteration, outside the
     graphs, so the graphed chain draws what the eager one draws.  The RAM
@@ -582,14 +590,15 @@ class StepRunner:
     run eagerly.  A mesh is refused: its collectives cannot be captured."""
 
     def __init__(self, ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
-                 state: MCMCState, draw, chains: int = 0, n_iters: int = 0):
+                 state: MCMCState, draw, chains: int = 0, n_iters: int = 0,
+                 donate: bool = False):
         if ms.mesh is not None:
             raise ValueError("CUDA graphs do not run on a mesh: its "
                              "collectives cannot be captured (graphs=False)")
         self.ms, self.cfg, self.C, self.draw = ms, cfg, chains, draw
         self.P = _Parts(ms, bounds, cfg, level_coords(ms), bool(chains))
         self.capture = ms.device.type == "cuda"
-        c = lambda x: _tree_map(torch.clone, x)
+        c = (lambda x: x) if donate else (lambda x: _tree_map(torch.clone, x))
         ram = state.ram
         counts = ({} if not chains else dict(
             propos_count=c(ram.propos_count), accept_count=c(ram.accept_count)))
@@ -1188,29 +1197,22 @@ def _summary_result(res, acc: Moments, empty_shape):
 
 
 def _graphed(ms: ModelStatic, graphs) -> bool:
-    """Resolve run_mcmc's ``graphs``: None = on for CUDA without a mesh,
-    unless deterministic algorithms are on (their ``index_put_`` reads its
-    index range back to the host, which no graph can capture)."""
+    """Resolve run_mcmc's ``graphs``: None = on for CUDA without a mesh."""
     if graphs is None:
-        return (ms.device.type == "cuda" and ms.mesh is None
-                and not torch.are_deterministic_algorithms_enabled())
+        return ms.device.type == "cuda" and ms.mesh is None
     return bool(graphs)
 
 
-def _runner(ms, bounds, cfg, state, draw, chains):
-    """(StepRunner, its ``one(state, predicting)`` for ``_drive``, whether
-    the keep loop may drain pipelined: not where a reference warmup longer
-    than the burn would put the capture inside it, as no other thread may
-    touch the device while a graph is captured.  A capture at the first
-    kept iteration of a run without burn is safe: the drain's worker waits
-    on its empty queue until that chunk is queued)."""
+def _runner(ms, bounds, cfg, state, draw, chains, donate):
+    """(StepRunner, its ``one(state, predicting)`` for ``_drive``).  The
+    drain may stay pipelined when the capture falls inside the keep loop (a
+    reference warmup longer than the burn): a capture bars host syncs on
+    its own thread only (``_Graph``)."""
     _, ipc, _, n_burn_chunks = chunk_sizes(cfg)
-    burn_actual = n_burn_chunks * ipc
     r = StepRunner(ms, bounds, cfg, state, draw, chains=chains,
-                   n_iters=burn_actual + cfg.keep * cfg.thin)
-    late = (r.capture and cfg.ram_reference_warmup and cfg.adapting
-            and cfg.sample_theta and G0 + 1 - state.it >= burn_actual)
-    return r, (lambda s, predicting: r.step(predicting)), not late
+                   n_iters=n_burn_chunks * ipc + cfg.keep * cfg.thin,
+                   donate=donate)
+    return r, (lambda s, predicting: r.step(predicting))
 
 
 def _graph_result(res: dict, runner):
@@ -1227,7 +1229,7 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
              yhat_seed: int = 0, checkpoint_path: str | None = None,
              sink_dir: str | None = None, sink_append: bool = False,
              init_moments: Moments | None = None, base_counts=(0, 0),
-             yhat_rngs=None, graphs=None) -> dict:
+             yhat_rngs=None, graphs=None, donate: bool = False) -> dict:
     """Burn, then keep in chunks; returns host-side sample arrays.
 
     Burn runs ``n_burn_chunks * mc * thin`` iterations (``burn_actual``)
@@ -1244,20 +1246,22 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     ``sink_dir``: w/yhat draws stream to files there instead of RAM
     (``sink_append`` continues them).
 
-    ``graphs`` (default None: on for a CUDA model without a mesh, off
-    under ``torch.use_deterministic_algorithms``): each iteration runs as
-    replayed CUDA graphs (``StepRunner``), the same chain bit for bit;
+    ``graphs`` (default None: on for a CUDA model without a mesh, with or
+    without ``torch.use_deterministic_algorithms``): each iteration runs
+    as replayed CUDA graphs (``StepRunner``), the same chain bit for bit;
     ``res["compile_time_s"]`` holds the capture's seconds and
     ``res["graph_replays"]`` the replays.  False runs the eager step
     (``make_step``).  True on the CPU runs the capture-ready step's parts
-    as plain calls; on a mesh it raises.  ``state`` is not modified."""
+    as plain calls; on a mesh it raises.  ``state`` is not modified,
+    unless ``donate=True``: the graphed run then keeps its carry in the
+    state's own tensors, with no copy, and overwrites them."""
     nt = state.theta.shape[0]
     shape = tausq_shape(ms, cfg.tausq_ab)
-    runner, pipeline = None, True
+    runner = None
     if _graphed(ms, graphs):
-        runner, one, pipeline = _runner(
+        runner, one = _runner(
             ms, bounds, cfg, state,
-            lambda out: draw_step(ms, gen, nt, shape, out=out), 0)
+            lambda out: draw_step(ms, gen, nt, shape, out=out), 0, donate)
     else:
         step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms))
 
@@ -1266,7 +1270,7 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
 
     res = _drive(ms, cfg, state, one, gen, 0, verbose, yhat_seed,
                  checkpoint_path, sink_dir, sink_append, init_moments,
-                 base_counts, yhat_rngs, pipeline)
+                 base_counts, yhat_rngs)
     _graph_result(res, runner)
     ram = res["state"].ram
     res["accept_ratio"] = ram.accept_count / max(ram.propos_count, 1)
@@ -1278,7 +1282,8 @@ def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
                     yhat_seed: int = 0, checkpoint_path: str | None = None,
                     sink_dir: str | None = None, sink_append: bool = False,
                     init_moments: Moments | None = None, base_counts=(0, 0),
-                    yhat_rngs=None, graphs=None) -> dict:
+                    yhat_rngs=None, graphs=None,
+                    donate: bool = False) -> dict:
     """``run_mcmc`` for C chains in one batched step: ``states`` with a
     leading chain axis and ``gens`` their C generators
     (``stack_chain_states``).  The same chunk geometry, burn rounding,
@@ -1293,17 +1298,17 @@ def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     ``accept_ratio`` over all chains and ``accept_by_chain`` (C,).  On a
     mesh with a chains axis, ``states`` and ``gens`` are this rank's
     chains, contiguous in rank order, and the outputs hold every rank's.
-    ``graphs`` as in ``run_mcmc``: one graph per iteration variant
-    (predicting or not) on CUDA without a mesh."""
+    ``graphs`` and ``donate`` as in ``run_mcmc``: one graph per iteration
+    variant (predicting or not) on CUDA without a mesh."""
     C, nt = states.theta.shape
     if len(gens) != C:
         raise ValueError(f"{len(gens)} generators for {C} chains")
     shape = tausq_shape(ms, cfg.tausq_ab)
-    runner, pipeline = None, True
+    runner = None
     if _graphed(ms, graphs):
-        runner, one, pipeline = _runner(
+        runner, one = _runner(
             ms, bounds, cfg, states,
-            lambda out: draw_chains(ms, gens, nt, shape, out=out), C)
+            lambda out: draw_chains(ms, gens, nt, shape, out=out), C, donate)
     else:
         step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms),
                          chains=True)
@@ -1313,7 +1318,7 @@ def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
 
     res = _drive(ms, cfg, states, one, gens, C, verbose, yhat_seed,
                  checkpoint_path, sink_dir, sink_append, init_moments,
-                 base_counts, yhat_rngs, pipeline)
+                 base_counts, yhat_rngs)
     _graph_result(res, runner)
     gather = _chain_gather(ms, C)
     acc = _host(gather(res["state"].ram.accept_count, 0))
@@ -1341,11 +1346,11 @@ def _check_theta(state: MCMCState):
 
 def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
            checkpoint_path, sink_dir, sink_append, init_moments, base_counts,
-           yhat_rngs, pipeline_ok=True) -> dict:
+           yhat_rngs) -> dict:
     """The chunked burn/keep loop of ``run_mcmc`` (``chains=0``) and
     ``run_mcmc_chains`` (``chains=C``): ``one(state, predicting)`` runs one
     iteration; ``gens`` (the generator, or the chains' list) is what a
-    checkpoint saves; ``pipeline_ok`` False drains sequentially."""
+    checkpoint saves."""
     if cfg.collect not in ("all", "summary"):
         raise ValueError(f"collect={cfg.collect!r}: 'all' or 'summary'")
     n = ms.n
@@ -1423,7 +1428,7 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
     drained = 0
     # pipelined drain (see _drain_loop); sequential when checkpointing, so
     # the saved state never runs ahead of the drained samples
-    pipeline = checkpoint_path is None and pipeline_ok
+    pipeline = checkpoint_path is None
     ring = HostRing(_QUEUE_DEPTH + 1 if pipeline else 1, ms.device, mc)
 
     def _dispatch(ki):

@@ -43,6 +43,7 @@ from spamtree_tpu_torch.model.core import (
     LevelArrays,
     ModelStatic,
     child_tables,
+    row_table,
 )
 
 
@@ -131,13 +132,16 @@ def shard_model(ms: ModelStatic, mesh) -> ModelStatic:
                                      ms.levels_full[t])
             n_par[(t, a)] = Bp // D if sm.msg_local[tp] else Bp
     sm.child_table = child_tables(sm.anc_pos, n_par)
-    # gibbs_w's closing gather: the rows this rank samples, over all
-    # levels, and every rank's in rank order
-    sm.shard_rows_local = torch.cat([lvl.rows.reshape(-1)
-                                     for lvl in sm.levels])
-    sm.shard_rows = torch.cat([
-        torch.cat([_shard(lvl, k, D)[0].rows.reshape(-1)
-                   for lvl in ms.levels_full]) for k in range(D)])
+    # put_rows' tables on the mesh: each rank writes its shards of every
+    # level (bucket), joined over the ranks, so the rows are every rank's
+    # shards in rank order
+    def rows_by_rank(full):
+        return np.concatenate([host(_shard(lvl, k, D)[0].rows).reshape(-1)
+                               for k in range(D) for lvl in full])
+
+    sm.level_rows = row_table(rows_by_rank(ms.levels_full), ms.n, ms.device)
+    if ms.pred_full is not None:
+        sm.pred_rows = row_table(rows_by_rank(ms.pred_full), ms.n, ms.device)
     sm.mesh = mesh
     return sm
 

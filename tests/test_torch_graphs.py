@@ -22,9 +22,16 @@ outside.
 * A replay adds to the kernels' launch counters what an eager call adds
   (a stub graph); a failed capture raises naming its part; a mesh is
   refused.
+* Under deterministic algorithms the emulated capture gives the same
+  bits, and graphs stay the default on a CUDA model; ``put_rows``, the
+  row write that replaced ``index_put_``, gives its bits on every level.
+* A capture inside the keep loop (the reference warmup past a short
+  burn) keeps the pipelined drain, with the sequential drain's bits; a
+  donated state is the run's carry, with the copied state's bits.
 """
 
 import contextlib
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -180,10 +187,15 @@ def _host_read_guard():
     """Raise on what a CUDA graph cannot capture: a read of a device value
     by the host (item, bool, cpu, numpy, tolist, float, int, index) and a
     host-to-device copy (as_tensor or tensor of host data, an index given
-    as a Python list, a Python number assigned into a tensor)."""
+    as a Python list, a Python number assigned into a tensor) -- on the
+    capturing thread only, as a capture in ``thread_local`` mode bars
+    them (the drain thread may run meanwhile)."""
+    capturing = threading.get_ident()
 
-    def boom(what):
+    def boom(what, orig=None):
         def f(*a, **k):
+            if threading.get_ident() != capturing:
+                return orig(*a, **k)
             raise AssertionError(f"{what} inside a captured part")
         return f
 
@@ -191,6 +203,8 @@ def _host_read_guard():
                                    torch.Tensor.__setitem__)
 
     def guarded_as_tensor(data, *a, **k):
+        if threading.get_ident() != capturing:
+            return as_tensor(data, *a, **k)
         if not isinstance(data, torch.Tensor):
             raise AssertionError("torch.as_tensor of host data inside a "
                                  "captured part")
@@ -202,10 +216,13 @@ def _host_read_guard():
             raise AssertionError("an index list inside a captured part")
 
     def guarded_getitem(self, idx):
-        no_lists(idx)
+        if threading.get_ident() == capturing:
+            no_lists(idx)
         return getitem(self, idx)
 
     def guarded_setitem(self, idx, v):
+        if threading.get_ident() != capturing:
+            return setitem(self, idx, v)
         no_lists(idx)
         if not isinstance(v, torch.Tensor):
             raise AssertionError("a host value assigned into a tensor inside "
@@ -215,11 +232,12 @@ def _host_read_guard():
     with pytest.MonkeyPatch.context() as mp:
         for name in ("item", "__bool__", "cpu", "numpy", "tolist",
                      "__float__", "__int__", "__index__"):
-            mp.setattr(torch.Tensor, name, boom(f"Tensor.{name}"))
+            mp.setattr(torch.Tensor, name, boom(f"Tensor.{name}",
+                                                getattr(torch.Tensor, name)))
         mp.setattr(torch.Tensor, "__getitem__", guarded_getitem)
         mp.setattr(torch.Tensor, "__setitem__", guarded_setitem)
         mp.setattr(torch, "as_tensor", guarded_as_tensor)
-        mp.setattr(torch, "tensor", boom("torch.tensor"))
+        mp.setattr(torch, "tensor", boom("torch.tensor", torch.tensor))
         yield
 
 
@@ -321,6 +339,32 @@ def test_emulated_capture_equals_eager(case, emulated_capture):
     once, with no host read inside, and replayed 2-4 times an iteration
     (one chain) or once (chains); the kernel wrappers were called as often
     on both paths (the dry runs before the capture are not counted)."""
+    _emulated_vs_eager(case, emulated_capture)
+
+
+@contextlib.contextmanager
+def _deterministic():
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.parametrize("case", ["always_emit", "accept_aware",
+                                  "level_kernels_accept_aware", "chains2",
+                                  "chains2_accept_aware"])
+def test_emulated_capture_equals_eager_deterministic(case,
+                                                     emulated_capture):
+    """test_emulated_capture_equals_eager with
+    ``torch.use_deterministic_algorithms(True)``: the graphed runs, their
+    row writes through ``put_rows`` included, capture with no host read
+    and give the eager bits."""
+    with _deterministic():
+        _emulated_vs_eager(case, emulated_capture)
+
+
+def _emulated_vs_eager(case, emulated_capture):
     with _env(CASES[case].get("env", {})):
         fit, cfg, state = _fit(case, torch.float64)
         runs, counts = [], []
@@ -343,6 +387,106 @@ def test_emulated_capture_equals_eager(case, emulated_capture):
     replayed_its = it - 1 - (G0 + 1 if case == "reference_warmup" else 0)
     reps = graphed["graph_replays"] / replayed_its
     assert (reps == 1.0) if C else (2.0 <= reps <= 4.0), reps
+
+
+@pytest.mark.parametrize("limited", [False, True], ids=["full", "limited"])
+@pytest.mark.parametrize("C", [0, 2], ids=["one_chain", "chains2"])
+def test_put_rows_equals_index_put(limited, C):
+    """put_rows (a gather through a RowTable) against ``w[..., rows] =
+    vals`` (index_put_), bit for bit: every level alone through its own
+    table, all levels through ModelStatic's table, all prediction buckets
+    through its other; the values masked to 0 on padded slots, as every
+    caller's are, the sentinel row among those written."""
+    fit, _, _ = _fit("limited_tree" if limited else "always_emit",
+                     torch.float64)
+    ms = fit.ms
+    rng = np.random.default_rng(3)
+    lead = (C,) if C else ()
+    w = torch.as_tensor(rng.normal(size=lead + (ms.n + 1,)))
+    groups = [(ms.levels, ms.level_rows), (ms.pred_arrays, ms.pred_rows)]
+    assert ms.pred_arrays and any(bool((~lv.rmask).any())
+                                  for lv in ms.levels)
+    for lvls, table in groups:
+        vals = [torch.where(lv.rmask, torch.as_tensor(rng.normal(
+            size=lead + tuple(lv.rows.shape))), 0.0) for lv in lvls]
+        want = w.clone()
+        for lv, v in zip(lvls, vals):
+            want[..., lv.rows] = v
+            one = w.clone()
+            one[..., lv.rows] = v
+            assert torch.equal(ct.put_rows(ms, w, [v], ct.row_table(
+                lv.rows.numpy(), ms.n, "cpu")), one)
+        assert torch.equal(ct.put_rows(ms, w, vals, table), want)
+    with pytest.raises(AssertionError, match="twice"):
+        ct.row_table(np.array([0, 1, 0]), ms.n, "cpu")
+
+
+def test_late_capture_keeps_pipelined_drain(emulated_capture, monkeypatch,
+                                            tmp_path):
+    """burn = 20 with the reference warmup: the capture comes at iteration
+    G0 + 1, inside the keep loop, while the drain thread works on earlier
+    chunks; the keep loop still drains pipelined, with the bits of the
+    sequential drain (a checkpointed run) and of the eager step."""
+    y, X, coords, mv = _data()
+    fit = prepare_fit(y, X, coords, mv_id=mv, cell_size=16, K=2, seed=7,
+                      device="cpu", dtype=torch.float64,
+                      mcmc=dict(keep=40, burn=20, thin=1),
+                      settings=dict(chunk=4, wire_dtype="none",
+                                    ram_reference_warmup=True))
+    seen = []
+    drain_loop = mt._drain_loop
+
+    def spy(n, dispatch, drain, pipeline):
+        seen.append(pipeline)
+        return drain_loop(n, dispatch, drain, pipeline)
+
+    monkeypatch.setattr(mt, "_drain_loop", spy)
+    runs = [mt.run_mcmc(fit.ms, fit.bounds, fit.cfg, fit.state,
+                        torch.Generator().manual_seed(5), yhat_seed=3,
+                        graphs=g, checkpoint_path=ck)
+            for g, ck in ((True, None),
+                          (True, str(tmp_path / "ck.pt")), (False, None))]
+    assert seen == [True, False, True], seen
+    assert emulated_capture.captured[:1] == ["A"]
+    assert runs[0]["burn_actual"] == 20 and runs[0]["state"].it > G0 + 1
+    assert runs[0]["graph_replays"] > 0
+    _same_bits(runs[1], runs[0], "pipelined vs sequential")
+    _same_bits(runs[2], runs[0], "graphed vs eager")
+
+
+@pytest.mark.parametrize("case", ["always_emit", "chains2"])
+def test_donated_state_is_the_carry(case):
+    """donate=True: the run keeps its carry in the given state's tensors
+    (the final state is them) and gives the bits of donate=False, which
+    leaves its state as it was."""
+    fit, cfg, state = _fit(case, torch.float64)
+    C = CASES[case].get("chains", 0)
+    if C:
+        state, _ = mt.stack_chain_states(state, 5 + np.arange(C))
+    before = [x.clone() for x in _leaves(state)]
+    runs = []
+    for donate in (False, True):
+        given = ct._tree_map(lambda x: x.clone() if isinstance(
+            x, torch.Tensor) else x, state) if donate else state
+        if C:
+            gens = [torch.Generator().manual_seed(int(5 + c))
+                    for c in range(C)]
+            res = mt.run_mcmc_chains(fit.ms, fit.bounds, cfg, given, gens,
+                                     yhat_seed=3, graphs=True, donate=donate)
+        else:
+            res = mt.run_mcmc(fit.ms, fit.bounds, cfg, given,
+                              torch.Generator().manual_seed(5), yhat_seed=3,
+                              graphs=True, donate=donate)
+        runs.append(res)
+    assert all(torch.equal(a, b) for a, b in zip(before, _leaves(state)))
+    fin = runs[1]["state"]
+    for x, y in zip(_leaves((given.w, given.theta, given.leveldata,
+                             given.pred_data)),
+                    _leaves((fin.w, fin.theta, fin.leveldata,
+                             fin.pred_data))):
+        assert x.data_ptr() == y.data_ptr()
+    assert not torch.equal(given.w, state.w)
+    _same_bits(runs[0], runs[1], case)
 
 
 # -- against the JAX package -------------------------------------------------
@@ -448,7 +592,7 @@ class _StubCUDAGraph:
 def _stub_cuda_graph(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubCUDAGraph)
     monkeypatch.setattr(torch.cuda, "graph",
-                        lambda g, pool=None, stream=None:
+                        lambda g, pool=None, stream=None, **k:
                         contextlib.nullcontext())
 
 
@@ -496,8 +640,8 @@ def test_failed_capture_raises_naming_the_part(monkeypatch):
 
 def test_graphs_refused_on_a_mesh():
     """graphs=True with a mesh raises; graphs=None resolves to graphs on a
-    CUDA model alone: eager on the CPU, on a mesh and under deterministic
-    algorithms."""
+    CUDA model alone, under deterministic algorithms too: eager on the CPU
+    and on a mesh."""
     fit, cfg, state = _fit("always_emit", torch.float64)
     assert not mt._graphed(fit.ms, None)
     dev = fit.ms.device
@@ -505,7 +649,7 @@ def test_graphs_refused_on_a_mesh():
     try:
         assert mt._graphed(fit.ms, None)
         torch.use_deterministic_algorithms(True, warn_only=True)
-        assert not mt._graphed(fit.ms, None)
+        assert mt._graphed(fit.ms, None)
     finally:
         torch.use_deterministic_algorithms(False)
         fit.ms.device = dev

@@ -23,7 +23,6 @@ from spamtree_tpu.tree.schedule import build_schedule as build_schedule_jax
 from spamtree_tpu.utils import fitio as fitio_jax
 from spamtree_tpu.utils import summaries as summaries_jax
 import spamtree_tpu_torch
-from spamtree_tpu_torch import api as api_t
 from spamtree_tpu_torch.model import core as ct
 from spamtree_tpu_torch.model import mcmc as mt
 from spamtree_tpu_torch.tree.partition import make_tree
@@ -231,7 +230,7 @@ def test_augmented_mapping_matches_jax(fits, monkeypatch):
         rows=(lambda w: torch.arange(w.shape[0], dtype=w.dtype),
               lambda w: jnp.arange(w.shape[0], dtype=w.dtype)))
     for name, (pt, pj) in probes.items():
-        monkeypatch.setattr(api_t, "predict_recompute",
+        monkeypatch.setattr(ct, "predict_recompute",
                             lambda ms, th, w, z, cc=None, f=pt: f(w))
         monkeypatch.setattr(cj, "predict_recompute",
                             lambda ms, th, w, k, cc=None, f=pj: f(w))
