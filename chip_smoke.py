@@ -111,10 +111,25 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    and for four;
 17. multi-device sampling on the one card: (a) config 3 (keep=25,
    burn=50, thin=2) through spamtree(mesh=...) on a one-rank NCCL mesh,
-   beside the same run in one process in the same worker, both under
-   torch.use_deterministic_algorithms: the same bits; then config 1
+   graphed (the default there), beside the same run in one process in
+   the same worker, both under torch.use_deterministic_algorithms: the
+   same bits; then on that rank config 3 prepared on the mesh and alone,
+   and on both theta steps (accept-aware with the level kernels) the
+   mesh's chain eager and graphed at phase 19's depth (60 iterations) from
+   the same seeds (accept-aware without composed factor parts, so K4
+   launches too), graphed once more under deterministic algorithms, and
+   the one process's graphed chain: all the same bits, the same K1/K3/K4
+   launches per iteration, 2-4 graph replays an iteration; then windows
+   of phase 19's kind from one seed, the mesh graphed and eager and the
+   one process graphed, each printing ms/it, busy ms/it, idle share,
+   replays and nodes per iteration and the NCCL kernels in the trace
+   (none on one rank: a one-rank NCCL communicator copies, see
+   --probe-nccl), and the all-gathers per iteration that the eager window
+   calls must be those the graphed one replays from its graphs; the
+   capture's seconds and each path's peak memory; then config 1
    (keep=25, burn=25, thin=2) through spamtree(devices=["cuda:0"])
-   against the same run in this process; (b) two gloo ranks on the card,
+   against the same run in this process, with graph replays;
+   (b) two gloo ranks on the card,
    a (1, 2) blocks mesh: first 4 always-emit and 4 accept-aware steps of
    config 3 (level kernels on, no composed factor parts; a narrow
    proposal, RAM adaptation off and every accept draw 0, so every
@@ -144,7 +159,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    5 steps per rank (host ms per iteration, device-busy ms under
    torch.profiler, idle share; deterministic algorithms off) beside the
    one process's.  Over gloo on one card these times say what a second
-   process costs, not what NVLink would give;
+   process costs, not what NVLink would give.  The gloo runs ((b), (c))
+   run eager, as graphs=None resolves there, and each prints so;
+   graphs=True on a gloo rank must raise the error that names gloo's
+   host staging;
 18. the accept-aware step under a chain axis: K4 first held against its
    plain version as thin_decision_chains runs it, one launch over C = 4
    chains' blocks folded into one batch (parents through c * Bp +
@@ -165,10 +183,11 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    blocks); each run prints chain-it/s, ms/it, K1 and K4 launches per
    iteration and peak memory beside the always-emit batched run at the
    same C: phase 16's at config 3, one run here at config 4's depth;
-19. the iteration as replayed CUDA graphs, which every run above without
-   a mesh already uses (run_mcmc's and run_mcmc_chains' default on the
-   card): configs 1, 3 and 5, one chain, always-emit and accept-aware with
-   the level kernels on, and config 3's batched chains at C = 2 and 4 on
+19. the iteration as replayed CUDA graphs, which every run above but the
+   gloo mesh runs already uses (run_mcmc's and run_mcmc_chains' default
+   on the card, alone or on an NCCL mesh): configs 1, 3 and 5, one
+   chain, always-emit and accept-aware with the level kernels on, and
+   config 3's batched chains at C = 2 and 4 on
    both steps, each run eager (graphs=False) and graphed from one prepared
    chain and the same generator seeds at keep=20, burn=10 (rounded to 20),
    thin=2 (60 iterations): the kept draws, the final state and the
@@ -223,12 +242,21 @@ runs phases 1-2, 16 and 18 alone (~5 min).
 
     python3 chip_smoke.py --mesh
 
-runs phases 1-2 and phase 17 alone, with its one-process runs.
+runs phases 1-2 and phase 17 alone, with its one-process runs (~6 min).
 
     python3 chip_smoke.py --graphs
 
 runs phases 1-2, phase 19 and phase 20 alone (phase 20 after its own
 config-5 and config-3 fits).
+
+    python3 chip_smoke.py --probe-nccl
+
+runs the probe of the mesh's collectives under capture, alone: on a
+one-rank NCCL group, the list-form all_gather and the mesh's cat, sum
+and AND (one all-gather into one tensor each) run eagerly, then
+captured in a CUDA graph and replayed: whether each captures, the
+replay's bits against the eager call's, and the device ops of both by
+name.
 
     python3 chip_smoke.py --probe-writes
 
@@ -1805,7 +1833,7 @@ def _lean(out):
     """What phase 17 reads of a spamtree output (crosses from a worker)."""
     keep = _DRAW_KEYS + ("yhat_mcmc", "order", "accept_ratio", "burn_actual",
                          "mcmc_time", "iter_s", "setup_breakdown",
-                         "accept_by_chain", "theta_rhat")
+                         "accept_by_chain", "theta_rhat", "graph_replays")
     lean = {k: out[k] for k in keep if k in out}
     lean["n_ref"] = sum(1 for p in out["schedule"].levels
                         if p.is_ref and p.S <= 64)
@@ -1935,8 +1963,134 @@ def _reference(mesh, y, X, coords, C, kw):
             if mesh.rank == 0 else None)
 
 
+def _count_gathers(mesh):
+    """Wrap ``mesh``'s collectives to count them: returns the count's
+    one-element list."""
+    calls, gather = [0], mesh._gather
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return gather(*a, **k)
+
+    mesh._gather = counted
+    return calls
+
+
+def _count_replayed(gathers):
+    """Wrap model.mcmc's graphs so that each capture keeps the all-gathers
+    it issued (counted in ``gathers``) and each replay adds them to the
+    returned one-element list: the all-gathers replayed from the graphs."""
+    from spamtree_tpu_torch.model import mcmc
+
+    replayed, init, replay = [0], mcmc._Graph.__init__, mcmc._Graph.replay
+
+    def counted_init(self, *a, **k):
+        g0 = gathers[0]
+        init(self, *a, **k)
+        self.gathers = gathers[0] - g0
+
+    def counted_replay(self):
+        replay(self)
+        replayed[0] += self.gathers
+
+    mcmc._Graph.__init__ = counted_init
+    mcmc._Graph.replay = counted_replay
+    return replayed
+
+
+def _mesh_graphs(mesh, cfg_id):
+    """Phase 17a's graphs on this rank of an NCCL mesh: config ``cfg_id``
+    prepared once on the mesh and once in this process alone; for each
+    theta step (accept-aware with the level kernels on and no composed
+    factor parts: K1, K3 and K4 launch) the mesh's chain
+    eager and graphed at GRAPH_DEPTH from the same seeds (``_graph_pair``),
+    graphed once more under deterministic algorithms, and the one
+    process's graphed chain: all the same bits, the same launches per
+    iteration, 2-4 replays an iteration.  Then windows of GRAPH_WINDOW iterations from
+    one seed (``_graph_window``): the mesh graphed and eager and the one
+    process graphed, with the all-gathers an iteration that the eager
+    mesh window calls and that the graphed one replays from its graphs
+    (``_count_replayed``).  Returns the record."""
+    import torch
+
+    import bench
+    from spamtree_tpu_torch.api import prepare_fit
+    from spamtree_tpu_torch.ops import chol, level
+
+    y, _, _, X, coords, mv = _data(bench, cfg_id)
+    kw = dict(mv_id=mv, cell_size=25, mcmc=GRAPH_DEPTH, seed=1,
+              settings=dict(chunk=10, wire_dtype="none"), device=mesh.device)
+    fits = {"mesh": prepare_fit(y - np.nanmean(y), X, coords, mesh=mesh,
+                                **kw),
+            "one": prepare_fit(y - np.nanmean(y), X, coords, **kw)}
+    gathers = _count_gathers(mesh)
+    replayed = _count_replayed(gathers)
+    rec = {}
+    for aa in (False, True):
+        step = "accept_aware" if aa else "always_emit"
+        cfg = {k: f.cfg._replace(accept_aware=aa) for k, f in fits.items()}
+        # accept-aware: the level kernels on and no composed factor parts,
+        # so that K1, K3 and K4 all launch
+        with _env(SPAMTREE_LEVEL_KERNELS="1" if aa else "0",
+                  SPAMTREE_COMPOSED_FACTORS="0" if aa else "1"):
+            pair = _graph_pair(fits["mesh"], cfg["mesh"], 0, chol, level,
+                               torch)
+            one = _graph_pair(fits["one"], cfg["one"], 0, chol, level, torch,
+                              paths=(True,))[True]
+            with _deterministic(torch):
+                det = _graph_pair(fits["mesh"], cfg["mesh"], 0, chol, level,
+                                  torch, paths=(True,))[True]
+            win = {}
+            for name, fit_key, graphs in (("graphed", "mesh", True),
+                                          ("eager", "mesh", False),
+                                          ("one_process", "one", True)):
+                win[name] = _graph_window(
+                    torch, fits[fit_key], cfg[fit_key], 0, graphs,
+                    count=lambda g=graphs: replayed[0] if g else gathers[0],
+                    seed=21)
+        g, e = pair[True], pair[False]
+        iters = e["res"]["burn_actual"] + GRAPH_DEPTH["keep"] * GRAPH_DEPTH[
+            "thin"]
+        same = {"graphed_eager": _same_chain(e["res"], g["res"]),
+                "graphed_one_process": _same_chain(one["res"], g["res"]),
+                "det_graphed_graphed": _same_chain(g["res"], det["res"])}
+        rec[step] = dict(
+            iters=iters, same_bits={k: v[0] for k, v in same.items()},
+            differs_in={k: v[1] for k, v in same.items() if not v[0]},
+            launches_per_iter={k: {p: r["counts"][k] / iters for p, r in (
+                ("eager", e), ("graphed", g), ("one_process", one),
+                ("det_graphed", det))}
+                for k in ("k1_launches", "k3_launches", "k4_launches")},
+            replays_per_iter_run=g["res"]["graph_replays"] / iters,
+            capture_s=g["res"]["compile_time_s"],
+            peak_gb={"graphed": g["peak"] / 1e9, "eager": e["peak"] / 1e9,
+                     "one_process_graphed": one["peak"] / 1e9},
+            accept=e["res"]["accept_ratio"], window=win)
+    return rec
+
+
+def _gloo_refusal(mesh):
+    """graphs=True on this gloo rank's CUDA model (config 1, a chain per
+    chains rank): the error it raises, or None."""
+    import bench
+    from spamtree_tpu_torch.api import prepare_fit
+    from spamtree_tpu_torch.model.mcmc import run_mcmc, run_mcmc_chains
+
+    y, _, _, X, coords, mv = _data(bench, 1)
+    C = mesh.n_chains
+    fit = prepare_fit(y - np.nanmean(y), X, coords, mv_id=mv, cell_size=25,
+                      mcmc=dict(keep=2, burn=0), seed=1, device=mesh.device,
+                      mesh=mesh, n_chains=C)
+    try:
+        (run_mcmc_chains if C > 1 else run_mcmc)(
+            fit.ms, fit.bounds, fit.cfg, fit.state, fit.gen, graphs=True)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def mesh_job(mesh, runs, window_cfg=None, step_cfg=None,
-             deterministic=True):
+             deterministic=True, graphs_cfg=None):
     """Rank job of phase 17, under torch.use_deterministic_algorithms if
     ``deterministic`` (the launch sets CUBLAS_WORKSPACE_CONFIG; an op
     without a deterministic version warns): ``_mesh_step`` at config
@@ -1946,7 +2100,9 @@ def mesh_job(mesh, runs, window_cfg=None, step_cfg=None,
     ``reference``, its one-process run here (``_reference``; else the
     caller holds it to one of its own); then, with the deterministic
     algorithms off, the step's window (``_window``) at config
-    ``window_cfg`` on every rank."""
+    ``window_cfg`` on every rank; then on an NCCL mesh ``_mesh_graphs``
+    at config ``graphs_cfg`` if given, and on a gloo mesh
+    ``_gloo_refusal``."""
     import torch
 
     import bench
@@ -1981,7 +2137,13 @@ def mesh_job(mesh, runs, window_cfg=None, step_cfg=None,
         w = _window(torch, bench, window_cfg, runs[-1][4], mesh)
         win = _rank_tensor(mesh, torch, [w["ms_per_iter"],
                                          w["busy_ms_per_iter"], w["idle"]])
-    return dict(step=step, runs=outs, window=win) if mesh.rank == 0 else None
+    graphs = refusal = None
+    if mesh.backend == "nccl" and graphs_cfg is not None:
+        graphs = _mesh_graphs(mesh, graphs_cfg)
+    if mesh.backend == "gloo":
+        refusal = _gloo_refusal(mesh)
+    return (dict(step=step, runs=outs, window=win, graphs=graphs,
+                 refusal=refusal) if mesh.rank == 0 else None)
 
 
 def _mesh_launch(devices, runs, **kw):
@@ -2033,15 +2195,80 @@ def _mesh_runs(bench, tag, shape, runs, res, info, one, spread,
             window_by_rank=win,
             one_process_window=one.get(C) if win else None,
             workers_start_s=info["start_s"],
-            setup_breakdown=out["setup_breakdown"])
+            setup_breakdown=out["setup_breakdown"],
+            graph_replays=out["graph_replays"])
         print(json.dumps(recs[key]), flush=True)
+        graphed = out["graph_replays"] > 0
+        print(f"{what}: ran {'graphed' if graphed else 'eager'} "
+              f"({out['graph_replays']} graph replays)", flush=True)
+        _check(graphed == (shape == [1, 1]), f"{what}: "
+               f"{out['graph_replays']} graph replays on a "
+               f"{'NCCL' if shape == [1, 1] else 'gloo'} mesh")
     return recs
+
+
+def _gloo_refused(tag, res):
+    """graphs=True on the gloo ranks of (``tag``) raised the named error."""
+    msg = res["refusal"]
+    print(f"mesh ({tag}): graphs=True on a gloo rank raised: {msg}",
+          flush=True)
+    _check(msg is not None and "gloo stages CUDA tensors through host "
+           "memory" in msg, f"mesh ({tag}): graphs=True on a gloo rank "
+           f"gave {msg!r}")
+
+
+def _mesh_graphs_checks(rec):
+    """Phase 17a's graph checks on ``_mesh_graphs``' record: every chain
+    the same bits, the same launches per iteration, 2-4 replays an
+    iteration, and the eager window's all-gathers replayed from the
+    graphed window's graphs, none called (a one-rank NCCL communicator
+    copies rather than launch a kernel, so the trace's NCCL kernels are
+    printed, not checked); the table line of each step."""
+    for step, r in rec.items():
+        what = f"mesh (a) graphs, config 3, {step}"
+        print(json.dumps(dict(phase="mesh_a_graphs", step=step, **r)),
+              flush=True)
+        wg, we, wo = (r["window"][k] for k in ("graphed", "eager",
+                                               "one_process"))
+        gathers, replayed = we["counted_per_iter"], wg["counted_per_iter"]
+        print(f"mesh graphs table: config 3 {step}, one NCCL rank: graphed "
+              f"{wg['ms_per_iter']:.2f} ms/it (busy "
+              f"{wg['busy_ms_per_iter']:.2f}, idle {wg['idle']:.3f}, "
+              f"{wg['replays_per_iter']:.2f} replays and "
+              f"{wg['kernels_per_iter']:.1f} nodes an iteration, NCCL "
+              f"kernels {wg['nccl_kernels_per_iter']:.1f} and all-gathers "
+              f"{replayed:.2f} replayed an iteration, capture "
+              f"{r['capture_s']:.2f} s, peak {r['peak_gb']['graphed']:.2f} "
+              f"GB); eager {we['ms_per_iter']:.2f} ms/it (busy "
+              f"{we['busy_ms_per_iter']:.2f}, idle {we['idle']:.3f}, "
+              f"{gathers:.2f} all-gathers an iteration, peak "
+              f"{r['peak_gb']['eager']:.2f} GB); one process graphed "
+              f"{wo['ms_per_iter']:.2f} ms/it (busy "
+              f"{wo['busy_ms_per_iter']:.2f}, idle {wo['idle']:.3f}, peak "
+              f"{r['peak_gb']['one_process_graphed']:.2f} GB)", flush=True)
+        _check(all(r["same_bits"].values()),
+               f"{what}: the chains differ: {r['differs_in']}")
+        for k, v in r["launches_per_iter"].items():
+            _check(len(set(v.values())) == 1, f"{what}: {k} per iteration "
+                   f"{v}")
+        lp = {k: v["graphed"] for k, v in r["launches_per_iter"].items()}
+        _check(lp["k1_launches"] > 0 and (step == "always_emit" or (
+            lp["k3_launches"] > 0 and lp["k4_launches"] > 0)),
+               f"{what}: launches {r['launches_per_iter']}")
+        reps = r["replays_per_iter_run"]
+        _check(2.0 <= reps <= 4.0, f"{what}: {reps} replays an iteration")
+        _check(gathers > 0 and replayed == gathers, f"{what}: {gathers} "
+               f"all-gathers an iteration eager, {replayed} replayed from "
+               f"the graphs")
+    return rec
 
 
 def mesh_phase(bench, chol, level, torch):
     """Phase 17: (a) config 3 (SHORT3) through spamtree(mesh=...) on a
-    one-rank NCCL mesh, and config 1 (DEVICES1) through spamtree(devices=
-    ["cuda:0"]); (b) two gloo ranks on the one card, a (1, 2) blocks mesh:
+    one-rank NCCL mesh, graphed, then that rank's graphed-against-eager
+    check (``_mesh_graphs``), and config 1 (DEVICES1) through
+    spamtree(devices=["cuda:0"]); (b) two gloo ranks on the one card, a
+    (1, 2) blocks mesh:
     the step check (``_mesh_step``), then config 1 (phase 16's depth),
     config 3 at phase 5's depth, both held to those phases' runs, and
     config 3 in float64 (SHORT3); (c) two gloo ranks, a (2, 1) chains
@@ -2050,10 +2277,11 @@ def mesh_phase(bench, chol, level, torch):
     where they must give the same bits; every run meets
     phase 5's checks (per chain) and ``_mesh_agrees``, and each rank
     launches K1 on its shard of every reference level of every iteration;
-    the accept-aware steps launch K3 and K4 on each rank.  Prints each mesh
-    run's ms per iteration, chain-iterations per second, idle share and
-    peak memory per rank beside the one-process run's.  Returns the
-    records."""
+    the accept-aware steps launch K3 and K4 on each rank; the NCCL runs
+    replay graphs, the gloo runs none, and graphs=True on a gloo rank
+    raises.  Prints each mesh run's ms per iteration, chain-iterations per
+    second, idle share and peak memory per rank beside the one-process
+    run's.  Returns the records."""
     import spamtree_tpu_torch
 
     rec = {}
@@ -2061,8 +2289,9 @@ def mesh_phase(bench, chol, level, torch):
     _phase("mesh (a): config 3, spamtree(mesh=...) on one NCCL rank; "
            "config 1, spamtree(devices=['cuda:0'])")
     runs_a = [(*SHORT3, 1, False, True)]
-    res_a, info_a = _mesh_launch(["cuda:0"], runs_a)
+    res_a, info_a = _mesh_launch(["cuda:0"], runs_a, graphs_cfg=3)
     rec |= _mesh_runs(bench, "a", [1, 1], runs_a, res_a, info_a, {}, None)
+    rec["a_graphs"] = _mesh_graphs_checks(res_a["graphs"])
     y, _, _, X, coords, mv = _data(bench, 1)
     t0 = time.time()
     out = spamtree_tpu_torch.spamtree(
@@ -2072,12 +2301,17 @@ def mesh_phase(bench, chol, level, torch):
         seed=1, devices=["cuda:0"])
     _check(out["mesh"] == dict(devices=["cuda:0"], chains=1, blocks=1),
            f"mesh (a): devices= built {out['mesh']}")
+    print(f"mesh (a) config 1 through devices=: {out['graph_replays']} "
+          f"graph replays", flush=True)
+    _check(out["graph_replays"] > 0, "mesh (a) config 1 through devices=: "
+           "no graph replayed")
     errs = _mesh_agrees(bench, 1, 1, _lean(out),
                         _one_process(bench, 1, 1, *DEVICES1[1:]),
                         "mesh (a) config 1 through devices=")
     rec["a_devices_config1"] = dict(
         phase="mesh_a_devices", config=1, wall_s=time.time() - t0,
-        errs=errs, setup_breakdown=out["setup_breakdown"])
+        errs=errs, setup_breakdown=out["setup_breakdown"],
+        graph_replays=out["graph_replays"])
     print(json.dumps(rec["a_devices_config1"]), flush=True)
 
     _phase("mesh (b): two gloo ranks on the card, (1, 2) blocks mesh")
@@ -2085,6 +2319,7 @@ def mesh_phase(bench, chol, level, torch):
               (*SHORT3, 1, True, True)]
     res_b, info_b = _mesh_launch(["cuda:0"] * 2, runs_b, window_cfg=3,
                                  step_cfg=3, deterministic=False)
+    _gloo_refused("b", res_b)
     step = res_b["step"]
     print(json.dumps(dict(phase="mesh_b_step", config=3, **step)),
           flush=True)
@@ -2110,6 +2345,7 @@ def mesh_phase(bench, chol, level, torch):
     runs_c = [(*SHORT3, 2, False, True)]
     res_c, info_c = _mesh_launch(["cuda:0"] * 2, runs_c, window_cfg=3,
                                  n_chains=2)
+    _gloo_refused("c", res_c)
 
     _phase("mesh: the one-process windows and chains beside them")
     one = {C: _window(torch, bench, 3, C) for C in (1, 2)}
@@ -2130,6 +2366,100 @@ def mesh_phase(bench, chol, level, torch):
               f"rank {[round(b / 1e9, 2) for b in r['peak_bytes_by_rank']]}; "
               f"one process at C={r['chains']}: window {o['ms_per_iter']:.2f} "
               f"ms/it, idle {o['idle']:.3f}", flush=True)
+    return rec
+
+
+def _device_ops(torch, run, reps):
+    """{name: [calls, device ms]} of the device work (kernels, copies,
+    sets) of ``run()`` repeated ``reps`` times under torch.profiler, per
+    call of ``run``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    return {e.key: [e.count / reps, e.self_device_time_total / 1e3 / reps]
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _trace_ops(torch, run, iters):
+    """Per iteration of ``run(iters)`` under torch.profiler: device-busy
+    ms, device ops (kernels, copies and sets: a graph's nodes when it
+    replays) and NCCL kernels.  The profiler's ranges around eager
+    collectives ("nccl:...") are not ops."""
+    ops = {k: v for k, v in _device_ops(torch, lambda: run(iters), 1).items()
+           if not k.startswith("nccl:")}
+    per = lambda f: sum(c for k, (c, _) in ops.items() if f(k)) / iters
+    return dict(busy=sum(ms for _, ms in ops.values()) / iters,
+                nodes=per(lambda k: True),
+                nccl=per(lambda k: "nccl" in k.lower()))
+
+
+def probe_nccl_capture(torch):
+    """``--probe-nccl``: on a one-rank NCCL group in this process, each
+    form of all-gather -- the list form (``dist.all_gather``) and the
+    mesh's collectives (one all-gather into one tensor) -- run eagerly on
+    a side stream, then captured there in a CUDA graph (thread-local
+    mode) and replayed: whether it captures, whether the replay gives the
+    eager result, and the device work of the eager call and of a replay
+    by name under torch.profiler.  Prints one JSON record."""
+    import torch.distributed as dist
+
+    from spamtree_tpu_torch.parallel.mesh import make_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(1, 1, device="cuda:0")
+            g = torch.Generator(device="cuda").manual_seed(1)
+            x = torch.randn((1024, 68), generator=g, device="cuda")
+            ok = torch.ones((), dtype=torch.bool, device="cuda")
+
+            def list_form():
+                parts = [torch.empty_like(x)]
+                dist.all_gather(parts, x, group=mesh.blocks_group)
+                return torch.cat(parts)
+
+            cands = dict(
+                list_all_gather=list_form,
+                cat_blocks=lambda: mesh.cat_blocks(x, 1),
+                sum_blocks=lambda: mesh.sum_blocks(x),
+                all_blocks=lambda: mesh.all_blocks(ok))
+            rec = dict(phase="nccl_capture_probe",
+                       nccl=".".join(map(str, torch.cuda.nccl.version())),
+                       torch=torch.__version__)
+            side = torch.cuda.Stream()
+            for name, f in cands.items():
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    want = f().clone()
+                torch.cuda.current_stream().wait_stream(side)
+                r = dict(eager_ops=_device_ops(torch, f, 5))
+                try:
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, stream=side,
+                                          capture_error_mode="thread_local"):
+                        out = f()
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    r["same_bits"] = bool(torch.equal(out, want))
+                    r["replay_ops"] = _device_ops(torch, graph.replay, 5)
+                except Exception as e:  # noqa: BLE001 (the probe's finding)
+                    torch.cuda.synchronize()
+                    r["error"] = f"{type(e).__name__}: {e}"[:400]
+                rec[name] = r
+        finally:
+            dist.destroy_process_group()
+    print(json.dumps(rec), flush=True)
+    for name in cands:
+        r = rec[name]
+        print(f"nccl probe: {name}: "
+              + ("captured, same bits " + str(r["same_bits"])
+                 if "error" not in r else "not captured: " + r["error"])
+              + f"; replay ops {r.get('replay_ops')}", flush=True)
     return rec
 
 
@@ -2201,27 +2531,47 @@ def _same_chain(a, b):
     return not diff and len(la) == len(lb), diff
 
 
-def _graph_window(torch, fit, cfg, C, graphs):
+def _graph_window(torch, fit, cfg, C, graphs, count=None, seed=None):
     """ms per iteration (host clock, synchronised) over GRAPH_WINDOW
     iterations after three warm-up ones (the graphs captured at the
     first), then device-busy ms, kernels (graph kernel nodes when graphed)
     and graph replays per iteration over GRAPH_WINDOW traced ones; and,
     graphed, one chain's install (part I) replayed alone: device ms per
     replay, the bytes it copies (read and written) and the device ms of
-    those copies alone (eager copy_ into spare tensors)."""
-    from spamtree_tpu_torch.utils.profile_step import Iterations, _trace
+    those copies alone (eager copy_ into spare tensors).  With ``seed``
+    (one chain) the chain's generator is seeded with it, and the traced
+    iterations are the timed ones run again from the same start, so the
+    idle share compares the same iterations (the next ones may accept
+    more or less often).  ``count``: a counter read around the traced
+    iterations (its change per iteration is ``counted_per_iter``)."""
+    from spamtree_tpu_torch.utils.profile_step import Iterations
 
-    it = Iterations(fit, cfg, chains=C, graphs=graphs,
-                    n_iters=3 + 2 * GRAPH_WINDOW)
-    it(3)
+    def start():
+        if seed is not None:
+            fit.gen.manual_seed(seed)
+        it = Iterations(fit, cfg, chains=C, graphs=graphs,
+                        n_iters=3 + 2 * GRAPH_WINDOW)
+        it(3)
+        return it
+
+    it = start()
     t0 = time.time()
     it(GRAPH_WINDOW)
     ms_it = 1e3 * (time.time() - t0) / GRAPH_WINDOW
+    if seed is not None:
+        if it.runner is not None:
+            it.runner.release()
+        it = start()
     reps = it.replays
-    busy, kernels, _ = _trace(it, GRAPH_WINDOW)
+    c0 = count() if count else 0
+    ops = _trace_ops(torch, it, GRAPH_WINDOW)
+    busy = ops["busy"]
     rec = dict(ms_per_iter=ms_it, busy_ms_per_iter=busy,
-               idle=1.0 - busy / ms_it, kernels_per_iter=kernels,
+               idle=1.0 - busy / ms_it, kernels_per_iter=ops["nodes"],
+               nccl_kernels_per_iter=ops["nccl"],
                replays_per_iter=(it.replays - reps) / GRAPH_WINDOW)
+    if count:
+        rec["counted_per_iter"] = (count() - c0) / GRAPH_WINDOW
     r = it.runner
     if graphs and not C and "I" in r.graphs:
         st = r.state
@@ -2718,6 +3068,9 @@ def main() -> int:
     import spamtree_tpu_torch  # noqa: F401  (sets the f32 precision pins)
     from spamtree_tpu_torch.ops import _build, chol, level
 
+    if sys.argv[1:] == ["--probe-nccl"]:
+        probe_nccl_capture(torch)
+        return 0
     if sys.argv[1:] == ["--probe-writes"]:
         with _env(CUBLAS_WORKSPACE_CONFIG=":4096:8"):
             probe_row_writes(torch)

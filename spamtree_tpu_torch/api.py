@@ -422,11 +422,12 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         caller's row order).
     debug : dict(sample_beta=, sample_tausq=, sample_theta=, sample_w=,
         sample_predicts=) switch each sampler off.
-    precompile : accepted and ignored.  On a CUDA device without a mesh
-        every iteration runs as replayed CUDA graphs, captured at the
-        chain's first iteration (``mcmc.StepRunner``: the eager step's
-        chain, bit for bit); the capture's seconds are
-        setup_breakdown["keep_compile_s"].  Mesh runs and the CPU run the
+    precompile : accepted and ignored.  On a CUDA device, alone or on an
+        NCCL mesh, every iteration runs as replayed CUDA graphs, captured
+        at the chain's first iteration (``mcmc.StepRunner``: the eager
+        step's chain, bit for bit); the capture's seconds are
+        setup_breakdown["keep_compile_s"] (each rank's own on a mesh) and
+        the replays "graph_replays".  The CPU and gloo meshes run the
         eager step.
     seed : seeds the tree, the device generators and the host yhat noise.
     dtype : torch.float32 or torch.float64.
@@ -467,15 +468,18 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         (torchrun style) calls spamtree with the same arguments and gets
         the same result; ``device`` is then the mesh rank's.  The sharded
         math equals the unsharded run's to float rounding
-        (tests/test_torch_sharding.py).
+        (tests/test_torch_sharding.py).  An NCCL mesh (CUDA devices) runs
+        graphed, its collectives captured in each rank's graphs
+        (tests/test_torch_mesh_graphs.py); a gloo mesh (CPU devices, or
+        CUDA ranks the caller started over gloo) runs eager.
 
     Returns a dict with w_mcmc, yhat_mcmc (keep, n), beta_mcmc (p, keep, q),
     tausq_mcmc (q, keep), theta_mcmc (n_theta, keep), order (outputs are in
     sorted-row order; order[i] is the original row), coords, mv_id,
-    coordsinfo, accept_ratio, mcmc_time (iter_s of it in the iterations
-    alone, save_s in the checkpoint saves, the rest in the drains;
-    drain_work_s is the drains' own work, which overlaps the iterations
-    when pipelined), burn_actual, paramsd,
+    coordsinfo, accept_ratio, graph_replays, mcmc_time (iter_s of it in
+    the iterations alone, save_s in the checkpoint saves, the rest in the
+    drains; drain_work_s is the drains' own work, which overlaps the
+    iterations when pipelined), burn_actual, paramsd,
     resumed_at_iteration, resumed_kept_already, setup_breakdown, tree,
     schedule, theta_bounds, fit_config (what spamtree_predict needs) and,
     with collect="summary", w_mean, w_var, yhat_mean, yhat_var and
@@ -538,6 +542,7 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         "n_chains": fit.fit_config["n_chains"],
         "paramsd": res["paramsd"],
         "accept_ratio": res["accept_ratio"],
+        "graph_replays": res["graph_replays"],
         "mcmc_time": res["mcmc_time"],
         "iter_s": res["iter_s"],
         "save_s": res["save_s"],

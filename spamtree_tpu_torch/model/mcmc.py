@@ -35,12 +35,13 @@ reads nothing back.  Chain c is the single-chain run whose generator is
 seeded like chain c's.  Outputs carry the chain axis after the sample
 axis.
 
-On a CUDA device without a mesh both run each iteration as CUDA graphs
-captured once per run and replayed (``StepRunner``, the counterpart of the
-JAX package's jitted ``lax.scan`` chunk): the carried state lives in
-static buffers, draws are filled outside the graphs, and the chain is the
-eager step's (``make_step``) bit for bit, under deterministic algorithms
-too.  ``graphs=False`` runs the eager step; the CPU and a mesh run it by
+On a CUDA device both run each iteration as CUDA graphs captured once per
+run and replayed (``StepRunner``, the counterpart of the JAX package's
+jitted ``lax.scan`` chunk), alone or on an NCCL mesh, whose collectives
+the graphs hold: the carried state lives in static buffers, draws are
+filled outside the graphs, and the chain is the eager step's
+(``make_step``) bit for bit, under deterministic algorithms too.
+``graphs=False`` runs the eager step; the CPU and a gloo mesh run it by
 default.  ``donate=True`` lets the run take the caller's state tensors as
 its buffers instead of copies (the JAX package donates its carry).
 
@@ -587,14 +588,21 @@ class StepRunner:
     as its branches follow the host's iteration count, and the capture
     comes after them.  On the CPU, where there are no graphs, every part
     runs as a plain call on the same buffers -- the capture-ready step,
-    run eagerly.  A mesh is refused: its collectives cannot be captured."""
+    run eagerly.
+
+    On an NCCL mesh every rank captures its parts, collectives included,
+    in the same order and replays them in the same order: which parts run
+    follows the accept read, which every rank reads as the same bits (the
+    decision reads replicated state and rank-ordered sums).  The eager
+    first iteration brings up each group's communicator before any
+    capture.  A gloo mesh on CUDA tensors is refused: gloo stages them
+    through host memory, which a capture cannot hold."""
 
     def __init__(self, ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
                  state: MCMCState, draw, chains: int = 0, n_iters: int = 0,
                  donate: bool = False):
-        if ms.mesh is not None:
-            raise ValueError("CUDA graphs do not run on a mesh: its "
-                             "collectives cannot be captured (graphs=False)")
+        _check_capturable(ms.device.type,
+                          None if ms.mesh is None else ms.mesh.backend)
         self.ms, self.cfg, self.C, self.draw = ms, cfg, chains, draw
         self.P = _Parts(ms, bounds, cfg, level_coords(ms), bool(chains))
         self.capture = ms.device.type == "cuda"
@@ -1196,10 +1204,28 @@ def _summary_result(res, acc: Moments, empty_shape):
         res["yhat"] = np.zeros(empty_shape)
 
 
+def graphs_default(device_type: str, backend: str | None) -> bool:
+    """Whether ``graphs=None`` runs graphs for a model on ``device_type``
+    on a mesh over ``backend`` (None: no mesh): on CUDA alone or on an
+    NCCL mesh; eager on the CPU and on a gloo mesh."""
+    return device_type == "cuda" and backend in (None, "nccl")
+
+
+def _check_capturable(device_type: str, backend: str | None) -> None:
+    """Raise where a capture cannot hold a collective of the mesh: gloo
+    stages CUDA tensors through host memory."""
+    if device_type == "cuda" and backend == "gloo":
+        raise ValueError("CUDA graphs do not run on a gloo mesh: gloo "
+                         "stages CUDA tensors through host memory, which "
+                         "a capture cannot hold (graphs=False, or an "
+                         "NCCL mesh)")
+
+
 def _graphed(ms: ModelStatic, graphs) -> bool:
-    """Resolve run_mcmc's ``graphs``: None = on for CUDA without a mesh."""
+    """Resolve run_mcmc's ``graphs`` (``graphs_default`` for None)."""
     if graphs is None:
-        return ms.device.type == "cuda" and ms.mesh is None
+        return graphs_default(ms.device.type,
+                              None if ms.mesh is None else ms.mesh.backend)
     return bool(graphs)
 
 
@@ -1246,13 +1272,15 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     ``sink_dir``: w/yhat draws stream to files there instead of RAM
     (``sink_append`` continues them).
 
-    ``graphs`` (default None: on for a CUDA model without a mesh, with or
-    without ``torch.use_deterministic_algorithms``): each iteration runs
-    as replayed CUDA graphs (``StepRunner``), the same chain bit for bit;
-    ``res["compile_time_s"]`` holds the capture's seconds and
-    ``res["graph_replays"]`` the replays.  False runs the eager step
-    (``make_step``).  True on the CPU runs the capture-ready step's parts
-    as plain calls; on a mesh it raises.  ``state`` is not modified,
+    ``graphs`` (default None: on for a CUDA model alone or on an NCCL
+    mesh, with or without ``torch.use_deterministic_algorithms``): each
+    iteration runs as replayed CUDA graphs (``StepRunner``), the same
+    chain bit for bit, on every rank of a mesh; ``res["compile_time_s"]``
+    holds the capture's seconds and ``res["graph_replays"]`` the replays.
+    False runs the eager step (``make_step``), the default on the CPU and
+    on a gloo mesh.  True on the CPU runs the capture-ready step's parts
+    as plain calls; on a gloo mesh with CUDA tensors it raises a
+    ``ValueError`` (gloo's host staging).  ``state`` is not modified,
     unless ``donate=True``: the graphed run then keeps its carry in the
     state's own tensors, with no copy, and overwrites them."""
     nt = state.theta.shape[0]
@@ -1299,7 +1327,9 @@ def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     mesh with a chains axis, ``states`` and ``gens`` are this rank's
     chains, contiguous in rank order, and the outputs hold every rank's.
     ``graphs`` and ``donate`` as in ``run_mcmc``: one graph per iteration
-    variant (predicting or not) on CUDA without a mesh."""
+    variant (predicting or not) on CUDA alone or on an NCCL mesh; the
+    draws, moments and checkpoints are gathered over the chains ranks
+    outside the graphs."""
     C, nt = states.theta.shape
     if len(gens) != C:
         raise ValueError(f"{len(gens)} generators for {C} chains")

@@ -8,10 +8,15 @@ row its blocks group and each column its chains group.
 
 The collectives the sharded sampler needs are methods here, so the model
 code reaches them through ``ModelStatic.mesh`` without importing this
-module.  Each is an ``all_gather`` (the list form), which gloo and NCCL
-both implement; a sum over ranks adds the gathered parts in rank order on
-every rank, so every rank holds the same bits and two runs of one mesh
-agree.  Under gloo, CUDA tensors cross through host memory.
+module.  Each is one all-gather into a single output tensor, which gloo
+and NCCL both implement; a sum over ranks adds the gathered parts in rank
+order on every rank, so every rank holds the same bits and two runs of
+one mesh agree.  On an NCCL mesh the collectives read no host value and
+allocate their output from the caching allocator (a CUDA graph's pool
+inside a capture), so ``mcmc.StepRunner`` captures them with the rest of
+the iteration; a one-rank group gathers too, so its graphs hold the
+collective as a larger mesh's do.  Under gloo, CUDA tensors cross through
+host memory, which a capture cannot hold.
 """
 
 from __future__ import annotations
@@ -36,23 +41,24 @@ class Mesh:
         self.chains_group = chains_group
         self.blocks_group = blocks_group
 
-    def _gather(self, x: torch.Tensor, group, size: int) -> list:
-        """Every rank's ``x`` of ``group``, in rank order, on x's device."""
+    def _gather(self, x: torch.Tensor, group, size: int) -> torch.Tensor:
+        """Every rank's ``x`` of ``group``, in rank order, as one (size,
+        *x.shape) tensor on x's device."""
         src = x.detach()
         if src.dtype == torch.bool:
             src = src.to(torch.uint8)
         if self.backend == "gloo" and src.is_cuda:
             src = src.cpu()
-        src = src.reshape(-1) if src.dim() == 0 else src.contiguous()
-        parts = [torch.empty_like(src) for _ in range(size)]
-        dist.all_gather(parts, src, group=group)
-        return [p.reshape(x.shape).to(device=x.device, dtype=x.dtype)
-                for p in parts]
+        src = src.contiguous().reshape(-1)
+        # flat on both sides: gloo wants the output's shape to be the
+        # input's stacked along dim 0, NCCL its size alone
+        out = src.new_empty(size * src.numel())
+        _all_gather(out, src, group=group)
+        return out.reshape(size, *x.shape).to(device=x.device, dtype=x.dtype)
 
     def cat_blocks(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The blocks ranks' shards of ``x`` joined along ``dim``."""
-        return torch.cat(self._gather(x, self.blocks_group, self.n_blocks),
-                         dim=dim)
+        return _join(self._gather(x, self.blocks_group, self.n_blocks), dim)
 
     def sum_blocks(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of ``x`` over the blocks ranks, added in rank order."""
@@ -64,18 +70,31 @@ class Mesh:
 
     def all_blocks(self, x: torch.Tensor) -> torch.Tensor:
         """Logical AND of a bool ``x`` over the blocks ranks."""
-        parts = self._gather(x, self.blocks_group, self.n_blocks)
-        return torch.stack(parts).all(0)
+        return self._gather(x, self.blocks_group, self.n_blocks).all(0)
 
     def cat_chains(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The chains ranks' chains of ``x`` joined along ``dim``."""
-        return torch.cat(self._gather(x, self.chains_group, self.n_chains),
-                         dim=dim)
+        return _join(self._gather(x, self.chains_group, self.n_chains), dim)
 
     def barrier(self) -> None:
         """Wait for every rank of the mesh."""
         self._gather(torch.zeros(1, device=self.device), None,
                      self.n_chains * self.n_blocks)
+
+
+# newer torch versions name all_gather_into_tensor all_gather_single and
+# deprecate the old name
+_all_gather = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+def _join(parts: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cat`` of the (size, ...) gathered parts along ``dim`` of a
+    part: the rank axis moved next to ``dim`` and merged into it."""
+    dim = dim % (parts.dim() - 1)
+    joined = parts.movedim(0, dim)
+    s = joined.shape
+    return joined.reshape(*s[:dim], s[dim] * s[dim + 1], *s[dim + 2:])
 
 
 def make_mesh(n_chains: int = 1, n_blocks_shards: int | None = None,

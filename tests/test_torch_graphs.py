@@ -20,8 +20,8 @@ outside.
 * Five steps of the runner equal five of the JAX package's steps given
   the same draws, at rtol 1e-10 in f64.
 * A replay adds to the kernels' launch counters what an eager call adds
-  (a stub graph); a failed capture raises naming its part; a mesh is
-  refused.
+  (a stub graph); a failed capture raises naming its part; a gloo mesh
+  on CUDA tensors is refused.
 * Under deterministic algorithms the emulated capture gives the same
   bits, and graphs stay the default on a CUDA model; ``put_rows``, the
   row write that replaced ``index_put_``, gives its bits on every level.
@@ -31,7 +31,7 @@ outside.
 """
 
 import contextlib
-import threading
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +39,10 @@ import numpy as np
 import pytest
 import torch
 
+from _graph_capture import (  # noqa: F401  (emulated_capture: a fixture)
+    _leaves,
+    emulated_capture,
+)
 from spamtree_tpu.model import core as cj
 from spamtree_tpu.model import mcmc as mj
 from spamtree_tpu.model.params import make_theta_spec
@@ -126,15 +130,6 @@ def _run(fit, cfg, state, case, graphs):
                        graphs=graphs)
 
 
-def _leaves(x):
-    """Every tensor of a (nested) state, in order."""
-    if isinstance(x, torch.Tensor):
-        return [x]
-    if isinstance(x, tuple):
-        return [t for y in x for t in _leaves(y)]
-    return []
-
-
 def _same_bits(a, b, case):
     keys = [k for k in ("w", "yhat", "beta", "tausq", "theta", "w_mean",
                         "w_var", "yhat_mean", "yhat_var") if k in a]
@@ -180,153 +175,6 @@ def test_capture_ready_step_equals_eager(case, dtype):
 
 
 # -- the capture, emulated on the CPU ---------------------------------------
-
-
-@contextlib.contextmanager
-def _host_read_guard():
-    """Raise on what a CUDA graph cannot capture: a read of a device value
-    by the host (item, bool, cpu, numpy, tolist, float, int, index) and a
-    host-to-device copy (as_tensor or tensor of host data, an index given
-    as a Python list, a Python number assigned into a tensor) -- on the
-    capturing thread only, as a capture in ``thread_local`` mode bars
-    them (the drain thread may run meanwhile)."""
-    capturing = threading.get_ident()
-
-    def boom(what, orig=None):
-        def f(*a, **k):
-            if threading.get_ident() != capturing:
-                return orig(*a, **k)
-            raise AssertionError(f"{what} inside a captured part")
-        return f
-
-    as_tensor, getitem, setitem = (torch.as_tensor, torch.Tensor.__getitem__,
-                                   torch.Tensor.__setitem__)
-
-    def guarded_as_tensor(data, *a, **k):
-        if threading.get_ident() != capturing:
-            return as_tensor(data, *a, **k)
-        if not isinstance(data, torch.Tensor):
-            raise AssertionError("torch.as_tensor of host data inside a "
-                                 "captured part")
-        return as_tensor(data, *a, **k)
-
-    def no_lists(idx):
-        idx = idx if isinstance(idx, tuple) else (idx,)
-        if any(isinstance(i, list) for i in idx):
-            raise AssertionError("an index list inside a captured part")
-
-    def guarded_getitem(self, idx):
-        if threading.get_ident() == capturing:
-            no_lists(idx)
-        return getitem(self, idx)
-
-    def guarded_setitem(self, idx, v):
-        if threading.get_ident() != capturing:
-            return setitem(self, idx, v)
-        no_lists(idx)
-        if not isinstance(v, torch.Tensor):
-            raise AssertionError("a host value assigned into a tensor inside "
-                                 "a captured part")
-        return setitem(self, idx, v)
-
-    with pytest.MonkeyPatch.context() as mp:
-        for name in ("item", "__bool__", "cpu", "numpy", "tolist",
-                     "__float__", "__int__", "__index__"):
-            mp.setattr(torch.Tensor, name, boom(f"Tensor.{name}",
-                                                getattr(torch.Tensor, name)))
-        mp.setattr(torch.Tensor, "__getitem__", guarded_getitem)
-        mp.setattr(torch.Tensor, "__setitem__", guarded_setitem)
-        mp.setattr(torch, "as_tensor", guarded_as_tensor)
-        mp.setattr(torch, "tensor", boom("torch.tensor", torch.tensor))
-        yield
-
-
-def _copy_out(dst, src):
-    """Overwrite a part's captured outputs with a replay's."""
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    elif isinstance(dst, dict):
-        for k in dst:
-            _copy_out(dst[k], src[k])
-    elif isinstance(dst, tuple):
-        for a, b in zip(dst, src):
-            _copy_out(a, b)
-
-
-class _EmulatedGraph:
-    """Stands in for ``mcmc._Graph`` on the CPU.  The capture runs the part
-    once under ``_host_read_guard`` and then puts every buffer of the
-    runner back as it was (a capture computes nothing); a replay runs the
-    part again and copies its outputs into the captured ones, as a graph's
-    replay overwrites its own memory.  ``captured`` lists the parts."""
-
-    runner = None
-    captured: list = []
-
-    def __init__(self, name, fn, pool, stream):
-        r = _EmulatedGraph.runner
-        bufs = _leaves(r.state) + [r.it_dev]
-        snap = [b.clone() for b in bufs]
-        counts = mt._launch_counts()
-        with _host_read_guard():
-            self.out = fn()
-        for b, s in zip(bufs, snap):
-            b.copy_(s)
-        mt._set_launch_counts(counts)
-        self.fn = fn
-        _EmulatedGraph.captured.append(name)
-
-    def replay(self):
-        _copy_out(self.out, self.fn())
-
-
-class _NoStream:
-    def wait_stream(self, other):
-        pass
-
-
-def _counting(fn, name, attr):
-    """``fn`` (a kernel wrapper's plain version on the CPU) that counts its
-    calls in ``name.attr``, as the wrapper counts its launches."""
-
-    def f(*a, **k):
-        setattr(name, attr, getattr(name, attr) + 1)
-        return fn(*a, **k)
-
-    return f
-
-
-@pytest.fixture
-def emulated_capture(monkeypatch):
-    """StepRunner on the CPU that captures, with ``_EmulatedGraph`` and
-    no-op streams; the kernel wrappers count their (plain) calls."""
-    from spamtree_tpu_torch.ops import linalg
-
-    monkeypatch.setattr(linalg, "inv_chol",
-                        _counting(linalg.inv_chol, chol, "LAUNCHES"))
-    monkeypatch.setattr(level, "thin_gibbs_level", _counting(
-        level.thin_gibbs_level, level, "LAUNCHES_GIBBS"))
-    for f in ("thin_decision_level", "thin_decision_chains"):
-        monkeypatch.setattr(level, f, _counting(
-            getattr(level, f), level, "LAUNCHES_DECISION"))
-
-    class Runner(mt.StepRunner):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            self.capture = True
-            _EmulatedGraph.runner = self
-
-    _EmulatedGraph.captured = []
-    monkeypatch.setattr(mt, "StepRunner", Runner)
-    monkeypatch.setattr(mt, "_Graph", _EmulatedGraph)
-    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: _NoStream())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda *a, **k: _NoStream())
-    monkeypatch.setattr(torch.cuda, "stream",
-                        lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    return _EmulatedGraph
 
 
 @pytest.mark.parametrize("case", ["always_emit", "accept_aware",
@@ -639,9 +487,10 @@ def test_failed_capture_raises_naming_the_part(monkeypatch):
 
 
 def test_graphs_refused_on_a_mesh():
-    """graphs=True with a mesh raises; graphs=None resolves to graphs on a
-    CUDA model alone, under deterministic algorithms too: eager on the CPU
-    and on a mesh."""
+    """graphs=True on a gloo mesh with CUDA tensors raises, naming gloo's
+    host staging; graphs=None resolves to graphs on a CUDA model alone or
+    on an NCCL mesh, under deterministic algorithms too: eager on the CPU
+    and on a gloo mesh."""
     fit, cfg, state = _fit("always_emit", torch.float64)
     assert not mt._graphed(fit.ms, None)
     dev = fit.ms.device
@@ -650,14 +499,14 @@ def test_graphs_refused_on_a_mesh():
         assert mt._graphed(fit.ms, None)
         torch.use_deterministic_algorithms(True, warn_only=True)
         assert mt._graphed(fit.ms, None)
+        fit.ms.mesh = SimpleNamespace(backend="nccl")
+        assert mt._graphed(fit.ms, None)
+        fit.ms.mesh = SimpleNamespace(backend="gloo")
+        assert not mt._graphed(fit.ms, None)
+        with pytest.raises(ValueError, match="gloo stages CUDA tensors "
+                           "through host memory"):
+            mt.StepRunner(fit.ms, fit.bounds, cfg, state, None)
     finally:
         torch.use_deterministic_algorithms(False)
         fit.ms.device = dev
-    fit.ms.mesh = object()
-    try:
-        with pytest.raises(ValueError, match="mesh"):
-            mt.run_mcmc(fit.ms, fit.bounds, cfg, state,
-                        torch.Generator().manual_seed(1), graphs=True)
-        assert not mt._graphed(fit.ms, None)
-    finally:
         fit.ms.mesh = None

@@ -10,7 +10,7 @@ z filled outside in draw order.
   tree, for a chunk of 1, 3 and every draw; ``spamtree_predict`` gives the
   same draws.
 * The same with the capture emulated: the first draw eager, the capture
-  under the host-read guard of ``tests/test_torch_graphs.py``, then
+  under the host-read guard of ``tests/_graph_capture.py``, then
   replays whose outputs land in the captured tensor; K1 is called as often
   per draw as on the eager loop.
 * Given the z that the JAX package's compiled chunk draws for each draw
@@ -28,17 +28,17 @@ import pytest
 import torch
 
 import spamtree_tpu_torch
-from spamtree_tpu.model import core as cj
-from spamtree_tpu_torch import api
-from spamtree_tpu_torch.model import mcmc as mt
-from spamtree_tpu_torch.model import predict as pr
-from spamtree_tpu_torch.ops import chol
-from test_torch_graphs import (
+from _graph_capture import (
     _copy_out,
     _counting,
     _host_read_guard,
     _NoStream,
 )
+from spamtree_tpu.model import core as cj
+from spamtree_tpu_torch import api
+from spamtree_tpu_torch.model import mcmc as mt
+from spamtree_tpu_torch.model import predict as pr
+from spamtree_tpu_torch.ops import chol
 from test_torch_predict import THETA, _models
 
 
