@@ -222,7 +222,16 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    torch.use_deterministic_algorithms with the same bits and launches;
    each prints ms/draw of the run, then ms/draw and busy ms/draw over a
    window of 10 more draws (traced with torch.profiler), idle share, the
-   capture's seconds and the peak memory above the run's start.
+   capture's seconds and the peak memory above the run's start;
+21. the port's benchmark entry: ``python -m spamtree_tpu_torch.bench``
+   in a subprocess at config 1 and config 3, each at bench.py's own depth
+   (config 1 keep=1000, burn=1000, thin=2; config 3 keep=500, burn=1000,
+   thin=2), one repeat: its JSON line must parse with bench.py's keys,
+   RMSPE < 0.5 sd(y), acceptance in (0.05, 0.8), tflops_per_sec > 0 and
+   bandwidth_util in (0, 1.05], and K1 must launch; config 1's work count
+   of each part of the iteration on the card must equal the count of the
+   same model staged on the CPU in f32 (``mcmc.part_work``).  The bench
+   lines print in full.
 
 Kernel and plain times (the kernels record's ms and plain_ms) are CUDA
 events around eager calls of the wrappers the sweeps call, host time
@@ -271,8 +280,14 @@ both modes.
 
 runs phases 1-2 and the timings of phases 3 and 6 alone, at config 3's
 and config 5's known levels, for comparing two trees in one call (copy
-this script into the other tree and run it there).  Imports no jax;
-``bench`` only for its numpy data makers.
+this script into the other tree and run it there).
+
+    python3 chip_smoke.py --bench
+
+runs phases 1-2 and phase 21 alone.  Imports no jax; the data makers
+are ``spamtree_tpu_torch.bench``'s, and the kernels' bounds their cost
+functions (``ops.chol.inv_chol_cost``, ``ops.level.thin_gibbs_cost``,
+``ops.level.thin_decision_cost``), which the fit's work count uses too.
 """
 
 import contextlib
@@ -509,8 +524,8 @@ def time_kernel(chol, torch, write_l=False, reps=50, shapes=CONFIG3_SHAPES,
                "plain": lambda: chol.inv_chol_plain(A, write_l=write_l)}
         k, p = _event_times(torch, fns, reps)
         gk, gp = (_graph_ms(torch, fns[n], reps) for n in ("kernel", "plain"))
-        bound = _bound((3 if write_l else 2) * B * S * S * 4,
-                       B * 2 * S ** 3 / 3)
+        flops, nbytes = chol.inv_chol_cost(B, S, write_l, torch.float32)
+        bound = _bound(nbytes, flops)
         rows.append((B, S, k, p, bound, gk, gp))
         print(f"{name} time B={B} S={S}: kernel {k:.4f} ms, plain {p:.4f} ms,"
               f" bound {bound[0]:.4f} ms ({bound[1]}); device time in a "
@@ -1183,10 +1198,11 @@ def time_level_kernels(level, torch, thin3, reps=20):
     B, S, P = thin3
     _, gib = _level_inputs(torch, torch.float32, B, S, P, None, seed=11,
                            bad=False)
+    f32 = torch.float32
     cases = {"k3": (thin3, {
         "kernel": lambda: level.thin_gibbs_level(**gib),
         "plain": lambda: level.thin_gibbs_level_plain(**gib)},
-        _bound(4 * (B * S * P + 6 * B * S + 2 * B * P), 4 * B * S * P))}
+        _bound(*level.thin_gibbs_cost(B, S, P, f32)[::-1]))}
     decs = {}
     for key, (b, s, p) in (("k4", thin3), ("k5_p128", (B, S, 128)),
                            ("k5_p384", (B, S, 384))):
@@ -1196,9 +1212,8 @@ def time_level_kernels(level, torch, thin3, reps=20):
             "kernel": lambda dec=dec: level.thin_decision_level(
                 **dec, aligned=True),
             "plain": lambda dec=dec: level.thin_decision_level_plain(
-                **dec, aligned=True)}, _bound(
-            4 * (2 * b * p * s + b * p * p + b * p + 4 * b * s + 4 * b),
-            2 * p * p * (s + 1) * b + 6 * p * s * b))
+                **dec, aligned=True)},
+            _bound(*level.thin_decision_cost(b, s, p, f32)[::-1]))
     out = {}
     for key, ((b, s, p), f, (bd, by)) in cases.items():
         k, pl = _event_times(torch, f, reps)
@@ -1325,25 +1340,20 @@ def time_gibbs_shapes(level, torch, shapes, label, Bp=None, f64=False):
         lambda shp, seed: _gibbs_inputs(torch, dtype, *shp, seed=seed, Bp=Bp),
         {"kernel": level.thin_gibbs_level,
          "plain": level.thin_gibbs_level_plain},
-        lambda shp, _: (dtype.itemsize * (shp[0] * shp[1] * shp[2]
-                                          + 6 * shp[0] * shp[1]
-                                          + 2 * shp[0] * shp[2]),
-                        4 * shp[0] * shp[1] * shp[2]),
+        lambda shp, _: level.thin_gibbs_cost(*shp, dtype)[::-1],
         note=lambda shp: " variant " + _variant(level, shp[1], shp[2], dtype),
         f64=f64)
 
 
 def time_decision_shapes(level, torch, shapes, Bp, label):
     """K4 (thin_decision_level, reduction included) at ``shapes`` through
-    lp_pos on ``Bp`` parents.  The bound counts Kxc, prevH, the parent slabs
-    this lp_pos reads, wpar and four (B, S) vectors, and 2 P^2 (S + 1) B +
-    6 P S B flops."""
+    lp_pos on ``Bp`` parents.  The bound (``ops.level.thin_decision_cost``)
+    counts Kxc, prevH, the parent slabs this lp_pos reads, wpar, four (B,
+    S) vectors and lp_pos, and 2 P^2 (S + 1) B + 6 P S B flops."""
     def bound(shp, dec):
-        B, S, P = shp
         slabs = int(torch.unique(dec["lp_pos"]).numel())
-        nbytes = 4 * (2 * B * P * S + slabs * P * P + B * P + 4 * B * S
-                      + 4 * B)
-        return nbytes, 2 * P * P * (S + 1) * B + 6 * P * S * B
+        return level.thin_decision_cost(*shp, torch.float32, slabs=slabs,
+                                        aligned=False)[::-1]
 
     return _time_shapes(
         torch, "K4", label, shapes,
@@ -1863,7 +1873,7 @@ def _mesh_step(mesh, cfg_id):
     blocks cut off), and both sides' accepts."""
     import torch
 
-    import bench
+    from spamtree_tpu_torch import bench
     from spamtree_tpu_torch.api import prepare_fit
     from spamtree_tpu_torch.model.core import level_coords, tausq_shape
     from spamtree_tpu_torch.model.mcmc import draw_step, make_step
@@ -2013,7 +2023,7 @@ def _mesh_graphs(mesh, cfg_id):
     (``_count_replayed``).  Returns the record."""
     import torch
 
-    import bench
+    from spamtree_tpu_torch import bench
     from spamtree_tpu_torch.api import prepare_fit
     from spamtree_tpu_torch.ops import chol, level
 
@@ -2072,7 +2082,7 @@ def _mesh_graphs(mesh, cfg_id):
 def _gloo_refusal(mesh):
     """graphs=True on this gloo rank's CUDA model (config 1, a chain per
     chains rank): the error it raises, or None."""
-    import bench
+    from spamtree_tpu_torch import bench
     from spamtree_tpu_torch.api import prepare_fit
     from spamtree_tpu_torch.model.mcmc import run_mcmc, run_mcmc_chains
 
@@ -2105,7 +2115,7 @@ def mesh_job(mesh, runs, window_cfg=None, step_cfg=None,
     ``_gloo_refusal``."""
     import torch
 
-    import bench
+    from spamtree_tpu_torch import bench
     import spamtree_tpu_torch
     from spamtree_tpu_torch.ops import chol, level
 
@@ -3057,6 +3067,80 @@ def _predict_fits(bench, chol, level, torch):
     return {5: fit5, 3: fit3}
 
 
+# -- phase 21: the port's benchmark entry -----------------------------------
+
+# the keys of bench.py's JSON line at one repeat and one chain, in order
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "baseline_note",
+              "vs_cpu_1thread_est", "rmspe", "sd_y", "n", "iters", "accept",
+              "mcmc_time_s", "setup_time_s", "setup_breakdown_s", "repeats",
+              "ips_runs", "ips_min", "ips_max", "tflops_per_sec",
+              "bandwidth_util"]
+
+
+def _bench_entry(cfg_id):
+    """``python -m spamtree_tpu_torch.bench --config cfg_id --repeats 1``
+    at the config's own depth in a subprocess, its output printed; returns
+    (the JSON line, the run line's record)."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "spamtree_tpu_torch.bench", "--config",
+         str(cfg_id), "--repeats", "1"], capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    for line in proc.stdout.splitlines():
+        print(f"  {line}")
+    print(f"  (config {cfg_id}: {time.time() - t0:.1f} s, exit "
+          f"{proc.returncode})", flush=True)
+    _check(proc.returncode == 0, f"bench config {cfg_id} exited "
+           f"{proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    run = [json.loads(x[len("bench run: "):]) for x in lines
+           if x.startswith("bench run: ")]
+    _check(len(run) == 1, f"bench config {cfg_id}: {len(run)} run lines")
+    return json.loads(lines[-1]), run[0]
+
+
+def bench_phase(bench, torch):
+    """Phase 21: configs 1 and 3 through the bench entry, checked; config
+    1's per-part work on the card against the same model staged on the
+    CPU.  Returns {cfg_id: the run line's record}."""
+    from spamtree_tpu_torch.api import prepare_fit
+    from spamtree_tpu_torch.model.mcmc import part_work
+
+    runs = {}
+    for cfg_id in (1, 3):
+        _phase(f"bench: python -m spamtree_tpu_torch.bench --config "
+               f"{cfg_id} --repeats 1")
+        line, run = _bench_entry(cfg_id)
+        what = f"bench config {cfg_id}"
+        _check(list(line) == BENCH_KEYS, f"{what}: keys {list(line)}")
+        _check(line["rmspe"] < 0.5 * line["sd_y"],
+               f"{what}: RMSPE {line['rmspe']} >= 0.5 sd(y) {line['sd_y']}")
+        _check(0.05 < line["accept"] < 0.8,
+               f"{what}: acceptance {line['accept']}")
+        _check(line["tflops_per_sec"] > 0,
+               f"{what}: tflops_per_sec {line['tflops_per_sec']}")
+        _check(0 < line["bandwidth_util"] <= 1.05,
+               f"{what}: bandwidth_util {line['bandwidth_util']}")
+        _check(run["k1_launches"] > 0, f"{what}: K1 never launched")
+        runs[cfg_id] = run
+    _phase("bench: config 1's work per part, the card against the CPU")
+    c = bench.CONFIGS[1]
+    y, _, _, X, coords, mv = _data(bench, 1)
+    fit = prepare_fit(y - np.nanmean(y), X, coords, mv_id=mv, cell_size=25,
+                      mcmc=dict(keep=c["keep"], burn=c["burn"],
+                                thin=c["thin"]),
+                      settings=dict(chunk=200), device="cpu")
+    cpu = {k: dict(flops=v.work.flops, bytes=v.work.bytes) for k, v in
+           part_work(fit.ms, fit.bounds, fit.cfg, fit.state).items()}
+    card = {k: dict(flops=v["flops"], bytes=v["bytes"])
+            for k, v in runs[1]["part_work"].items()}
+    for k in card:
+        print(f"  part {k}: card {card[k]}, CPU {cpu.get(k)}")
+    _check(card == cpu, f"config 1's work per part differs: card {card}, "
+           f"CPU {cpu}")
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -3064,7 +3148,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import bench
+    from spamtree_tpu_torch import bench
     import spamtree_tpu_torch  # noqa: F401  (sets the f32 precision pins)
     from spamtree_tpu_torch.ops import _build, chol, level
 
@@ -3093,6 +3177,9 @@ def main() -> int:
         graphs_phase(bench, chol, level, torch)
         predict_phase(bench, chol, level, torch,
                       _predict_fits(bench, chol, level, torch))
+        return 0
+    if sys.argv[1:] == ["--bench"]:
+        bench_phase(bench, torch)
         return 0
     if sys.argv[1:] == ["--times"]:
         _phase("K1, K2, K3, K4 times")
@@ -3212,6 +3299,7 @@ def main() -> int:
     graphs_phase(bench, chol, level, torch)
     r20 = predict_phase(bench, chol, level, torch, {5: fit8, 3: fit3})
     del fit8, fit3
+    r21 = bench_phase(bench, torch)
     print(f"chip_smoke: every phase passed in {time.time() - _T0:.1f} s",
           flush=True)
 
@@ -3226,8 +3314,9 @@ def main() -> int:
     # earlier records).  launches_paths: each kernel's launches in each run
     # of config 5 (the four of phases 8-10 through spamtree(), run A and B
     # of the resume together), in spamtree_predict, and in the runs of
-    # phases 12-15; K1 alone runs on the paths of phases 9-13 and 15, the
-    # level kernels being off there.  *_config4: config 4's accept-aware
+    # phases 12-15 and 21 (the bench entry's subprocesses, which count
+    # their own); K1 alone runs on the paths of phases 9-13, 15 and 21,
+    # the level kernels being off there.  *_config4: config 4's accept-aware
     # run (phase 14): its launches, K3's and K4's f32 errors at its thin
     # levels, and each kernel's mean ms, plain ms and bound per launch at
     # its level shapes, timed after the run.
@@ -3235,7 +3324,8 @@ def main() -> int:
              "config5_predict": r11, "config2": r2, "config4": r4,
              "config5_predict_graphed": r20[5]["graphed"],
              "config3_predict_graphed": r20[3]["graphed"],
-             "config4_accept_aware": a4, "oracle_f64": ro} | {
+             "config4_accept_aware": a4, "oracle_f64": ro,
+             "bench_config1": r21[1], "bench_config3": r21[3]} | {
                  f"config{i}_chains{C}": r for (i, C), r in ch["runs"].items()}
     # phase 17: each mesh run's launches per rank (each rank counts its
     # own, in its own process)

@@ -181,9 +181,10 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     """Tree, schedule, model, tuned proposal and initial state of a
     ``spamtree`` run (same arguments), without running the chain; with
     ``resume_from`` the state and generators of that checkpoint instead of
-    the tuner and the initial sweep.  ``precompile`` is accepted and does
-    nothing: the port captures its CUDA graphs at the chain's first
-    iteration (``mcmc.StepRunner``).  ``n_chains > 1``: the
+    the tuner and the initial sweep.  ``precompile`` is ``spamtree``'s
+    (the work count, which runs with the chain); the port captures its
+    CUDA graphs at the chain's first iteration (``mcmc.StepRunner``).
+    ``n_chains > 1``: the
     tuner runs once and every chain starts from its state and proposal
     (``mcmc.stack_chain_states``), chain c's generator seeded ``seed +
     c``.
@@ -422,10 +423,20 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         caller's row order).
     debug : dict(sample_beta=, sample_tausq=, sample_theta=, sample_w=,
         sample_predicts=) switch each sampler off.
-    precompile : accepted and ignored.  On a CUDA device, alone or on an
-        NCCL mesh, every iteration runs as replayed CUDA graphs, captured
-        at the chain's first iteration (``mcmc.StepRunner``: the eager
-        step's chain, bit for bit); the capture's seconds are
+    precompile : count the work of the iteration before the timed loop,
+        as the JAX package's XLA cost analysis of its compiled keep chunk
+        does: flops_per_kept_sample and bytes_per_kept_sample are the
+        operations and bytes accessed of the ``thin`` iterations behind one
+        kept draw (``utils.cost``: each part of the iteration counted once
+        from shapes, the hand-written kernels by their own defined work,
+        weighted by the part's calls in the keep loop; every chain's work
+        with n_chains > 1; rank 0's shard on a mesh, the collectives as
+        copies), the count's seconds setup_breakdown["work_count_s"] and
+        each part's work "part_work"; without it all three are None.  It
+        compiles nothing: on a CUDA device, alone or on an NCCL mesh,
+        every iteration runs as replayed CUDA graphs, captured at the
+        chain's first iteration (``mcmc.StepRunner``: the eager step's
+        chain, bit for bit), whose seconds are
         setup_breakdown["keep_compile_s"] (each rank's own on a mesh) and
         the replays "graph_replays".  The CPU and gloo meshes run the
         eager step.
@@ -480,8 +491,9 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     the iterations alone, save_s in the checkpoint saves, the rest in the
     drains; drain_work_s is the drains' own work, which overlaps the
     iterations when pipelined), burn_actual, paramsd,
-    resumed_at_iteration, resumed_kept_already, setup_breakdown, tree,
-    schedule, theta_bounds, fit_config (what spamtree_predict needs) and,
+    flops_per_kept_sample, bytes_per_kept_sample and part_work (None
+    without precompile), resumed_at_iteration, resumed_kept_already,
+    setup_breakdown, tree, schedule, theta_bounds, fit_config (what spamtree_predict needs) and,
     with collect="summary", w_mean, w_var, yhat_mean, yhat_var and
     summary_count.
     """
@@ -518,9 +530,12 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         sink_append=r is not None,
         init_moments=r.init_moments if r else None,
         base_counts=r.base_counts if r else (0, 0),
-        yhat_rngs=r.yhat_rngs if r else None, donate=True)
+        yhat_rngs=r.yhat_rngs if r else None, donate=True,
+        count_work=bool(knobs.get("precompile", False)))
     # the JAX package's key for the keep program's compile
     fit.setup_breakdown["keep_compile_s"] = round(res["compile_time_s"], 2)
+    if res["work_count_s"] is not None:
+        fit.setup_breakdown["work_count_s"] = round(res["work_count_s"], 2)
     mv_id = (np.ones(len(fit.order), dtype=np.int64) if mv_id is None
              else np.asarray(mv_id, dtype=np.int64))
     tree = fit.tree
@@ -548,6 +563,9 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         "save_s": res["save_s"],
         "drain_work_s": res["drain_work_s"],
         "burn_actual": res["burn_actual"],
+        "flops_per_kept_sample": res["flops_per_kept_sample"],
+        "bytes_per_kept_sample": res["bytes_per_kept_sample"],
+        "part_work": res["part_work"],
         "resumed_at_iteration": r.at_iteration if r else None,
         "resumed_kept_already": r.kept_already if r else None,
         "setup_breakdown": fit.setup_breakdown,

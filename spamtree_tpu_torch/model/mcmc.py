@@ -59,6 +59,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -95,6 +96,7 @@ from spamtree_tpu_torch.model.transforms import (
 )
 from spamtree_tpu_torch.ops import chol as chol_ops
 from spamtree_tpu_torch.ops import level as level_ops
+from spamtree_tpu_torch.utils import cost
 
 
 class MCMCState(NamedTuple):
@@ -452,10 +454,13 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     ``chains=True``: the batched step of ``run_mcmc_chains`` over states
     with a leading chain axis (``stack_chain_states``) and draws from
     ``draw_chains``; always-emit unless ``cfg.accept_aware`` is True (None
-    resolves to off, as in the JAX package's vmapped chains)."""
+    resolves to off, as in the JAX package's vmapped chains).
+
+    ``step(..., ran=)``: the names of the ``StepRunner`` parts the
+    iteration ran go into the set ``ran``, as the runner names them."""
     parts = _Parts(ms, bounds, cfg, coords_cache, chains)
 
-    def theta_step(state: MCMCState, w, draws: StepDraws):
+    def theta_step(state: MCMCState, w, draws: StepDraws, ran: set):
         """The theta Metropolis step: (theta, logdetCi, leveldata, gram,
         pred_data, ram)."""
         theta, logdetCi, leveldata = state.theta, state.logdetCi, state.leveldata
@@ -469,16 +474,21 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
             # a borderline block), else the old state is kept
             emitted, ok2 = parts.rebuild(state, prop, w)
             install = bool(ok2.item())
+            ran.add("R")
         if install:
             # the factor swap and the state derived from the factors
             new_ld, new_pj, new_logdet = emitted
             theta, logdetCi, leveldata = prop, new_logdet, new_ld
             gram, pred_data = parts.derived(prop, new_ld, new_pj, pred_data)
+            ran.add("I")
         ram = ram._replace(propos_count=ram.propos_count + 1.0,
                            accept_count=ram.accept_count + float(accepted))
         return theta, logdetCi, leveldata, gram, pred_data, ram
 
-    def step(state: MCMCState, draws: StepDraws, predicting: bool) -> MCMCState:
+    def step(state: MCMCState, draws: StepDraws, predicting: bool,
+             ran: set | None = None) -> MCMCState:
+        ran = set() if ran is None else ran
+        ran.add(f"C{int(predicting)}" if chains else "A")
         w = parts.gibbs(state, draws)
         theta, logdetCi, leveldata = (state.theta, state.logdetCi,
                                       state.leveldata)
@@ -489,9 +499,11 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
                     parts.theta_chains(state, w, draws)
             else:
                 theta, logdetCi, leveldata, gram, pred_data, ram = \
-                    theta_step(state, w, draws)
+                    theta_step(state, w, draws, ran)
         w, tausq_inv, beta, XB = parts.tail(state, w, theta, pred_data, draws,
                                             predicting)
+        if not chains:
+            ran.add(f"T{int(predicting)}")
         return MCMCState(w=w, beta=beta, tausq_inv=tausq_inv, XB=XB,
                          theta=theta, leveldata=leveldata, pred_data=pred_data,
                          logdetCi=logdetCi, ram=ram, it=state.it + 1, gram=gram)
@@ -600,12 +612,13 @@ class StepRunner:
 
     def __init__(self, ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
                  state: MCMCState, draw, chains: int = 0, n_iters: int = 0,
-                 donate: bool = False):
-        _check_capturable(ms.device.type,
-                          None if ms.mesh is None else ms.mesh.backend)
+                 donate: bool = False, capture: bool = True):
+        if capture:
+            _check_capturable(ms.device.type,
+                              None if ms.mesh is None else ms.mesh.backend)
         self.ms, self.cfg, self.C, self.draw = ms, cfg, chains, draw
         self.P = _Parts(ms, bounds, cfg, level_coords(ms), bool(chains))
-        self.capture = ms.device.type == "cuda"
+        self.capture = capture and ms.device.type == "cuda"
         c = (lambda x: x) if donate else (lambda x: _tree_map(torch.clone, x))
         ram = state.ram
         counts = ({} if not chains else dict(
@@ -770,9 +783,10 @@ class StepRunner:
                 started=self.graphs is not None or out["started"]))
         self.state = s._replace(it=s.it + 1)
 
-    def step(self, predicting: bool) -> MCMCState:
+    def step(self, predicting: bool, ran: set | None = None) -> MCMCState:
         """One iteration; returns the state (the static buffers, which the
-        next iteration overwrites)."""
+        next iteration overwrites).  The names of the parts it ran go into
+        ``ran``."""
         if self.state.it >= self.eta.shape[0]:
             raise ValueError(f"StepRunner: iteration {self.state.it} is past "
                              f"the {self.eta.shape[0]} it was built for")
@@ -780,17 +794,17 @@ class StepRunner:
         warm = (self.cfg.ram_reference_warmup and self.cfg.adapting
                 and self.cfg.sample_theta and self.state.it <= G0)
         if not self.capture or self.graphs is not None or warm:
-            self._iterate(predicting, warm=warm)
+            self._iterate(predicting, warm=warm, ran=ran)
         else:
-            self._warm_up_and_capture(predicting)
+            self._warm_up_and_capture(predicting, ran)
         return self.state
 
-    def _warm_up_and_capture(self, predicting: bool):
+    def _warm_up_and_capture(self, predicting: bool, ran: set | None):
         side = torch.cuda.Stream(self.ms.device)
         side.wait_stream(torch.cuda.current_stream(self.ms.device))
         parts = self._parts()
         with torch.cuda.stream(side):
-            ran = set()
+            ran = set() if ran is None else ran
             self._iterate(predicting, ran=ran)
             t0 = time.time()
             # every part once on this stream before its capture, without
@@ -1238,7 +1252,67 @@ def _runner(ms, bounds, cfg, state, draw, chains, donate):
     r = StepRunner(ms, bounds, cfg, state, draw, chains=chains,
                    n_iters=n_burn_chunks * ipc + cfg.keep * cfg.thin,
                    donate=donate)
-    return r, (lambda s, predicting: r.step(predicting))
+    return r, (lambda s, predicting, ran=None: r.step(predicting, ran))
+
+
+def part_work(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
+              state: MCMCState, chains: int = 0) -> dict:
+    """{part name: utils.cost.Counter}: the work of one call of each part
+    of the iteration as ``StepRunner`` splits it (``StepRunner._parts``:
+    A, R, I, T0, T1 for one chain, C0, C1 for ``chains`` batched ones),
+    counted from shapes on a copy of ``state`` with every draw 1.0, as
+    plain calls on either device -- so the CPU and the card count the
+    same work.  ``state`` is not touched and no kernel launch is counted.
+    On a mesh every rank calls it (the parts hold the mesh's collectives,
+    which count as copies), and each counts its own shard."""
+    r = StepRunner(ms, bounds, cfg, state, None, chains=chains, n_iters=2,
+                   capture=False)
+    for t in r.d:
+        t.fill_(1.0)
+    counts, work = _launch_counts(), {}
+    try:
+        for name, fn in r._parts().items():  # A first: R and I read its out
+            with cost.Counter() as c:
+                r.out[name] = fn()
+            work[name] = c
+    finally:
+        _set_launch_counts(counts)
+    return work
+
+
+def _count_work(ms, bounds, cfg, state, chains, count_work):
+    """(``part_work``, its seconds) when ``count_work``, else None."""
+    if not count_work:
+        return None
+    t0 = time.time()
+    work = part_work(ms, bounds, cfg, state, chains)
+    if ms.device.type == "cuda":
+        torch.cuda.synchronize(ms.device)
+    return work, time.time() - t0
+
+
+def _work_result(res: dict, counted):
+    """From ``_count_work``'s (work, seconds): res["part_work"] ({part:
+    dict(flops, bytes, calls, by_kind)}, calls being the part's calls in
+    the keep loop), ``work_count_s``, and the keep loop's flops and bytes
+    per kept draw, ``flops_per_kept_sample`` and
+    ``bytes_per_kept_sample``: each part's work times its calls, summed,
+    over the kept draws.  All None without a count."""
+    for k in ("part_work", "work_count_s", "flops_per_kept_sample",
+              "bytes_per_kept_sample"):
+        res[k] = None
+    if counted is None:
+        return
+    work, res["work_count_s"] = counted
+    calls, kept = res["part_calls"], res["theta"].shape[0]
+    res["part_work"] = {
+        k: dict(flops=c.work.flops, bytes=c.work.bytes, calls=calls[k],
+                by_kind={kind: tuple(v) for kind, v in c.by_kind.items()})
+        for k, c in work.items()}
+    if kept:
+        for i, key in enumerate(("flops", "bytes")):
+            res[f"{key}_per_kept_sample"] = sum(
+                c.work[i] * calls[k] for k, c in work.items()) / kept
 
 
 def _graph_result(res: dict, runner):
@@ -1255,7 +1329,8 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
              yhat_seed: int = 0, checkpoint_path: str | None = None,
              sink_dir: str | None = None, sink_append: bool = False,
              init_moments: Moments | None = None, base_counts=(0, 0),
-             yhat_rngs=None, graphs=None, donate: bool = False) -> dict:
+             yhat_rngs=None, graphs=None, donate: bool = False,
+             count_work: bool = False) -> dict:
     """Burn, then keep in chunks; returns host-side sample arrays.
 
     Burn runs ``n_burn_chunks * mc * thin`` iterations (``burn_actual``)
@@ -1282,9 +1357,19 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     as plain calls; on a gloo mesh with CUDA tensors it raises a
     ``ValueError`` (gloo's host staging).  ``state`` is not modified,
     unless ``donate=True``: the graphed run then keeps its carry in the
-    state's own tensors, with no copy, and overwrites them."""
+    state's own tensors, with no copy, and overwrites them.
+
+    ``count_work`` (the JAX package's ``precompile``): before the timed
+    loop, each part of the iteration's work is counted (``part_work``;
+    ``res["work_count_s"]`` seconds), and weighted by the part's calls in
+    the keep loop into ``res["flops_per_kept_sample"]`` and
+    ``res["bytes_per_kept_sample"]``: the work of the ``thin`` iterations
+    behind a kept draw, as the JAX package's XLA count of its keep chunk;
+    without it they are None.  On a mesh they are this rank's: its shard
+    of every level, the collectives as copies."""
     nt = state.theta.shape[0]
     shape = tausq_shape(ms, cfg.tausq_ab)
+    counted = _count_work(ms, bounds, cfg, state, 0, count_work)
     runner = None
     if _graphed(ms, graphs):
         runner, one = _runner(
@@ -1293,13 +1378,14 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     else:
         step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms))
 
-        def one(s, predicting):
-            return step(s, draw_step(ms, gen, nt, shape), predicting)
+        def one(s, predicting, ran=None):
+            return step(s, draw_step(ms, gen, nt, shape), predicting, ran)
 
     res = _drive(ms, cfg, state, one, gen, 0, verbose, yhat_seed,
                  checkpoint_path, sink_dir, sink_append, init_moments,
                  base_counts, yhat_rngs)
     _graph_result(res, runner)
+    _work_result(res, counted)
     ram = res["state"].ram
     res["accept_ratio"] = ram.accept_count / max(ram.propos_count, 1)
     return res
@@ -1310,8 +1396,8 @@ def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
                     yhat_seed: int = 0, checkpoint_path: str | None = None,
                     sink_dir: str | None = None, sink_append: bool = False,
                     init_moments: Moments | None = None, base_counts=(0, 0),
-                    yhat_rngs=None, graphs=None,
-                    donate: bool = False) -> dict:
+                    yhat_rngs=None, graphs=None, donate: bool = False,
+                    count_work: bool = False) -> dict:
     """``run_mcmc`` for C chains in one batched step: ``states`` with a
     leading chain axis and ``gens`` their C generators
     (``stack_chain_states``).  The same chunk geometry, burn rounding,
@@ -1329,11 +1415,14 @@ def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     ``graphs`` and ``donate`` as in ``run_mcmc``: one graph per iteration
     variant (predicting or not) on CUDA alone or on an NCCL mesh; the
     draws, moments and checkpoints are gathered over the chains ranks
-    outside the graphs."""
+    outside the graphs.  ``count_work`` as in ``run_mcmc``: the count
+    covers every chain's work (one batched step), on a chains mesh this
+    rank's chains."""
     C, nt = states.theta.shape
     if len(gens) != C:
         raise ValueError(f"{len(gens)} generators for {C} chains")
     shape = tausq_shape(ms, cfg.tausq_ab)
+    counted = _count_work(ms, bounds, cfg, states, C, count_work)
     runner = None
     if _graphed(ms, graphs):
         runner, one = _runner(
@@ -1343,13 +1432,14 @@ def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
         step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms),
                          chains=True)
 
-        def one(s, predicting):
-            return step(s, draw_chains(ms, gens, nt, shape), predicting)
+        def one(s, predicting, ran=None):
+            return step(s, draw_chains(ms, gens, nt, shape), predicting, ran)
 
     res = _drive(ms, cfg, states, one, gens, C, verbose, yhat_seed,
                  checkpoint_path, sink_dir, sink_append, init_moments,
                  base_counts, yhat_rngs)
     _graph_result(res, runner)
+    _work_result(res, counted)
     gather = _chain_gather(ms, C)
     acc = _host(gather(res["state"].ram.accept_count, 0))
     prop = _host(gather(res["state"].ram.propos_count, 0))
@@ -1378,9 +1468,11 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
            checkpoint_path, sink_dir, sink_append, init_moments, base_counts,
            yhat_rngs) -> dict:
     """The chunked burn/keep loop of ``run_mcmc`` (``chains=0``) and
-    ``run_mcmc_chains`` (``chains=C``): ``one(state, predicting)`` runs one
-    iteration; ``gens`` (the generator, or the chains' list) is what a
-    checkpoint saves."""
+    ``run_mcmc_chains`` (``chains=C``): ``one(state, predicting, ran)``
+    runs one iteration and adds the names of the parts it ran to the set
+    ``ran``; ``res["part_calls"]`` counts them over the keep loop.
+    ``gens`` (the generator, or the chains' list) is what a checkpoint
+    saves."""
     if cfg.collect not in ("all", "summary"):
         raise ValueError(f"collect={cfg.collect!r}: 'all' or 'summary'")
     n = ms.n
@@ -1460,6 +1552,7 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
     # the saved state never runs ahead of the drained samples
     pipeline = checkpoint_path is None
     ring = HostRing(_QUEUE_DEPTH + 1 if pipeline else 1, ms.device, mc)
+    part_calls = Counter()
 
     def _dispatch(ki):
         nonlocal state, acc, iter_s
@@ -1470,7 +1563,9 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
         t_it = time.time()
         for j in range(take):
             for i in range(cfg.thin):
-                state = one(state, i == cfg.thin - 1)
+                ran = set()
+                state = one(state, i == cfg.thin - 1, ran)
+                part_calls.update(ran)
             if summary:
                 # every chain's noise is drawn, this rank's chains kept: a
                 # chain's noise does not depend on the mesh
@@ -1540,6 +1635,7 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
         _summary_result(res, acc, (0,) + ((n_all,) if chains else ())
                         + (n,))
     res["burn_actual"] = burn_actual
+    res["part_calls"] = part_calls
     res["mcmc_time"] = time.time() - t0
     res["iter_s"] = iter_s
     res["save_s"] = save_s

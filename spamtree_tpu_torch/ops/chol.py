@@ -14,6 +14,8 @@ import ctypes
 
 import torch
 
+from spamtree_tpu_torch.utils.cost import counted
+
 MAX_S = 64
 LAUNCHES = 0  # kernel launches by inv_chol; the plain version never counts
 
@@ -50,6 +52,16 @@ def inv_chol_plain(a: torch.Tensor, write_l: bool = False):
     return Linv
 
 
+def inv_chol_cost(B: int, S: int, write_l: bool, dtype) -> tuple:
+    """(flops, bytes) of one K1 call on (B, S, S): A read once, Linv (and
+    L with ``write_l``) written once; S^3/3 operations per block for the
+    factor and as many for its inverse."""
+    return (B * 2 * S ** 3 / 3,
+            (3 if write_l else 2) * B * S * S * dtype.itemsize)
+
+
+@counted(lambda a, write_l: inv_chol_cost(a.shape[:-2].numel(), a.shape[-1],
+                                          write_l, a.dtype))
 def inv_chol(a: torch.Tensor, write_l: bool = False):
     """Batched (B, S, S) SPD -> Linv (or (L, Linv) with ``write_l``), both
     lower triangular.  CUDA tensors launch the kernel; CPU tensors take

@@ -22,6 +22,8 @@ import os
 
 import torch
 
+from spamtree_tpu_torch.utils.cost import counted
+
 # the JAX package's static gate (pallas_level.py:39-40)
 MAX_P = 1024
 MAX_S = 512
@@ -90,6 +92,39 @@ def _check(fname: str, shapes: dict, dtype, device):
             raise ValueError(f"{fname}: {nm} must be contiguous")
 
 
+def thin_gibbs_cost(B: int, S: int, P: int, dtype) -> tuple:
+    """(flops, bytes) of one K3 call: H (B,S,P), wpar (B,P) and five (B,S)
+    vectors read once, wu (B,S) and msg (B,P) written once; 4 B S P
+    operations (H wpar and H' prec (wu - hw))."""
+    return 4 * B * S * P, dtype.itemsize * (B * S * P + 6 * B * S + 2 * B * P)
+
+
+def thin_decision_cost(B: int, S: int, P: int, dtype, slabs=None,
+                       aligned: bool = True) -> tuple:
+    """(flops, bytes) of one K4 call over B blocks: Kxc (B,P,S) and prevH
+    (B,S,P), ``slabs`` parent slabs (P,P) (default B; a wrapper reading
+    shapes alone cannot know how many distinct parents lp_pos names), wpar
+    (B,P), four (B,S) vectors and, unless aligned, lp_pos (int64) read
+    once, the (B,4) partials written once; 2 P^2 (S + 1) B + 6 P S B
+    operations (M = LAi Kxc, u = LAi wpar, then hk, hw and the sums)."""
+    slabs = B if slabs is None else slabs
+    return (2 * P * P * (S + 1) * B + 6 * P * S * B,
+            dtype.itemsize * (2 * B * P * S + slabs * P * P + B * P
+                              + 4 * B * S + 4 * B)
+            + (0 if aligned else 8 * B))
+
+
+def _k4_work(Kxc, joint, aligned, **_):
+    """K4's work from its wrappers' arguments: (B, P, S) blocks on (Bp, P,
+    P) parents, or (C, B, P, S) on (C, Bp, P, P) folded over chains."""
+    *lead, P, S = Kxc.shape
+    B, Bp = lead[-1], joint.shape[-3]
+    C = lead[0] if len(lead) == 2 else 1
+    return thin_decision_cost(C * B, S, P, Kxc.dtype,
+                              slabs=C * (B if aligned else min(B, Bp)),
+                              aligned=aligned)
+
+
 def thin_gibbs_level_plain(H, prec, wpar, z, ti, resid, rmask_f):
     """(wu, msg) of one thin level's w-Gibbs update (``thin_gibbs_level``)."""
     hw = torch.einsum("bsp,bp->bs", H, wpar)
@@ -100,6 +135,7 @@ def thin_gibbs_level_plain(H, prec, wpar, z, ti, resid, rmask_f):
     return wu, msg
 
 
+@counted(lambda H, **_: thin_gibbs_cost(*H.shape, H.dtype))
 def thin_gibbs_level(H, prec, wpar, z, ti, resid, rmask_f):
     """Fused w-Gibbs body of one thin level: (wu, msg).
 
@@ -185,6 +221,7 @@ def thin_decision_level_plain(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
         aligned))
 
 
+@counted(_k4_work)
 def thin_decision_partials(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
                            kdiag, rmask_f, aligned=False):
     """Per-block (B, 4) partials (logdet, qn, qc, ok) from kernel K4 (CUDA
@@ -235,6 +272,7 @@ def thin_decision_partials(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
     return part
 
 
+@counted(_k4_work)
 def thin_decision_level(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
                         kdiag, rmask_f, aligned=False):
     """Fused decision-sweep body of one thin level: (logdet, ok, qn, qc).
@@ -277,6 +315,7 @@ def thin_decision_chains_plain(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
                       rmask_f), aligned).reshape(Kxc.shape[0], -1, 4))
 
 
+@counted(_k4_work)
 def thin_decision_chains(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
                          kdiag, rmask_f, aligned=False):
     """``thin_decision_level`` for C chains in one K4 launch: (logdet, ok,

@@ -3,8 +3,8 @@
     python -m spamtree_tpu_torch.utils.profile_step [--config 3] [--iters 20]
         [--ab k1|step|drain] [--chains 1,2,4] [--eager]
 
-Run from the repository root (it takes its data and the configuration's
-own keywords, such as config 5's ``limited_tree=True``, from ``bench.py``).
+It takes its data and the configuration's own keywords, such as config
+5's ``limited_tree=True``, from ``spamtree_tpu_torch.bench`` (bench.py's).
 Sets the chain up as ``spamtree`` does, runs warm-up iterations,
 then times runs of ``--iters`` iterations on the host clock (synchronised)
 with the variants of ``--ab`` in turns, each on its own chain from the
@@ -88,7 +88,7 @@ def main():
     if args.ab == "drain":
         return drain_ab(args.config, args.eager)
 
-    import bench
+    from spamtree_tpu_torch import bench
     from spamtree_tpu_torch.api import prepare_fit
 
     cfg = bench.CONFIGS[args.config]
@@ -259,7 +259,7 @@ def _trace(run, iters):
 
 def chains_ab(args):
     """``--chains`` (see the module docstring)."""
-    import bench
+    from spamtree_tpu_torch import bench
     from spamtree_tpu_torch.api import prepare_fit
     from spamtree_tpu_torch.ops import chol, level
 
@@ -327,7 +327,7 @@ def drain_ab(config: int, eager: bool = False):
     ``eager``."""
     import tempfile
 
-    import bench
+    from spamtree_tpu_torch import bench
     from spamtree_tpu_torch.api import prepare_fit
     from spamtree_tpu_torch.model.mcmc import run_mcmc
 
