@@ -13,7 +13,6 @@ ranks the caller started, see ``parallel/``).
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -38,6 +37,7 @@ from spamtree_tpu_torch.model.tuning import (
 from spamtree_tpu_torch.parallel.mesh import Mesh
 from spamtree_tpu_torch.tree.partition import make_tree
 from spamtree_tpu_torch.tree.schedule import build_schedule
+from spamtree_tpu_torch.utils import trace
 
 # spamtree_tpu.spamtree's knob dicts over their defaults
 _MCMC = dict(keep=1000, burn=0, thin=1)
@@ -170,6 +170,7 @@ def _resume_plan(path: str, cfg: MCMCConfig, ms: ModelStatic, it: int,
     return cfg, moments, (burn_done, kept_done), kept_already
 
 
+@trace.entry("prepare_fit")
 def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
                 settings=None, seed=1, dtype=torch.float32, verbose=False,
                 device="cuda", limited_tree=False, resume_from=None,
@@ -259,18 +260,20 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         set_unif_bounds=prior["set_unif_bounds"], elevation=bool(elevation),
         n_chains=n_chains)
 
-    tb = {}  # setup breakdown: seconds per pre-MCMC phase
-    t_ = time.time()
-    tree = make_tree(cs, np.isfinite(ys), mvs, axis_cell_size=axis_size, K=K,
-                     start_level=start_level, tree_depth=tree_depth,
-                     last_not_reference=last_not_reference,
-                     limited_tree=limited_tree,
-                     cherrypick_same_margin=cherrypick_same_margin,
-                     cherrypick_group_locations=cherrypick_group_locations,
-                     mvbias=mvbias, rng=np.random.default_rng(seed),
-                     verbose=verbose)
-    sched = build_schedule(tree, limited_tree=limited_tree)
-    tb["tree_s"] = round(time.time() - t_, 2)
+    # setup breakdown: seconds per pre-MCMC phase, the call's spans setup.*
+    rec = trace.current()
+    tb = {}
+    with trace.span("setup.tree"):
+        tree = make_tree(cs, np.isfinite(ys), mvs, axis_cell_size=axis_size,
+                         K=K, start_level=start_level, tree_depth=tree_depth,
+                         last_not_reference=last_not_reference,
+                         limited_tree=limited_tree,
+                         cherrypick_same_margin=cherrypick_same_margin,
+                         cherrypick_group_locations=cherrypick_group_locations,
+                         mvbias=mvbias, rng=np.random.default_rng(seed),
+                         verbose=verbose)
+        sched = build_schedule(tree, limited_tree=limited_tree)
+    tb["tree_s"] = round(rec.seconds("setup.tree"), 2)
     start_theta = starting["theta"]
     if start_theta is None:
         start_theta = auto_start_theta(dd, q, cs, ys, mvs,
@@ -280,15 +283,15 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         toplim=1e3 if prior["toplim"] is None else prior["toplim"],
         vlim=prior["vlim"], elevation=bool(elevation),
         set_unif_bounds=prior["set_unif_bounds"], start_theta=start_theta)
-    t_ = time.time()
-    ms = ModelStatic(sched, cs, mvs, ys, xs, tspec.spec, dtype=dtype,
-                     device=device,
-                     block_multiple=1 if mesh is None else mesh.n_blocks)
-    if mesh is not None:
-        from spamtree_tpu_torch.parallel.sharding import shard_model
+    with trace.span("setup.model"):
+        ms = ModelStatic(sched, cs, mvs, ys, xs, tspec.spec, dtype=dtype,
+                         device=device,
+                         block_multiple=1 if mesh is None else mesh.n_blocks)
+        if mesh is not None:
+            from spamtree_tpu_torch.parallel.sharding import shard_model
 
-        ms = shard_model(ms, mesh)
-    tb["stage_s"] = round(time.time() - t_, 2)
+            ms = shard_model(ms, mesh)
+    tb["stage_s"] = round(rec.seconds("setup.model"), 2)
     cfg = MCMCConfig(
         keep=mcmc["keep"], burn=mcmc["burn"], thin=mcmc["thin"],
         adapting=settings["adapting"],
@@ -317,13 +320,13 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         if ck_chains != n_chains:
             raise ValueError(f"checkpoint holds {ck_chains} chain(s); "
                              f"n_chains={n_chains} was requested")
-        t_ = time.time()
-        own = (c0, c_own) if n_chains > 1 and mesh is not None else None
-        state = load_state(resume_from, ms, chains=own)
-        gen, yhat_rngs = load_rngs(resume_from, ms.device, chains=own)
-        cfg, moments, base, kept_already = _resume_plan(resume_from, cfg, ms,
-                                                        state.it, own)
-        tb["resume_load_s"] = round(time.time() - t_, 2)
+        with trace.span("setup.resume_load"):
+            own = (c0, c_own) if n_chains > 1 and mesh is not None else None
+            state = load_state(resume_from, ms, chains=own)
+            gen, yhat_rngs = load_rngs(resume_from, ms.device, chains=own)
+            cfg, moments, base, kept_already = _resume_plan(
+                resume_from, cfg, ms, state.it, own)
+        tb["resume_load_s"] = round(rec.seconds("setup.resume_load"), 2)
         if verbose:
             print(f"[resume] iteration {state.it}: {kept_already} kept draws "
                   f"already taken, {cfg.burn} burn + {cfg.keep} keep "
@@ -347,38 +350,39 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     if lazy is None:
         lazy = mcmc["burn"] > 0 and debug["sample_theta"]
     gen = torch.Generator(device=ms.device).manual_seed(seed)
-    t_ = time.time()
-    precomputed = None
-    if lazy and do_curv:
-        mcmcsd = subsample_curvature_sd(
-            cs, mvs, ys, xs, tspec.spec, tspec.bounds, tspec.start,
-            axis_cell_size=axis_size, K=K, device=ms.device,
-            start_tausq=start_tausq, seed=seed, timings=tb)
-    elif not lazy:
-        precomputed, lls = prepare_chain(ms, tspec.bounds, tspec.start, gen,
-                                         do_curvature=do_curv,
-                                         start_tausq=start_tausq)
-        if do_curv:
-            mcmcsd = curvature_sd_from_lls(lls, tspec.n_theta)
-    if mcmcsd is None:
-        # the theta posterior contracts like 1/sqrt(n): the reference's
-        # fixed 0.01 logit-scale proposal is far too wide at large n
-        mcmcsd = min(0.01, 1.0 / (tspec.n_theta
-                                  * np.sqrt(max(np.isfinite(ys).sum(), 1))))
-    elif do_curv and verbose:
-        print(f"[tune] curvature proposal sd: "
-              f"{np.array2string(np.sqrt(np.diag(mcmcsd)), precision=4)}")
-    cfg = cfg._replace(mcmcsd=mcmcsd)
-    start_w = starting["w"]
-    if start_w is not None:
-        start_w = np.asarray(start_w, dtype=np.float64).reshape(-1)[order]
-    state = init_state(ms, tspec.bounds, tspec.start,
-                       start_beta=starting["beta"], start_tausq=start_tausq,
-                       start_w=start_w, cfg=cfg, precomputed=precomputed)
-    if n_chains > 1:
-        state, gen = stack_chain_states(state,
-                                        seed + c0 + np.arange(c_own))
-    tb["init_s"] = round(time.time() - t_, 2)
+    with trace.span("setup.init"):
+        precomputed = None
+        if lazy and do_curv:
+            mcmcsd = subsample_curvature_sd(
+                cs, mvs, ys, xs, tspec.spec, tspec.bounds, tspec.start,
+                axis_cell_size=axis_size, K=K, device=ms.device,
+                start_tausq=start_tausq, seed=seed, timings=tb)
+        elif not lazy:
+            precomputed, lls = prepare_chain(
+                ms, tspec.bounds, tspec.start, gen, do_curvature=do_curv,
+                start_tausq=start_tausq)
+            if do_curv:
+                mcmcsd = curvature_sd_from_lls(lls, tspec.n_theta)
+        if mcmcsd is None:
+            # the theta posterior contracts like 1/sqrt(n): the reference's
+            # fixed 0.01 logit-scale proposal is far too wide at large n
+            n_obs = max(np.isfinite(ys).sum(), 1)
+            mcmcsd = min(0.01, 1.0 / (tspec.n_theta * np.sqrt(n_obs)))
+        elif do_curv and verbose:
+            print(f"[tune] curvature proposal sd: "
+                  f"{np.array2string(np.sqrt(np.diag(mcmcsd)), precision=4)}")
+        cfg = cfg._replace(mcmcsd=mcmcsd)
+        start_w = starting["w"]
+        if start_w is not None:
+            start_w = np.asarray(start_w, dtype=np.float64).reshape(-1)[order]
+        state = init_state(ms, tspec.bounds, tspec.start,
+                           start_beta=starting["beta"],
+                           start_tausq=start_tausq, start_w=start_w, cfg=cfg,
+                           precomputed=precomputed)
+        if n_chains > 1:
+            state, gen = stack_chain_states(state,
+                                            seed + c0 + np.arange(c_own))
+    tb["init_s"] = round(rec.seconds("setup.init"), 2)
     return Fit(ms, tspec.bounds, cfg, state, gen, order, tree, sched, tb,
                fit_config, mesh=mesh)
 
@@ -595,6 +599,7 @@ def _torch_dtype(d) -> torch.dtype:
     return d if isinstance(d, torch.dtype) else getattr(torch, np.dtype(d).name)
 
 
+@trace.entry("spamtree_predict")
 def spamtree_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
                      mv_id_new=None, n_draws=None, seed=1, chunk=32,
                      verbose=False, device="cuda"):
@@ -622,26 +627,42 @@ def spamtree_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
     the eager loop's draws bit for bit.
 
     Returns dict(w_pred (S, m), yhat_pred (S, m), draw_indices,
-    predict_breakdown {tree_s, stage_s, draws_s, capture_s}) in the row
-    order of ``coords_new``."""
-    st = stage_predict(fit, y, x, coords, coords_new, x_new, mv_id=mv_id,
-                       mv_id_new=mv_id_new, n_draws=n_draws, device=device)
-    runner = DrawRunner(st.ms, st.theta_draws.shape[1], st.new_pos, st.cc)
-    t_ = time.time()
-    w_pred = predict_draws(st, runner, seed, chunk, verbose)
-    tb = dict(st.breakdown, draws_s=round(time.time() - t_, 3),
-              capture_s=round(runner.capture_s, 3))
-    runner.release()
+    predict_breakdown) in the row order of ``coords_new``;
+    ``predict_breakdown`` holds the seconds of the call's spans (its trace
+    record, ``utils.trace``): tree_s (``predict.tree``) and stage_s
+    (``predict.model``) of ``predict.stage``; draws_s (``predict.draws``:
+    the draw runner's set-up and the draws), of which capture_s
+    (``predict.capture``) and upload_s (``predict.upload``: the fit's draws
+    indexed on the host, copied and laid out on the device, chunk by
+    chunk); and yhat_s (``predict.yhat``)."""
+    rec = trace.current()
+    with trace.span("predict.stage"):
+        st = stage_predict(fit, y, x, coords, coords_new, x_new,
+                           mv_id=mv_id, mv_id_new=mv_id_new, n_draws=n_draws,
+                           device=device)
+    with trace.span("predict.draws"):
+        runner = DrawRunner(st.ms, st.theta_draws.shape[1], st.new_pos,
+                            st.cc)
+        w_pred = predict_draws(st, runner, seed, chunk, verbose)
+        trace.count("predict.replays", runner.replays)
+        runner.release()
 
-    # yhat = X_new beta_s (own margin) + w_new + tausq noise, on the host as
-    # the fit's yhat is
-    sel, m = st.sel, len(st.new_pos)
-    rng = np.random.default_rng(seed)
-    mvn0 = np.searchsorted(st.uniq, st.mv_id_new)
-    xb = np.einsum("np,spq->snq", st.x_new,
-                   st.beta_draws[sel])[:, np.arange(m), mvn0]
-    noise_sd = np.sqrt(st.tausq_draws[sel][:, mvn0])
-    yhat_pred = xb + w_pred + noise_sd * rng.standard_normal(w_pred.shape)
+    with trace.span("predict.yhat"):
+        # yhat = X_new beta_s (own margin) + w_new + tausq noise, on the
+        # host as the fit's yhat is
+        sel, m = st.sel, len(st.new_pos)
+        rng = np.random.default_rng(seed)
+        mvn0 = np.searchsorted(st.uniq, st.mv_id_new)
+        xb = np.einsum("np,spq->snq", st.x_new,
+                       st.beta_draws[sel])[:, np.arange(m), mvn0]
+        noise_sd = np.sqrt(st.tausq_draws[sel][:, mvn0])
+        yhat_pred = xb + w_pred + noise_sd * rng.standard_normal(
+            w_pred.shape)
+    tb = dict(st.breakdown, **{k: round(rec.seconds(f"predict.{s}"), 3)
+                               for k, s in (("draws_s", "draws"),
+                                            ("capture_s", "capture"),
+                                            ("upload_s", "upload"),
+                                            ("yhat_s", "yhat"))})
     return {"w_pred": w_pred, "yhat_pred": yhat_pred, "draw_indices": sel,
             "predict_breakdown": tb}
 
@@ -662,14 +683,17 @@ class PredictStage(NamedTuple):
     x_new: np.ndarray
     mv_id_new: np.ndarray
     uniq: np.ndarray  # the fit's margin labels
-    breakdown: dict  # tree_s, stage_s
+    breakdown: dict  # tree_s, stage_s: spans predict.tree, predict.model
 
 
 def stage_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
                   mv_id_new=None, n_draws=None,
                   device="cuda") -> PredictStage:
     """``spamtree_predict``'s checks, tree and model over the fit's data
-    with the new rows appended, and the fit's draws mapped onto it."""
+    with the new rows appended, and the fit's draws mapped onto it; the
+    tree and the model are the spans ``predict.tree``
+    (``breakdown["tree_s"]``) and ``predict.model``
+    (``breakdown["stage_s"]``)."""
     fc = fit.get("fit_config")
     if fc is None:
         raise ValueError("fit has no 'fit_config'; re-run spamtree() to use "
@@ -745,41 +769,41 @@ def stage_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
     na_which = np.isfinite(ys)
 
     tb = {}
-    t_ = time.time()
-    axis_size = (int(round(fc["cell_size"] ** (1.0 / dd)))
-                 if np.isscalar(fc["cell_size"])
-                 else np.asarray(fc["cell_size"]))
-    tree = make_tree(
-        cs, na_which, mvs, axis_cell_size=axis_size, K=fc["K"],
-        start_level=fc["start_level"], tree_depth=fc["tree_depth"],
-        last_not_reference=fc["last_not_reference"],
-        limited_tree=fc["limited_tree"],
-        cherrypick_same_margin=fc["cherrypick_same_margin"],
-        cherrypick_group_locations=fc["cherrypick_group_locations"],
-        mvbias=fc["mvbias"], rng=np.random.default_rng(fc["seed"]),
-        verbose=False)
-    # the observed rows, which alone drive the partition, landed in the
-    # same blocks as in the fit
-    fit_tree = fit.get("tree")
-    if fit_tree is not None:
-        obs_fit = np.isfinite(y[fit["order"]])
-        if not np.array_equal(tree.block_of_row[na_which],
-                              np.asarray(fit_tree.block_of_row)[obs_fit]):
-            raise RuntimeError(
-                "augmented partition diverged from the fit's on observed rows")
-    sched = build_schedule(tree, limited_tree=fc["limited_tree"])
-    tb["tree_s"] = round(time.time() - t_, 2)
+    with trace.span("predict.tree") as sp:
+        axis_size = (int(round(fc["cell_size"] ** (1.0 / dd)))
+                     if np.isscalar(fc["cell_size"])
+                     else np.asarray(fc["cell_size"]))
+        tree = make_tree(
+            cs, na_which, mvs, axis_cell_size=axis_size, K=fc["K"],
+            start_level=fc["start_level"], tree_depth=fc["tree_depth"],
+            last_not_reference=fc["last_not_reference"],
+            limited_tree=fc["limited_tree"],
+            cherrypick_same_margin=fc["cherrypick_same_margin"],
+            cherrypick_group_locations=fc["cherrypick_group_locations"],
+            mvbias=fc["mvbias"], rng=np.random.default_rng(fc["seed"]),
+            verbose=False)
+        # the observed rows, which alone drive the partition, landed in the
+        # same blocks as in the fit
+        fit_tree = fit.get("tree")
+        if fit_tree is not None:
+            obs_fit = np.isfinite(y[fit["order"]])
+            if not np.array_equal(tree.block_of_row[na_which],
+                                  np.asarray(fit_tree.block_of_row)[obs_fit]):
+                raise RuntimeError("augmented partition diverged from the "
+                                   "fit's on observed rows")
+        sched = build_schedule(tree, limited_tree=fc["limited_tree"])
+    tb["tree_s"] = round(sp.seconds, 2)
     tspec = make_theta_spec(
         dd, q, btmlim=fc["btmlim"] if fc["btmlim"] is not None else 1e-3,
         toplim=fc["toplim"] if fc["toplim"] is not None else 1e3,
         vlim=fc["vlim"], set_unif_bounds=fc["set_unif_bounds"],
         elevation=bool(fc.get("elevation", False)))
-    t_ = time.time()
-    dt = _torch_dtype(fc["dtype"])
-    ms = ModelStatic(sched, cs, mvs, ys, xs, tspec.spec, dtype=dt,
-                     device=device)
-    cc = level_coords(ms)
-    tb["stage_s"] = round(time.time() - t_, 2)
+    with trace.span("predict.model") as sp:
+        dt = _torch_dtype(fc["dtype"])
+        ms = ModelStatic(sched, cs, mvs, ys, xs, tspec.spec, dtype=dt,
+                         device=device)
+        cc = level_coords(ms)
+    tb["stage_s"] = round(sp.seconds, 2)
 
     # the fit's sorted-row w draws -> augmented sorted positions (old rows
     # only; every prediction row is redrawn by predict_recompute)
@@ -807,7 +831,9 @@ def predict_draws(st: PredictStage, runner: DrawRunner, seed: int,
     ``runner`` (a ``DrawRunner`` of ``st.ms``),
     ``chunk`` of them crossing to the device at a time and laid out on the
     augmented rows there; z from a device generator seeded ``seed``, one
-    vector per draw in draw order."""
+    vector per draw in draw order.  Spans, per chunk: ``predict.upload``
+    (the fit's draws indexed on the host, copied and laid out on the
+    device) and ``predict.readback``."""
     ms, sel = st.ms, st.sel
     S, m, n_aug = len(sel), len(st.new_pos), ms.n
     gen = torch.Generator(device=ms.device).manual_seed(seed)
@@ -816,17 +842,18 @@ def predict_draws(st: PredictStage, runner: DrawRunner, seed: int,
     w_pred = np.empty((S, m), dtype=np.float64)
     for lo in range(0, S, chunk):
         idx = sel[lo: lo + chunk]
-        w_fit = torch.as_tensor(st.w_draws[idx], device=ms.device).to(
-            ms.dtype)
-        wb_t = torch.cat([w_fit, w_fit.new_zeros(len(idx), 1)],
-                         dim=1).index_select(1, st.w_src)
-        th_t = torch.as_tensor(st.theta_draws[idx], dtype=ms.dtype,
-                               device=ms.device)
+        with trace.span("predict.upload"):
+            w_fit = torch.as_tensor(st.w_draws[idx], device=ms.device).to(
+                ms.dtype)
+            wb_t = torch.cat([w_fit, w_fit.new_zeros(len(idx), 1)],
+                             dim=1).index_select(1, st.w_src)
+            th_t = torch.as_tensor(st.theta_draws[idx], dtype=ms.dtype,
+                                   device=ms.device)
         out = torch.empty((len(idx), m), dtype=ms.dtype, device=ms.device)
         for i in range(len(idx)):
             out[i].copy_(runner.draw(th_t[i], wb_t[i], fill_z))
-        w_pred[lo: lo + len(idx)] = out.cpu().numpy()
+        with trace.span("predict.readback"):
+            w_pred[lo: lo + len(idx)] = out.cpu().numpy()
         if verbose:
             print(f"[predict] draws {lo + len(idx)}/{S}")
     return w_pred
-

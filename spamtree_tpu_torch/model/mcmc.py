@@ -96,7 +96,7 @@ from spamtree_tpu_torch.model.transforms import (
 )
 from spamtree_tpu_torch.ops import chol as chol_ops
 from spamtree_tpu_torch.ops import level as level_ops
-from spamtree_tpu_torch.utils import cost
+from spamtree_tpu_torch.utils import cost, trace
 
 
 class MCMCState(NamedTuple):
@@ -594,8 +594,12 @@ class StepRunner:
     On a CUDA device the first graph-eligible iteration runs eagerly on a
     side stream (the chain's own first iteration, with its own draws),
     every other part is run once more there without writing the state,
-    and then every part is captured (``capture_s`` seconds; one shared
-    memory pool); later iterations replay.  With ``ram_reference_warmup``
+    and then every part is captured (``capture_s`` seconds, the span
+    ``mcmc.capture``; one shared memory pool); later iterations replay
+    (``part_replays`` counts them per part, ``replays`` in all).  While
+    the call's trace record is active, each replay runs inside the device
+    span ``mcmc.part.<part>`` and each host read of a decision inside the
+    span ``mcmc.accept_read``.  With ``ram_reference_warmup``
     the iterations up to the warmup's switch-on (``it`` <= G0) run eagerly,
     as its branches follow the host's iteration count, and the capture
     comes after them.  On the CPU, where there are no graphs, every part
@@ -640,7 +644,16 @@ class StepRunner:
         self.out = {}  # each part's outputs (graph memory once captured)
         self.graphs = None
         self.capture_s = 0.0
-        self.replays = 0
+        self.part_replays = Counter()
+        # the call's trace record where it is active (None: the active-only
+        # spans are off), and where replays run on the card
+        rec = trace.current()
+        self.rec = rec if rec is not None and rec.active else None
+        self.timed = self.rec if ms.device.type == "cuda" else None
+
+    @property
+    def replays(self) -> int:
+        return sum(self.part_replays.values())
 
     # -- the parts: each reads the static buffers, and with ``commit``
     # writes its results into them --------------------------------------
@@ -742,9 +755,20 @@ class StepRunner:
         if self.graphs is None:
             self.out[name] = fn(**kw)
         else:
-            self.graphs[name].replay()
-            self.replays += 1
+            if self.timed is None:
+                self.graphs[name].replay()
+            else:
+                with self.timed.device_span(f"mcmc.part.{name}"):
+                    self.graphs[name].replay()
+            self.part_replays[name] += 1
         return self.out[name]
+
+    def _read(self, flag) -> bool:
+        """A decision the device made, read on the host (a sync)."""
+        if self.rec is None:
+            return bool(flag.item())
+        with trace.span("mcmc.accept_read"):
+            return bool(flag.item())
 
     # -- the iteration -----------------------------------------------------
 
@@ -761,10 +785,10 @@ class StepRunner:
             out = self._run("A", lambda: self._part_A(warm=warm))
             ran.add("A")
             if cfg.sample_theta:
-                accepted = bool(out["accepted"].item())  # host sync
+                accepted = self._read(out["accepted"])
                 install = accepted
                 if accepted and self.P.accept_aware:
-                    install = bool(self._run("R", self._part_R)["ok2"].item())
+                    install = self._read(self._run("R", self._part_R)["ok2"])
                     ran.add("R")
                 if install:
                     self._run("I", self._part_I)
@@ -806,23 +830,24 @@ class StepRunner:
         with torch.cuda.stream(side):
             ran = set() if ran is None else ran
             self._iterate(predicting, ran=ran)
-            t0 = time.time()
-            # every part once on this stream before its capture, without
-            # writing the state and uncounted (not the chain's work); A
-            # ran first, so R and I have its output
-            counts = _launch_counts()
-            for name in [n for n in parts if n not in ran]:
-                self.out[name] = parts[name](commit=False)
-            _set_launch_counts(counts)
-        torch.cuda.current_stream(self.ms.device).wait_stream(side)
-        pool = torch.cuda.graph_pool_handle()
-        graphs = {}
-        for name, fn in parts.items():
-            graphs[name] = _Graph(name, fn, pool, side)
-            self.out[name] = graphs[name].out
-        self.graphs = graphs
-        torch.cuda.synchronize(self.ms.device)
-        self.capture_s = time.time() - t0
+        with trace.span("mcmc.capture") as sp:
+            with torch.cuda.stream(side):
+                # every part once on this stream before its capture,
+                # without writing the state and uncounted (not the chain's
+                # work); A ran first, so R and I have its output
+                counts = _launch_counts()
+                for name in [n for n in parts if n not in ran]:
+                    self.out[name] = parts[name](commit=False)
+                _set_launch_counts(counts)
+            torch.cuda.current_stream(self.ms.device).wait_stream(side)
+            pool = torch.cuda.graph_pool_handle()
+            graphs = {}
+            for name, fn in parts.items():
+                graphs[name] = _Graph(name, fn, pool, side)
+                self.out[name] = graphs[name].out
+            self.graphs = graphs
+            torch.cuda.synchronize(self.ms.device)
+        self.capture_s = sp.seconds
 
     def release(self):
         """Drop the graphs and their memory (the state stays)."""
@@ -1008,8 +1033,9 @@ class HostRing:
     cost more than the copy.
 
     ``copy(tensors)`` takes a free slot (blocking while every slot is in
-    use), fills it from the device tensors with non-blocking copies on the
-    current stream and records an event after them; it returns (slot,
+    use, in the span ``mcmc.drain_wait``), fills it from the device
+    tensors with non-blocking copies on the current stream and records an
+    event after them; it returns (slot,
     {name: host view}, event or None).  ``release(slot)`` hands the slot
     back once its reader is done with it.  A slot's buffers are sized at
     first use to ``rows`` draws, or to the tensor when that is longer."""
@@ -1023,7 +1049,8 @@ class HostRing:
         self.allocations = 0
 
     def copy(self, tensors: dict):
-        slot = self.free.get()
+        with trace.span("mcmc.drain_wait"):
+            slot = self.free.get()
         views = {}
         for k, t in tensors.items():
             buf = slot.get(k)
@@ -1053,22 +1080,27 @@ def _drain_samples(host, m_take, *, summary, wire, sinks, outs, yhat_host):
     RAM, keep the small parameters.  Raises on a non-finite theta draw
     (reference aborts on a NaN loglik, spamtree_fit.cpp:234-237).  Returns
     (theta_s, tausq_s, beta_s)."""
-    beta_s, tausq_s, theta_s = (host[k][:m_take].numpy().copy()
-                                for k in ("beta", "tausq", "theta"))
+    with trace.span("mcmc.drain.store"):
+        beta_s, tausq_s, theta_s = (host[k][:m_take].numpy().copy()
+                                    for k in ("beta", "tausq", "theta"))
+        if not summary:
+            w_t = host["w"][:m_take]
+            w_s = (w_t.to(torch.float32) if wire is not None
+                   else w_t.clone()).numpy()
     if not summary:
-        w_t = host["w"][:m_take]
-        w_s = (w_t.to(torch.float32) if wire is not None
-               else w_t.clone()).numpy()
-        yhat_s = yhat_host(w_s, beta_s, tausq_s)
-        if sinks is not None:
-            sinks["w"].push(w_s.astype(np.float32, copy=False))
-            sinks["yhat"].push(yhat_s.astype(np.float32, copy=False))
-        else:
-            outs["w"].append(w_s)
-            outs["yhat"].append(yhat_s)
-    outs["beta"].append(beta_s)
-    outs["tausq"].append(tausq_s)
-    outs["theta"].append(theta_s)
+        with trace.span("mcmc.drain.yhat"):
+            yhat_s = yhat_host(w_s, beta_s, tausq_s)
+    with trace.span("mcmc.drain.store"):
+        if not summary:
+            if sinks is not None:
+                sinks["w"].push(w_s.astype(np.float32, copy=False))
+                sinks["yhat"].push(yhat_s.astype(np.float32, copy=False))
+            else:
+                outs["w"].append(w_s)
+                outs["yhat"].append(yhat_s)
+        outs["beta"].append(beta_s)
+        outs["tausq"].append(tausq_s)
+        outs["theta"].append(theta_s)
     if not np.isfinite(theta_s).all():
         raise FloatingPointError(
             "non-finite theta in chain; aborting (NaN loglik guard)")
@@ -1134,7 +1166,11 @@ def _drain_loop(n_keep_chunks, dispatch, drain, pipeline):
     already run are drained, and a further interrupt while they flush does
     not drop them.  A drain's error -- the non-finite-theta guard included
     -- is raised after the worker has stopped: up to two chunks late when
-    pipelined."""
+    pipelined.
+
+    The main thread's waits on the worker are spans of the call's trace
+    record: ``mcmc.drain_wait`` while the queue is full, ``mcmc.drain_flush``
+    for the last chunks; the worker writes its spans into the same record."""
     if not pipeline:
         try:
             for ki in range(n_keep_chunks):
@@ -1146,14 +1182,16 @@ def _drain_loop(n_keep_chunks, dispatch, drain, pipeline):
     q: queue.Queue = queue.Queue(maxsize=_QUEUE_DEPTH)
     fail: list = []
     done = threading.Event()
+    rec = trace.current()
 
     def _worker():
         try:
-            while True:
-                item = q.get()
-                if item is None:
-                    return
-                drain(*item)
+            with trace.adopt(rec):
+                while True:
+                    item = q.get()
+                    if item is None:
+                        return
+                    drain(*item)
         except BaseException as e:  # raised by the main thread after join
             fail.append(e)
         finally:
@@ -1174,8 +1212,12 @@ def _drain_loop(n_keep_chunks, dispatch, drain, pipeline):
     interrupted = False
     try:
         for ki in range(n_keep_chunks):
-            if fail or not _put(dispatch(ki)):
+            if fail:
                 break
+            item = dispatch(ki)
+            with trace.span("mcmc.drain_wait"):
+                if not _put(item):
+                    break
     except KeyboardInterrupt:
         interrupted = True
     finally:
@@ -1183,17 +1225,18 @@ def _drain_loop(n_keep_chunks, dispatch, drain, pipeline):
         # chunk's iterations already ran and its draws exist nowhere else.
         # (An interrupted Thread.join marks a live thread as stopped, so
         # the wait is on an event the worker sets as it ends.)
-        sent = False
-        while True:
-            try:
-                sent = sent or _put(None)
-                done.wait()
-                break
-            except KeyboardInterrupt:
-                interrupted = True
-                print("MCMC interrupted again; still draining the chunks "
-                      "already run.")
-        t.join()
+        with trace.span("mcmc.drain_flush"):
+            sent = False
+            while True:
+                try:
+                    sent = sent or _put(None)
+                    done.wait()
+                    break
+                except KeyboardInterrupt:
+                    interrupted = True
+                    print("MCMC interrupted again; still draining the "
+                          "chunks already run.")
+            t.join()
     if interrupted:
         print("MCMC interrupted; returning partial results.")
     if fail:
@@ -1284,11 +1327,11 @@ def _count_work(ms, bounds, cfg, state, chains, count_work):
     """(``part_work``, its seconds) when ``count_work``, else None."""
     if not count_work:
         return None
-    t0 = time.time()
-    work = part_work(ms, bounds, cfg, state, chains)
-    if ms.device.type == "cuda":
-        torch.cuda.synchronize(ms.device)
-    return work, time.time() - t0
+    with trace.span("mcmc.count_work") as sp:
+        work = part_work(ms, bounds, cfg, state, chains)
+        if ms.device.type == "cuda":
+            torch.cuda.synchronize(ms.device)
+    return work, sp.seconds
 
 
 def _work_result(res: dict, counted):
@@ -1317,13 +1360,19 @@ def _work_result(res: dict, counted):
 
 def _graph_result(res: dict, runner):
     """The capture's seconds (under the JAX package's key for its compile)
-    and the graph replays."""
-    res["compile_time_s"] = runner.capture_s if runner else 0.0
-    res["graph_replays"] = runner.replays if runner else 0
+    and the graph replays, read from the call's trace record, into which
+    the runner's replays per part go as ``mcmc.replays.<part>``."""
+    rec = trace.current()
     if runner is not None:
+        for name, n in runner.part_replays.items():
+            rec.count(f"mcmc.replays.{name}", n)
         runner.release()
+    res["compile_time_s"] = rec.seconds("mcmc.capture")
+    res["graph_replays"] = sum(v for k, v in rec.counters.items()
+                               if k.startswith("mcmc.replays."))
 
 
+@trace.entry("run_mcmc")
 def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
              state: MCMCState, gen: torch.Generator, verbose: bool = False,
              yhat_seed: int = 0, checkpoint_path: str | None = None,
@@ -1391,6 +1440,7 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     return res
 
 
+@trace.entry("run_mcmc_chains")
 def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
                     states: MCMCState, gens, verbose: bool = False,
                     yhat_seed: int = 0, checkpoint_path: str | None = None,
@@ -1472,7 +1522,15 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
     runs one iteration and adds the names of the parts it ran to the set
     ``ran``; ``res["part_calls"]`` counts them over the keep loop.
     ``gens`` (the generator, or the chains' list) is what a checkpoint
-    saves."""
+    saves.
+
+    Its timings are spans of the call's trace record (``utils.trace``):
+    ``mcmc.run`` the loop (``mcmc_time``), and inside it ``mcmc.iterate``
+    (``iter_s``), ``mcmc.save`` (``save_s``), ``mcmc.stage`` (a keep
+    chunk's stacks and copies), the drain's spans (``_drain_loop``;
+    ``mcmc.drain`` less its ``mcmc.drain.copy_wait`` is ``drain_work_s``)
+    and ``mcmc.result``; the counters ``mcmc.iterations`` and
+    ``mcmc.chunks`` (keep chunks)."""
     if cfg.collect not in ("all", "summary"):
         raise ValueError(f"collect={cfg.collect!r}: 'all' or 'summary'")
     n = ms.n
@@ -1497,118 +1555,87 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
     burn_done0, kept_done0 = base_counts
 
     def save(burn_done, kept_done):
-        nonlocal save_s
         from spamtree_tpu_torch.utils.checkpoint import save_state
 
-        t_s = time.time()
-        st, gs, mom = state, gens, acc
-        if chains and mesh is not None:
-            # every chains rank's chains; generator states cross on the
-            # device, as every collective's tensors do
-            g = lambda x: gather(x, 0)
-            ram = st.ram
-            st = st._replace(
-                w=g(st.w), beta=g(st.beta), tausq_inv=g(st.tausq_inv),
-                XB=g(st.XB), theta=g(st.theta), logdetCi=g(st.logdetCi),
-                ram=ram._replace(paramsd=g(ram.paramsd),
-                                 prodparam=g(ram.prodparam),
-                                 propos_count=g(ram.propos_count),
-                                 accept_count=g(ram.accept_count)))
-            gs = list(g(torch.stack([x.get_state() for x in gens]).to(
-                ms.device)).cpu())
-            if mom is not None:
-                mom = Moments(mom.count, *(g(x) for x in mom[1:]))
-        if rank0:
-            save_state(checkpoint_path, st, gs, yhat_rngs, moments=mom,
-                       counts=(mc, burn_done, kept_done, cfg.thin))
-        save_s += time.time() - t_s
-
-    if ms.device.type == "cuda":
-        torch.cuda.synchronize(ms.device)
-    t0 = time.time()
-    rep = _Reporter(t0, verbose, chains=chains)
-    # host seconds in the iterations alone (one chain syncs once an
-    # iteration, on the accept decision; batched chains only queue work),
-    # in the checkpoint saves, and in the drains' own work (on the worker
-    # thread when pipelined, so overlapping the iterations)
-    iter_s = save_s = drain_work_s = 0.0
-    for bi in range(n_burn_chunks):
-        t_it = time.time()
-        for _ in range(ipc):
-            state = one(state, False)
-        if chains:
-            _check_theta(state)
-        iter_s += time.time() - t_it
-        if checkpoint_path:
-            save(burn_done0 + (bi + 1) * ipc, kept_done0)
-        if verbose:
-            rep.report("burn", (bi + 1) * ipc, burn_actual, rep.snap(state),
-                       (bi + 1) * ipc)
-
-    sinks = _make_sinks(sink_dir, summary, sink_append, write=rank0)
-    outs = {k: [] for k in _out_keys(summary, sub_stride)}
-    drained = 0
-    # pipelined drain (see _drain_loop); sequential when checkpointing, so
-    # the saved state never runs ahead of the drained samples
-    pipeline = checkpoint_path is None
-    ring = HostRing(_QUEUE_DEPTH + 1 if pipeline else 1, ms.device, mc)
-    part_calls = Counter()
+        with trace.span("mcmc.save"):
+            st, gs, mom = state, gens, acc
+            if chains and mesh is not None:
+                # every chains rank's chains; generator states cross on the
+                # device, as every collective's tensors do
+                g = lambda x: gather(x, 0)
+                ram = st.ram
+                st = st._replace(
+                    w=g(st.w), beta=g(st.beta), tausq_inv=g(st.tausq_inv),
+                    XB=g(st.XB), theta=g(st.theta), logdetCi=g(st.logdetCi),
+                    ram=ram._replace(paramsd=g(ram.paramsd),
+                                     prodparam=g(ram.prodparam),
+                                     propos_count=g(ram.propos_count),
+                                     accept_count=g(ram.accept_count)))
+                gs = list(g(torch.stack([x.get_state() for x in gens]).to(
+                    ms.device)).cpu())
+                if mom is not None:
+                    mom = Moments(mom.count, *(g(x) for x in mom[1:]))
+            if rank0:
+                save_state(checkpoint_path, st, gs, yhat_rngs, moments=mom,
+                           counts=(mc, burn_done, kept_done, cfg.thin))
 
     def _dispatch(ki):
-        nonlocal state, acc, iter_s
+        nonlocal state, acc
         take = min(mc, cfg.keep - ki * mc)
         # skipped chunks' subsample draws are never copied
         use_sub = bool(sub_stride) and ki % sub_cstride == 0
         small, ws = [], []
-        t_it = time.time()
-        for j in range(take):
-            for i in range(cfg.thin):
-                ran = set()
-                state = one(state, i == cfg.thin - 1, ran)
-                part_calls.update(ran)
-            if summary:
-                # every chain's noise is drawn, this rank's chains kept: a
-                # chain's noise does not depend on the mesh
-                z = torch.randn(((n_all,) if chains else ()) + (n,),
-                                generator=gen_yhat, dtype=ms.dtype,
-                                device=ms.device)
-                acc = _moments_add(ms, acc, state,
-                                   z.narrow(0, c0, chains) if chains else z)
-            # copies: a graphed run's state is buffers the next iteration
-            # overwrites
-            small.append((state.beta.clone(), 1.0 / state.tausq_inv,
-                          state.theta.clone()))
-            if not summary or (use_sub and j % sub_stride == 0):
-                ws.append(state.w[..., :n].clone())
-        iter_s += time.time() - t_it
-        dev = {k: gather(torch.stack(v), 1)
-               for k, v in zip(("beta", "tausq", "theta"), zip(*small))}
-        if ws:
-            w_dev = torch.stack(ws)
-            dev["w"] = gather(w_dev.to(wire) if wire is not None else w_dev,
-                              1)
-        slot, host, event = ring.copy(dev)
+        with trace.span("mcmc.iterate"):
+            for j in range(take):
+                for i in range(cfg.thin):
+                    ran = set()
+                    state = one(state, i == cfg.thin - 1, ran)
+                    part_calls.update(ran)
+                if summary:
+                    # every chain's noise is drawn, this rank's chains
+                    # kept: a chain's noise does not depend on the mesh
+                    z = torch.randn(((n_all,) if chains else ()) + (n,),
+                                    generator=gen_yhat, dtype=ms.dtype,
+                                    device=ms.device)
+                    acc = _moments_add(ms, acc, state, z.narrow(0, c0, chains)
+                                       if chains else z)
+                # copies: a graphed run's state is buffers the next
+                # iteration overwrites
+                small.append((state.beta.clone(), 1.0 / state.tausq_inv,
+                              state.theta.clone()))
+                if not summary or (use_sub and j % sub_stride == 0):
+                    ws.append(state.w[..., :n].clone())
+        trace.count("mcmc.iterations", take * cfg.thin)
+        trace.count("mcmc.chunks")
+        with trace.span("mcmc.stage"):
+            dev = {k: gather(torch.stack(v), 1)
+                   for k, v in zip(("beta", "tausq", "theta"), zip(*small))}
+            if ws:
+                w_dev = torch.stack(ws)
+                dev["w"] = gather(w_dev.to(wire) if wire is not None
+                                  else w_dev, 1)
+            slot, host, event = ring.copy(dev)
         # dev stays referenced until the drain has waited for its copies
         return (slot, host, event, dev, take, use_sub,
                 rep.snap(state) if verbose else None)
 
     def _drain(slot, host, event, dev, m_take, use_sub, rep_snap):
-        nonlocal drained, drain_work_s
-        try:
-            if event is not None:
-                event.synchronize()
-            t_d = time.time()
-            theta_s, tausq_s, beta_s = _drain_samples(
-                host, m_take, summary=summary, wire=wire, sinks=sinks,
-                outs=outs, yhat_host=yhat_host)
-            if use_sub:
-                _drain_subsample(host["w"], m_take, sub_stride, beta_s,
-                                 tausq_s, wire=wire, outs=outs,
-                                 yhat_host=yhat_host)
-        finally:
-            del dev
-            ring.release(slot)
-        drain_work_s += time.time() - t_d
+        nonlocal drained
+        with trace.span("mcmc.drain"):
+            try:
+                if event is not None:
+                    with trace.span("mcmc.drain.copy_wait"):
+                        event.synchronize()
+                theta_s, tausq_s, beta_s = _drain_samples(
+                    host, m_take, summary=summary, wire=wire, sinks=sinks,
+                    outs=outs, yhat_host=yhat_host)
+                if use_sub:
+                    _drain_subsample(host["w"], m_take, sub_stride, beta_s,
+                                     tausq_s, wire=wire, outs=outs,
+                                     yhat_host=yhat_host)
+            finally:
+                del dev
+                ring.release(slot)
         drained += m_take
         if checkpoint_path:
             # sequential drain: the live state is the just-drained chunk's
@@ -1618,28 +1645,61 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
                        burn_actual + drained * cfg.thin)
         rep.printall(theta_s, tausq_s, drained - theta_s.shape[0])
 
-    _drain_loop(n_keep_chunks, _dispatch, _drain, pipeline)
-
-    if sinks is not None:
-        for sk in sinks.values():
-            sk.close()
+    rec = trace.current()
     if ms.device.type == "cuda":
         torch.cuda.synchronize(ms.device)
-    res = {k: (np.concatenate(v) if v else np.zeros((0,)))
-           for k, v in outs.items()}
-    if sinks is not None:
-        res["sink_files"] = {k: sk.path for k, sk in sinks.items()}
-    if summary:
-        if chains:
-            acc = Moments(acc.count, *(gather(x, 0) for x in acc[1:]))
-        _summary_result(res, acc, (0,) + ((n_all,) if chains else ())
-                        + (n,))
+    with trace.span("mcmc.run"):
+        rep = _Reporter(time.time(), verbose, chains=chains)
+        for bi in range(n_burn_chunks):
+            with trace.span("mcmc.iterate"):
+                for _ in range(ipc):
+                    state = one(state, False)
+                if chains:
+                    _check_theta(state)
+            trace.count("mcmc.iterations", ipc)
+            if checkpoint_path:
+                save(burn_done0 + (bi + 1) * ipc, kept_done0)
+            if verbose:
+                rep.report("burn", (bi + 1) * ipc, burn_actual,
+                           rep.snap(state), (bi + 1) * ipc)
+
+        sinks = _make_sinks(sink_dir, summary, sink_append, write=rank0)
+        outs = {k: [] for k in _out_keys(summary, sub_stride)}
+        drained = 0
+        # pipelined drain (see _drain_loop); sequential when
+        # checkpointing, so the saved state never runs ahead of the drained
+        # samples
+        pipeline = checkpoint_path is None
+        ring = HostRing(_QUEUE_DEPTH + 1 if pipeline else 1, ms.device, mc)
+        part_calls = Counter()
+        _drain_loop(n_keep_chunks, _dispatch, _drain, pipeline)
+
+        with trace.span("mcmc.result"):
+            if sinks is not None:
+                for sk in sinks.values():
+                    sk.close()
+            if ms.device.type == "cuda":
+                torch.cuda.synchronize(ms.device)
+            res = {k: (np.concatenate(v) if v else np.zeros((0,)))
+                   for k, v in outs.items()}
+            if sinks is not None:
+                res["sink_files"] = {k: sk.path for k, sk in sinks.items()}
+            if summary:
+                if chains:
+                    acc = Moments(acc.count, *(gather(x, 0) for x in acc[1:]))
+                _summary_result(res, acc, (0,) + ((n_all,) if chains else ())
+                                + (n,))
     res["burn_actual"] = burn_actual
     res["part_calls"] = part_calls
-    res["mcmc_time"] = time.time() - t0
-    res["iter_s"] = iter_s
-    res["save_s"] = save_s
-    res["drain_work_s"] = drain_work_s
+    # host seconds: the loop; the iterations alone (one chain syncs once
+    # an iteration, on the accept decision; batched chains only queue
+    # work); the checkpoint saves; the drains' own work (on the worker
+    # thread when pipelined, so overlapping the iterations)
+    res["mcmc_time"] = rec.seconds("mcmc.run")
+    res["iter_s"] = rec.seconds("mcmc.iterate")
+    res["save_s"] = rec.seconds("mcmc.save")
+    res["drain_work_s"] = (rec.seconds("mcmc.drain")
+                           - rec.seconds("mcmc.drain.copy_wait"))
     res["paramsd"] = gather(state.ram.paramsd, 0).cpu().numpy()
     res["state"] = state
     if mesh is not None:

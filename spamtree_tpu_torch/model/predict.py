@@ -10,12 +10,11 @@ do not depend on the chunk, and a graphed run gives the eager loop's bits.
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from spamtree_tpu_torch.model import core
 from spamtree_tpu_torch.model.mcmc import _Graph
+from spamtree_tpu_torch.utils import trace
 
 
 class DrawRunner:
@@ -28,9 +27,10 @@ class DrawRunner:
     ``graphs`` (default None: on for a CUDA model, off on the CPU): theta
     and w are copied into static buffers.  On a CUDA device the first draw
     runs eagerly on a side stream, then one draw is captured
-    (``capture_s`` seconds; its launches are not counted) and every later
-    draw replays it, adding to the kernels' launch counters what the eager
-    draw adds.  On the CPU, where there are no graphs, the same buffers go
+    (``capture_s`` seconds, the span ``predict.capture``; its launches are
+    not counted) and every later draw replays it (``replays`` counts
+    them), adding to the kernels' launch counters what the eager draw
+    adds.  On the CPU, where there are no graphs, the same buffers go
     through plain calls.  Without graphs each draw is a plain call on the
     given tensors.  A capture that fails raises, naming the draw."""
 
@@ -77,12 +77,13 @@ class DrawRunner:
         with torch.cuda.stream(side):
             out = self._draw(self.theta, self.w)
         torch.cuda.current_stream(dev).wait_stream(side)
-        t0 = time.time()
-        self.graph = _Graph("draw", lambda: self._draw(self.theta, self.w),
-                            torch.cuda.graph_pool_handle(), side,
-                            what="a prediction draw")
-        torch.cuda.synchronize(dev)
-        self.capture_s = time.time() - t0
+        with trace.span("predict.capture") as sp:
+            self.graph = _Graph("draw",
+                                lambda: self._draw(self.theta, self.w),
+                                torch.cuda.graph_pool_handle(), side,
+                                what="a prediction draw")
+            torch.cuda.synchronize(dev)
+        self.capture_s = sp.seconds
         return out
 
     def release(self):
