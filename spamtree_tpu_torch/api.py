@@ -444,7 +444,8 @@ def spamtree(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
         setup_breakdown["keep_compile_s"] (each rank's own on a mesh) and
         the replays "graph_replays".  The CPU and gloo meshes run the
         eager step.
-    seed : seeds the tree, the device generators and the host yhat noise.
+    seed : seeds the tree and the device generators (the yhat noise's
+        among them).
     dtype : torch.float32 or torch.float64.
     device : where the model runs; "cuda" raises when CUDA is absent.
     limited_tree : each block conditions on its parent block's rows alone

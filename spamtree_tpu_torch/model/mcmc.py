@@ -17,12 +17,13 @@ decision is read on the host (one device sync per iteration; the
 accept-aware step reads the rebuild's ok flag too, on accepted iterations
 only).
 
-``run_mcmc`` keeps draws in chunks.  ``collect="all"`` copies each chunk's
-w draws (f16 on the wire for f32 models) into a pinned host buffer and
-drains them -- f16 decode, the host's yhat, sinks -- on a worker thread up
+``run_mcmc`` keeps draws in chunks.  Each kept draw's yhat is built on the
+device, its noise from a second device generator, so every collection mode
+follows the same chain.  ``collect="all"`` streams each kept draw's w (f16
+on the wire for f32 models) and yhat into a pinned host buffer as it is
+drawn, and drains the chunk -- f16 decode, sinks -- on a worker thread up
 to two chunks behind the sampling loop; ``collect="summary"`` accumulates
-posterior moments on the device instead, yhat noise from a second device
-generator, so both modes follow the same chain.  With ``checkpoint_path``
+posterior moments on the device instead.  With ``checkpoint_path``
 the drain is sequential and the sampler state, every generator and the
 moments are saved after each chunk (``utils.checkpoint``).
 
@@ -56,6 +57,7 @@ alone writes the sinks and checkpoints.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -903,15 +905,10 @@ def _moments_zero(ms: ModelStatic, lead=()) -> Moments:
     return Moments(0.0, z(), z(), z(), z())
 
 
-def _moments_add(ms: ModelStatic, acc: Moments, state: MCMCState,
-                 z: torch.Tensor) -> Moments:
-    """Add one kept draw: yh = XB + w + tau z (reference: spamtree_fit.cpp:
-    384) with ``z`` the (n,) standard-normal noise ((C, n) for chains),
-    and the five sums."""
-    n = ms.n
-    w_k = state.w[..., :n]
-    yh = (state.XB[..., :n] + w_k
-          + torch.sqrt(1.0 / state.tausq_inv)[..., ms.mv[:n]] * z)
+def _moments_add(acc: Moments, w_k: torch.Tensor,
+                 yh: torch.Tensor) -> Moments:
+    """Add one kept draw's (n,) w and yhat ((C, n) for chains) to the five
+    sums."""
     acc.w_sum.add_(w_k)
     acc.w_sq.addcmul_(w_k, w_k)
     acc.yh_sum.add_(yh)
@@ -920,12 +917,25 @@ def _moments_add(ms: ModelStatic, acc: Moments, state: MCMCState,
 
 
 def make_yhat_rngs(ms: ModelStatic, seed: int):
-    """The yhat noise streams of a run: a numpy generator for the host's
-    yhat of collect="all", a device generator for summary collection.
-    Neither is the chain's generator, so both modes draw the same chain."""
+    """The yhat noise streams of a run: a numpy generator, which nothing
+    draws from any more but checkpoints still carry, and the device
+    generator of every kept draw's yhat noise.  Neither is the chain's
+    generator, so every collection mode draws the same chain."""
     dev_seed = int(np.random.SeedSequence([seed, 1]).generate_state(1)[0])
     return (np.random.default_rng(seed),
             torch.Generator(device=ms.device).manual_seed(dev_seed))
+
+
+class _DeviceNormal:
+    """A numpy-like ``standard_normal(shape, dtype)`` that draws from the
+    device generator ``gen`` and returns a tensor on its device."""
+
+    def __init__(self, gen: torch.Generator, device: torch.device):
+        self.gen, self.device = gen, device
+
+    def standard_normal(self, shape, dtype=np.float64):
+        return torch.randn(shape, generator=self.gen, device=self.device,
+                           dtype=getattr(torch, np.dtype(dtype).name))
 
 
 def _subsample_plan(cfg: MCMCConfig, mc: int, summary: bool):
@@ -1005,118 +1015,185 @@ class _Reporter:
                       f"{np.array2string(tausq_s[i], precision=5)}")
 
 
-def _make_yhat_host(ms: ModelStatic, rng: np.random.Generator):
-    """Host posterior-predictive reconstruction yhat = X beta + w + tau z
-    (reference: spamtree_fit.cpp:384) from the (m, n) w draws, (m, p, q)
-    beta and (m, q) tausq draws, with host RNG for z.  One covariate at a
-    time, so the largest temporary has the output's shape."""
-    X_h = ms.X.cpu().numpy()
-    mv_h = ms.mv[: ms.n].cpu().numpy()
+def _make_yhat_host(ms: ModelStatic, rng):
+    """The kept draws' posterior predictive yhat = X beta + w + tau z
+    (reference: spamtree_fit.cpp:384), built on the device at each kept
+    draw: ``yhat(state, n_all=0, c0=0)`` gives the (n,) yhat of a chain's
+    state, or the (C, n) yhat of chains c0 .. c0 + C - 1 of a run of n_all
+    chains (every chain's noise is drawn and this rank's kept, so a chain's
+    noise does not depend on the mesh).  ``rng.standard_normal(shape,
+    dtype=<numpy dtype>)`` gives z, and whatever it returns is moved onto
+    the model's device: ``_drive`` passes ``_DeviceNormal`` over the run's
+    device yhat generator.  The name is from when yhat was built on the
+    host; it is kept, with its signature, as the seam where the benchmark's
+    ``yhat_no_noise`` fault hands in an ``rng`` that returns numpy zeros."""
+    n = ms.n
+    mv = ms.mv[:n]
+    zdt = np.float64 if ms.dtype == torch.float64 else np.float32
 
-    def _yhat_host(w_s, beta_s, tausq_s):
-        XB = np.zeros(w_s.shape, dtype=w_s.dtype)
-        for j in range(X_h.shape[1]):
-            XB += beta_s[..., j, :][..., mv_h] * X_h[:, j]
-        sd = np.sqrt(tausq_s[..., mv_h])  # per-row margin noise sd
-        zdt = np.float64 if w_s.dtype == np.float64 else np.float32
-        return XB + w_s + sd * rng.standard_normal(w_s.shape, dtype=zdt)
+    def _yhat(state: MCMCState, n_all: int = 0, c0: int = 0):
+        w = state.w[..., :n]
+        shape = ((n_all,) if w.dim() > 1 else ()) + (n,)
+        z = torch.as_tensor(rng.standard_normal(shape, dtype=zdt),
+                            device=ms.device)
+        if w.dim() > 1:
+            z = z.narrow(0, c0, w.shape[0])
+        return (state.XB[..., :n] + w
+                + torch.sqrt(1.0 / state.tausq_inv)[..., mv] * z)
 
-    return _yhat_host
+    return _yhat
 
 
 _QUEUE_DEPTH = 2  # chunks queued for the drain thread
+_STAGED = 2  # device staging rows of the draws streamed to the host
 
 
 class HostRing:
-    """Host buffers for the chunk copies, reused: pinned when the model
-    runs on CUDA, where allocating a 100 MB pinned buffer per chunk would
-    cost more than the copy.
+    """Host buffers for the keep chunks' draws, reused: pinned when the
+    model runs on CUDA, where allocating a pinned buffer per chunk would
+    cost more than the copies.
 
-    ``copy(tensors)`` takes a free slot (blocking while every slot is in
-    use, in the span ``mcmc.drain_wait``), fills it from the device
-    tensors with non-blocking copies on the current stream and records an
-    event after them; it returns (slot,
-    {name: host view}, event or None).  ``release(slot)`` hands the slot
-    back once its reader is done with it.  A slot's buffers are sized at
-    first use to ``rows`` draws, or to the tensor when that is longer."""
+    ``take()`` hands out the free slot released last (blocking while
+    every slot is in use, in the span ``mcmc.drain_wait``), so a drain
+    that keeps up cycles through two slots and never pins the others.
+    ``put(slot, j, tensors)`` streams one kept draw into row j of the
+    slot's buffers as it is drawn:
+    on CUDA each tensor is copied into a device staging row (``_STAGED``
+    deep, each reused once the side stream's copy out of it has run, which
+    the current stream waits for on the device), and the side stream
+    copies it, non-blocking, into the pinned row; on the CPU the row is
+    copied at once.  ``copy(tensors, slot)`` copies a chunk's whole
+    tensors into the slot (taking one when none is given) behind every
+    row put into it, and returns (slot, {name: host view}, event or None):
+    the event follows all of the slot's copies.  The tensors given to
+    ``copy`` must stay referenced until the event has completed.
+    ``release(slot)`` hands the slot back once its reader is done with
+    it.  A slot's buffers are sized at first use to ``rows`` draws, or to
+    the tensor when that is longer."""
 
     def __init__(self, n_slots: int, device: torch.device, rows: int):
         self.pinned = device.type == "cuda"
+        self.device = device
         self.rows = rows
-        self.free: queue.Queue = queue.Queue()
+        self.free: queue.LifoQueue = queue.LifoQueue()
         for _ in range(n_slots):
             self.free.put({})
         self.allocations = 0
+        self._side = torch.cuda.Stream(device) if self.pinned else None
+        self._staged: list = []  # [({name: device row}, ready, done)]
+        self._puts = 0
 
-    def copy(self, tensors: dict):
+    def take(self) -> dict:
         with trace.span("mcmc.drain_wait"):
-            slot = self.free.get()
-        views = {}
+            return self.free.get()
+
+    def _buffer(self, slot: dict, k: str, rows: int, row_shape, dtype):
+        buf = slot.get(k)
+        if (buf is None or buf.dtype != dtype
+                or tuple(buf.shape[1:]) != tuple(row_shape)
+                or buf.shape[0] < rows):
+            buf = slot[k] = torch.empty(
+                (max(self.rows, rows),) + tuple(row_shape), dtype=dtype,
+                pin_memory=self.pinned)
+            self.allocations += 1
+        return buf
+
+    def put(self, slot: dict, j: int, tensors: dict):
+        rows = {k: self._buffer(slot, k, j + 1, t.shape, t.dtype)[j]
+                for k, t in tensors.items()}
+        if not self.pinned:
+            for k, t in tensors.items():
+                rows[k].copy_(t)
+            return
+        if len(self._staged) < _STAGED:
+            self._staged.append(({}, torch.cuda.Event(), torch.cuda.Event()))
+        stage, ready, done = self._staged[self._puts % _STAGED]
+        self._puts += 1
+        main = torch.cuda.current_stream(self.device)
+        main.wait_event(done)  # its last copy out has run
         for k, t in tensors.items():
-            buf = slot.get(k)
-            if (buf is None or buf.dtype != t.dtype
-                    or buf.shape[1:] != t.shape[1:]
-                    or buf.shape[0] < t.shape[0]):
-                buf = slot[k] = torch.empty(
-                    (max(self.rows, t.shape[0]),) + tuple(t.shape[1:]),
-                    dtype=t.dtype, pin_memory=self.pinned)
-                self.allocations += 1
-            views[k] = buf[: t.shape[0]]
-            views[k].copy_(t, non_blocking=self.pinned)
-        event = None
-        if self.pinned:
-            event = torch.cuda.Event()
-            event.record()
+            buf = stage.get(k)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = stage[k] = torch.empty_like(t)
+            buf.copy_(t)
+        ready.record(main)
+        self._side.wait_event(ready)
+        with torch.cuda.stream(self._side):
+            for k in tensors:
+                rows[k].copy_(stage[k], non_blocking=True)
+            done.record(self._side)
+
+    def copy(self, tensors: dict, slot: dict | None = None):
+        if slot is None:
+            slot = self.take()
+        views, side = {}, self._side
+        if side is not None:
+            side.wait_stream(torch.cuda.current_stream(self.device))
+        with (torch.cuda.stream(side) if side is not None
+              else contextlib.nullcontext()):
+            for k, t in tensors.items():
+                buf = self._buffer(slot, k, t.shape[0], t.shape[1:], t.dtype)
+                views[k] = buf[: t.shape[0]]
+                views[k].copy_(t, non_blocking=self.pinned)
+            event = None
+            if self.pinned:
+                event = torch.cuda.Event()
+                event.record(side)
         return slot, views, event
 
     def release(self, slot):
         self.free.put(slot)
 
 
-def _drain_samples(host, m_take, *, summary, wire, sinks, outs, yhat_host):
+class _Draws:
+    """The row-indexed draws (w or yhat) of a run kept in RAM: one array
+    of every kept row, allocated once, whose pages fill as the drains
+    write into it, so the result needs no concatenation.  ``append``
+    copies a chunk's host rows in, decoding the wire type."""
+
+    def __init__(self, rows: int, shape, dtype):
+        self.a = np.empty((rows,) + tuple(shape), dtype=dtype)
+        self.n = 0
+
+    def append(self, x: torch.Tensor):
+        torch.from_numpy(self.a[self.n:self.n + x.shape[0]]).copy_(x)
+        self.n += x.shape[0]
+
+    def result(self) -> np.ndarray:
+        return self.a[: self.n] if self.n else np.zeros((0,))
+
+
+def _drain_samples(host, m_take, *, summary, sinks, outs):
     """Store one chunk's host copies (``host``: torch tensors in pinned or
-    host buffers that are reused, so everything kept is copied out):
-    decode the w wire type, rebuild yhat, route w/yhat to the sinks or to
-    RAM, keep the small parameters.  Raises on a non-finite theta draw
-    (reference aborts on a NaN loglik, spamtree_fit.cpp:234-237).  Returns
-    (theta_s, tausq_s, beta_s)."""
+    host buffers that are reused, so everything kept is copied out): w
+    and yhat to the sinks (float32) or into the run's ``_Draws``, the
+    small parameters kept.  Raises on a non-finite theta draw (reference
+    aborts on a NaN loglik, spamtree_fit.cpp:234-237).  Returns (theta_s,
+    tausq_s)."""
     with trace.span("mcmc.drain.store"):
         beta_s, tausq_s, theta_s = (host[k][:m_take].numpy().copy()
                                     for k in ("beta", "tausq", "theta"))
-        if not summary:
-            w_t = host["w"][:m_take]
-            w_s = (w_t.to(torch.float32) if wire is not None
-                   else w_t.clone()).numpy()
-    if not summary:
-        with trace.span("mcmc.drain.yhat"):
-            yhat_s = yhat_host(w_s, beta_s, tausq_s)
-    with trace.span("mcmc.drain.store"):
-        if not summary:
+        for k in () if summary else ("w", "yhat"):
             if sinks is not None:
-                sinks["w"].push(w_s.astype(np.float32, copy=False))
-                sinks["yhat"].push(yhat_s.astype(np.float32, copy=False))
+                sinks[k].push(host[k][:m_take].to(torch.float32).numpy())
             else:
-                outs["w"].append(w_s)
-                outs["yhat"].append(yhat_s)
+                outs[k].append(host[k][:m_take])
         outs["beta"].append(beta_s)
         outs["tausq"].append(tausq_s)
         outs["theta"].append(theta_s)
     if not np.isfinite(theta_s).all():
         raise FloatingPointError(
             "non-finite theta in chain; aborting (NaN loglik guard)")
-    return theta_s, tausq_s, beta_s
+    return theta_s, tausq_s
 
 
-def _drain_subsample(w_sub, m_take, stride, beta_s, tausq_s, *, wire, outs,
-                     yhat_host):
-    """Summary-mode quantile subsample: store the chunk's strided w draws
-    (only these were copied) and their yhat."""
-    sub_take = -(-m_take // stride)  # kept draws at local indices 0, s, ..
-    w_t = w_sub[:sub_take]
-    w_s = (w_t.to(torch.float32) if wire is not None else w_t.clone()).numpy()
-    pos = np.arange(sub_take) * stride
-    outs["w"].append(w_s)
-    outs["yhat"].append(yhat_host(w_s, beta_s[pos], tausq_s[pos]))
+def _drain_subsample(host, m_take, stride, *, outs):
+    """Summary-mode quantile subsample: store the chunk's strided w and
+    yhat draws (only these were copied)."""
+    with trace.span("mcmc.drain.store"):
+        sub_take = -(-m_take // stride)  # kept draws at local 0, s, ..
+        for k in ("w", "yhat"):
+            outs[k].append(host[k][:sub_take])
 
 
 class _SkipSink:
@@ -1526,11 +1603,13 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
 
     Its timings are spans of the call's trace record (``utils.trace``):
     ``mcmc.run`` the loop (``mcmc_time``), and inside it ``mcmc.iterate``
-    (``iter_s``), ``mcmc.save`` (``save_s``), ``mcmc.stage`` (a keep
-    chunk's stacks and copies), the drain's spans (``_drain_loop``;
+    (``iter_s``), ``mcmc.save`` (``save_s``), ``mcmc.stage`` (each kept
+    draw's yhat, moments and row copies, and a keep chunk's small
+    parameters), the drain's spans (``_drain_loop``, ``HostRing.take``;
     ``mcmc.drain`` less its ``mcmc.drain.copy_wait`` is ``drain_work_s``)
-    and ``mcmc.result``; the counters ``mcmc.iterations`` and
-    ``mcmc.chunks`` (keep chunks)."""
+    and ``mcmc.result``; the counters ``mcmc.iterations``, ``mcmc.chunks``
+    (keep chunks) and ``mcmc.yhat_device`` (kept draws times this rank's
+    chains, each draw's yhat built on the device)."""
     if cfg.collect not in ("all", "summary"):
         raise ValueError(f"collect={cfg.collect!r}: 'all' or 'summary'")
     n = ms.n
@@ -1548,8 +1627,7 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
     sub_stride, sub_cstride = _subsample_plan(cfg, mc, summary)
     if yhat_rngs is None:
         yhat_rngs = make_yhat_rngs(ms, yhat_seed)
-    host_rng, gen_yhat = yhat_rngs
-    yhat_host = _make_yhat_host(ms, host_rng)
+    yhat = _make_yhat_host(ms, _DeviceNormal(yhat_rngs[1], ms.device))
     acc = ((init_moments if init_moments is not None
             else _moments_zero(ms, lead)) if summary else None)
     burn_done0, kept_done0 = base_counts
@@ -1584,37 +1662,41 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
         take = min(mc, cfg.keep - ki * mc)
         # skipped chunks' subsample draws are never copied
         use_sub = bool(sub_stride) and ki % sub_cstride == 0
-        small, ws = [], []
-        with trace.span("mcmc.iterate"):
-            for j in range(take):
+        small, slot, rows = [], None, 0
+        for j in range(take):
+            with trace.span("mcmc.iterate"):
                 for i in range(cfg.thin):
                     ran = set()
                     state = one(state, i == cfg.thin - 1, ran)
                     part_calls.update(ran)
+            send = not summary or (use_sub and j % sub_stride == 0)
+            if send and slot is None:
+                slot = ring.take()
+            with trace.span("mcmc.stage"):
+                # the draw leaves the device finished: its yhat built here,
+                # w and yhat streamed into the slot's row (a graphed run's
+                # state is buffers the next iteration overwrites)
+                w_k = state.w[..., :n]
+                yh = yhat(state, n_all, c0)
                 if summary:
-                    # every chain's noise is drawn, this rank's chains
-                    # kept: a chain's noise does not depend on the mesh
-                    z = torch.randn(((n_all,) if chains else ()) + (n,),
-                                    generator=gen_yhat, dtype=ms.dtype,
-                                    device=ms.device)
-                    acc = _moments_add(ms, acc, state, z.narrow(0, c0, chains)
-                                       if chains else z)
-                # copies: a graphed run's state is buffers the next
-                # iteration overwrites
+                    acc = _moments_add(acc, w_k, yh)
+                if send:
+                    ring.put(slot, rows, {
+                        "w": gather(w_k.to(wire) if wire is not None
+                                    else w_k, 0),
+                        "yhat": gather(yh, 0)})
+                    rows += 1
                 small.append((state.beta.clone(), 1.0 / state.tausq_inv,
                               state.theta.clone()))
-                if not summary or (use_sub and j % sub_stride == 0):
-                    ws.append(state.w[..., :n].clone())
         trace.count("mcmc.iterations", take * cfg.thin)
+        trace.count("mcmc.yhat_device", take * max(chains, 1))
         trace.count("mcmc.chunks")
         with trace.span("mcmc.stage"):
             dev = {k: gather(torch.stack(v), 1)
                    for k, v in zip(("beta", "tausq", "theta"), zip(*small))}
-            if ws:
-                w_dev = torch.stack(ws)
-                dev["w"] = gather(w_dev.to(wire) if wire is not None
-                                  else w_dev, 1)
-            slot, host, event = ring.copy(dev)
+            slot, host, event = ring.copy(dev, slot)
+            if rows:
+                host.update({k: slot[k][:rows] for k in ("w", "yhat")})
         # dev stays referenced until the drain has waited for its copies
         return (slot, host, event, dev, take, use_sub,
                 rep.snap(state) if verbose else None)
@@ -1626,13 +1708,10 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
                 if event is not None:
                     with trace.span("mcmc.drain.copy_wait"):
                         event.synchronize()
-                theta_s, tausq_s, beta_s = _drain_samples(
-                    host, m_take, summary=summary, wire=wire, sinks=sinks,
-                    outs=outs, yhat_host=yhat_host)
+                theta_s, tausq_s = _drain_samples(
+                    host, m_take, summary=summary, sinks=sinks, outs=outs)
                 if use_sub:
-                    _drain_subsample(host["w"], m_take, sub_stride, beta_s,
-                                     tausq_s, wire=wire, outs=outs,
-                                     yhat_host=yhat_host)
+                    _drain_subsample(host, m_take, sub_stride, outs=outs)
             finally:
                 del dev
                 ring.release(slot)
@@ -1665,6 +1744,16 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
 
         sinks = _make_sinks(sink_dir, summary, sink_append, write=rank0)
         outs = {k: [] for k in _out_keys(summary, sub_stride)}
+        if sinks is None and "w" in outs:
+            # every kept draw, or the subsample's strided rows
+            kept_rows = cfg.keep if not summary else sum(
+                -(-min(mc, cfg.keep - ki * mc) // sub_stride)
+                for ki in range(0, n_keep_chunks, sub_cstride))
+            shape = ((n_all,) if chains else ()) + (n,)
+            np_dt = lambda dt: torch.empty(0, dtype=dt).numpy().dtype
+            outs["w"] = _Draws(kept_rows, shape, np_dt(
+                ms.dtype if wire is None else torch.float32))
+            outs["yhat"] = _Draws(kept_rows, shape, np_dt(ms.dtype))
         drained = 0
         # pipelined drain (see _drain_loop); sequential when
         # checkpointing, so the saved state never runs ahead of the drained
@@ -1680,7 +1769,8 @@ def _drive(ms, cfg, state, one, gens, chains, verbose, yhat_seed,
                     sk.close()
             if ms.device.type == "cuda":
                 torch.cuda.synchronize(ms.device)
-            res = {k: (np.concatenate(v) if v else np.zeros((0,)))
+            res = {k: (v.result() if isinstance(v, _Draws)
+                       else np.concatenate(v) if v else np.zeros((0,)))
                    for k, v in outs.items()}
             if sinks is not None:
                 res["sink_files"] = {k: sk.path for k, sk in sinks.items()}

@@ -231,8 +231,11 @@ def test_run_readings_are_the_records(checkpoint, tmp_path):
     assert rec.children_s("mcmc.run") / rec.seconds("mcmc.run") > 0.9
     # pipelined, the drains ran on the worker: not the loop's children
     drains = rec.children_s("mcmc.drain")
-    assert drains == pytest.approx(rec.seconds("mcmc.drain.yhat")
+    assert drains == pytest.approx(rec.seconds("mcmc.drain.copy_wait")
                                    + rec.seconds("mcmc.drain.store"))
+    # every kept draw's yhat was built on the device, none on the host
+    assert rec.counter("mcmc.yhat_device") == fit.cfg.keep == 12
+    assert rec.calls("mcmc.drain.yhat") == 0
     if not checkpoint:
         assert rec.calls("mcmc.drain_flush") == 1
 
