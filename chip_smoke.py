@@ -9,18 +9,20 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 2. builds the kernels with nvcc for sm_90a, one nvcc per source, started
    together: K1 (csrc/inv_chol.cu) and K3/K4 (csrc/thin_level.cu); prints
    each kernel's registers, shared memory and spills;
-3. holds K1 against its plain PyTorch version at config 3's and config 5's
-   reference-level shapes (B up to 16384 at S = 25) and more, f32 and f64,
-   with and without L, each batch also with one non-SPD block that must
-   come out ok=False; times both at the config-3 shapes,
-   Linv alone (K1) and with L (the TPU's K2);
+3. holds K1 against its plain PyTorch version at config 3's, config 5's
+   and the trivariate configuration's reference-level shapes (B up to
+   16384 at S = 25; S 70-75 and the 96-thread form's ends 65 and 96 in
+   f32 only, double stopping at 64) and more, f32 and f64, with and
+   without L, each batch also with one non-SPD block that must come out
+   ok=False; times both at the config-3 shapes, Linv alone (K1) and with
+   L (the TPU's K2), and K1 at the trivariate shapes;
 4. runs spamtree(device="cuda") on bench config 1 (n=625) at keep=500,
    burn=500, thin=2 (the always-emit theta step; the bench's keep=1000,
    burn=1000 cut to keep the whole run near half its time limit);
 5. runs config 3 (n=1e5, bivariate AG10) with burn=200, keep=100, thin=2.
    Both runs must give finite draws, RMSPE < 0.5 sd(y) on the held-out rows,
    acceptance in (0.05, 0.8), and K1 launched twice per iteration on every
-   reference level with S <= 64;
+   reference level with S <= 96 (K1's limit, ``chol.MAX_S``);
 6. holds K3 (thin_gibbs) and K4 (thin_decision) against their plain
    versions, f32 and f64, at config 3's thin level (aligned), config 1's
    (through lp_pos, repeated and shuffled parents, Bp != B), config 5's
@@ -278,9 +280,10 @@ both modes.
 
     python3 chip_smoke.py --times
 
-runs phases 1-2 and the timings of phases 3 and 6 alone, at config 3's
-and config 5's known levels, for comparing two trees in one call (copy
-this script into the other tree and run it there).
+runs phases 1-2 and the timings of phases 3 and 6 alone, at config 3's,
+config 5's and the trivariate configuration's known levels, for comparing
+two trees in one call (copy this script into the other tree and run it
+there).
 
     python3 chip_smoke.py --bench
 
@@ -308,8 +311,11 @@ CONFIG3_THIN = (1024, 68, 293)  # config 3's thin level (B, S, P)
 # which all hang on the deepest reference level through lp_pos
 CONFIG5_SHAPES = [(4 ** k, 25) for k in range(8)]
 CONFIG5_THIN = [(6235, 23, 25), (5917, 29, 25), (3678, 37, 25), (554, 57, 25)]
-CHECK_SHAPES = (CONFIG3_SHAPES + CONFIG5_SHAPES
-                + [(1024, 64), (3, 7), (130, 33)])
+# the trivariate configuration (benchmark triv_n1.5e5_ag10: three outcomes
+# at each of config 3's sites): its reference levels, K1's 96-thread form
+TRIV_SHAPES = [(1, 70), (4, 73), (16, 74), (64, 75), (256, 74), (1024, 70)]
+CHECK_SHAPES = (CONFIG3_SHAPES + CONFIG5_SHAPES + TRIV_SHAPES
+                + [(1024, 64), (3, 7), (130, 33), (5, 65), (3, 96)])
 # K3 once more per variant of its launcher (B, S, P): the flat variant at
 # its gate's edges, both rows capacities, the tiled variant past them
 K3_VARIANT_SHAPES = [(64, 48, 32), (64, 128, 12), (64, 1, 1), (64, 32, 128),
@@ -459,12 +465,17 @@ def _spd_batch(torch, B, S, dtype, seed):
 
 def check_kernel(chol, torch):
     """K1 against inv_chol_plain; returns the largest f32 |dLinv| at
-    config 5's and at config 3's reference-level shapes."""
-    paths = {"config5": CONFIG5_SHAPES, "config3": CONFIG3_SHAPES}
+    config 5's, config 3's and the trivariate reference-level shapes."""
+    paths = {"config5": CONFIG5_SHAPES, "config3": CONFIG3_SHAPES,
+             "triv": TRIV_SHAPES}
     max_err32 = {k: 0.0 for k in paths}
     for dname in ("float32", "float64"):
         dtype = getattr(torch, dname)
         for B, S in CHECK_SHAPES:
+            if S > chol.max_s(dtype):  # the callers take the plain route
+                print(f"K1 {dname} B={B} S={S}: past the kernel's "
+                      f"{dname} limit {chol.max_s(dtype)}, not run")
+                continue
             for corrupt in (False, True):
                 A = _spd_batch(torch, B, S, dtype, seed=B * 100 + S)
                 good = torch.ones(B, dtype=torch.bool, device="cuda")
@@ -587,7 +598,8 @@ def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin,
     mo = miss[order]
     rmspe = float(np.sqrt(np.mean((y_post[mo] - y_full[order][mo]) ** 2)))
     sd = float(np.nanstd(y_full))
-    n_ref = sum(1 for p in out["schedule"].levels if p.is_ref and p.S <= 64)
+    n_ref = sum(1 for p in out["schedule"].levels
+                if p.is_ref and p.S <= chol.MAX_S)
     res = dict(config=c["name"], step="always_emit", limited_tree=limited,
                collect=settings.get("collect", "all"),
                checkpoint="checkpoint_path" in kw,
@@ -700,7 +712,7 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
     rmspe = float(np.sqrt(np.mean((y_post[mo] - y_full[fit.order][mo]) ** 2)))
     sd = float(np.nanstd(y_full))
     n_ref = sum(1 for t in range(L) if ms.level_is_ref[t]
-                and ms.levels[t].rows.shape[1] <= 64)
+                and ms.levels[t].rows.shape[1] <= chol.MAX_S)
     rec = dict(config=c["name"], step="accept_aware", level_kernels=True,
                composed=composed, limited_tree=limited, n=len(y), iters=iters,
                ips=iters / res["mcmc_time"], mcmc_time=res["mcmc_time"],
@@ -1537,7 +1549,7 @@ def run_chains_accept_aware(bench, chol, level, torch, cfg_id, C, composed,
                    and not compose[ms.level_lp[t]]]
         k1_chunks = sum(ms.level_chunks[t] for t in range(L)
                         if ms.level_is_ref[t]
-                        and ms.levels[t].rows.shape[1] <= 64)
+                        and ms.levels[t].rows.shape[1] <= chol.MAX_S)
         _reset_counts(chol, level)
         res = run_mcmc_chains(ms, fit.bounds,
                               fit.cfg._replace(accept_aware=True), fit.state,
@@ -1716,7 +1728,8 @@ def _check_fit(bench, cfg_id, out, k1, thin, C, what):
     """Phase 5's checks on a spamtree output (chains: per chain, and a
     finite theta_rhat): finite draws, RMSPE < 0.5 sd(y) on the held-out
     rows, acceptance in (0.05, 0.8), K1 launched on every reference level
-    with S <= 64 of every iteration (``k1``: one rank's launches).
+    with S <= ``chol.MAX_S`` of every iteration (``k1``: one rank's
+    launches).
     Returns (RMSPE per chain, iterations)."""
     y, y_full, *_ = _data(bench, cfg_id)
     iters = out["burn_actual"] + out["w_mcmc"].shape[0] * thin
@@ -1844,9 +1857,11 @@ def _lean(out):
     keep = _DRAW_KEYS + ("yhat_mcmc", "order", "accept_ratio", "burn_actual",
                          "mcmc_time", "iter_s", "setup_breakdown",
                          "accept_by_chain", "theta_rhat", "graph_replays")
+    from spamtree_tpu_torch.ops.chol import MAX_S
+
     lean = {k: out[k] for k in keep if k in out}
     lean["n_ref"] = sum(1 for p in out["schedule"].levels
-                        if p.is_ref and p.S <= 64)
+                        if p.is_ref and p.S <= MAX_S)
     return lean
 
 
@@ -3185,6 +3200,7 @@ def main() -> int:
         _phase("K1, K2, K3, K4 times")
         time_kernel(chol, torch)
         time_kernel(chol, torch, write_l=True)
+        time_kernel(chol, torch, shapes=TRIV_SHAPES, label="triv")
         time_level_kernels(level, torch, CONFIG3_THIN)
         time_config5_kernels(chol, level, torch)
         return 0
@@ -3192,6 +3208,7 @@ def main() -> int:
     max_err = check_kernel(chol, torch)
     rows = time_kernel(chol, torch)
     time_kernel(chol, torch, write_l=True)
+    triv_rows = time_kernel(chol, torch, shapes=TRIV_SHAPES, label="triv")
     _phase("config 1")
     # cut from the bench's keep=1000, burn=1000 (3200 iterations) to keep
     # the whole run near half its time limit
@@ -3386,6 +3403,10 @@ def main() -> int:
         "spamtree_tpu/ops/pallas_chol.py:107", a5["k1_launches"],
         r3["k1_launches"], max_err["config5"], max_err["config3"],
         k1_path(t5["k1"]), k1_path(rows), "k1", k1_path(t4["k1"]))
+    # phase 3: K1 at the trivariate configuration's reference levels (mean
+    # per level, as above), its 96-thread form
+    k1.update({f"{k}_triv": v for k, v in k1_path(triv_rows).items()})
+    k1["max_abs_err_triv"] = max_err["triv"]
     # phase 16: K1 at config 3's and config 5's reference levels folded
     # over K1_FOLD_C chains (mean per level, as above), and its launches
     # in the batched runs of config 3

@@ -34,6 +34,7 @@ from spamtree_tpu_torch.model.tuning import (
     prepare_chain,
     subsample_curvature_sd,
 )
+from spamtree_tpu_torch.ops.chol import trace_blocks
 from spamtree_tpu_torch.parallel.mesh import Mesh
 from spamtree_tpu_torch.tree.partition import make_tree
 from spamtree_tpu_torch.tree.schedule import build_schedule
@@ -350,7 +351,7 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
     if lazy is None:
         lazy = mcmc["burn"] > 0 and debug["sample_theta"]
     gen = torch.Generator(device=ms.device).manual_seed(seed)
-    with trace.span("setup.init"):
+    with trace.span("setup.init"), trace_blocks():
         precomputed = None
         if lazy and do_curv:
             mcmcsd = subsample_curvature_sd(
@@ -641,7 +642,7 @@ def spamtree_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
         st = stage_predict(fit, y, x, coords, coords_new, x_new,
                            mv_id=mv_id, mv_id_new=mv_id_new, n_draws=n_draws,
                            device=device)
-    with trace.span("predict.draws"):
+    with trace.span("predict.draws"), trace_blocks():
         runner = DrawRunner(st.ms, st.theta_draws.shape[1], st.new_pos,
                             st.cc)
         w_pred = predict_draws(st, runner, seed, chunk, verbose)

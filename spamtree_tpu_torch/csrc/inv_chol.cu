@@ -2,25 +2,30 @@
 //
 // Replaces the Pallas TPU kernels spamtree_tpu/ops/pallas_chol.py::
 // inv_chol_lanes (L stays on chip) and chol_and_inv_lanes (L written out,
-// here the write-L form of the same kernel).  For A (B, S, S), S <= 64,
-// row-major and contiguous, it writes Linv = chol(A)^-1 (lower triangular,
-// zeros above the diagonal) and, when L is non-null, L = chol(A).
+// here the write-L form of the same kernel).  For A (B, S, S), S <= 96
+// (double: S <= 64), row-major and contiguous, it writes Linv = chol(A)^-1
+// (lower triangular, zeros above the diagonal) and, when L is non-null,
+// L = chol(A).
 //
 // What bounds it on Hopper: latency, not bytes.  At the deepest config-3
 // level (B = 1024, S = 47) the launch moves ~18 MB in f32 (5 us at the
 // card's memory rate) and every matrix fits on the card at once, so a
 // launch costs the dependent chain of one matrix.  Design: one thread block
-// per matrix, S padded to SP = 32 or 64 threads, thread i holding row i in
-// registers.  A right-looking Cholesky carries the inverse along in the
-// same registers: before step k, row i holds [T[i, 0..k-1] | A[i, k..]],
-// with T the residual of the inverse, unscaled (T = I at the start; row k
-// of Linv is row k of T over L_kk).  At step k every row i > k subtracts
-// (A[i, k] / L_kk^2) v from its whole row, v being row k as it stands
-// (T[k, 0..k-1], then 1 for T[k, k], beside the column A[k+1.., k]): one
-// update serves the trailing matrix and the inverse's residual.  Factor
-// and inverse take S dependent steps, each two block barriers around a
-// burst of SP independent FMAs whose operand v is read by 16-byte
-// broadcasts; a row-per-thread substitution would chain ~S^2/2 of them.
+// per matrix, S padded to SP = 32, 64 or 96 threads, thread i holding row
+// i in registers (96, float only, serves the trivariate configuration's
+// 70-75 row reference blocks: three outcomes at each of 25 sites; a double
+// row of 96 spills past the 255 registers a thread has, so double stops at
+// 64 and the callers take the plain route above).  A right-looking
+// Cholesky carries the inverse along in the same registers: before step k,
+// row i holds [T[i, 0..k-1] | A[i, k..]], with T the residual of the
+// inverse, unscaled (T = I at the start; row k of Linv is row k of T over
+// L_kk).  At step k every row i > k subtracts (A[i, k] / L_kk^2) v from
+// its whole row, v being row k as it stands (T[k, 0..k-1], then 1 for
+// T[k, k], beside the column A[k+1.., k]): one update serves the trailing
+// matrix and the inverse's residual.  Factor and inverse take S dependent
+// steps, each two block barriers around a burst of SP independent FMAs
+// whose operand v is read by 16-byte broadcasts; a row-per-thread
+// substitution would chain ~S^2/2 of them.
 // Row k + 1 writes itself to v as soon as its update is done, and a row
 // is scaled by its 1/L_kk only when it is written out.  The row is kept
 // rotated by k (register p holds column (p + k) mod SP, and the update
@@ -69,10 +74,18 @@ __device__ __forceinline__ void store_row(T* v, const T (&c)[SP]) {
   }
 }
 
-// float: at most 128 registers, so eight blocks of 64 share an SM and a
-// batch of 1024 fits the card at once
+// Blocks that share an SM.  float, SP <= 64: at most 128 registers, so
+// eight blocks of 64 share an SM and a batch of 1024 fits the card at once.
+// A row of SP = 96 floats needs that many registers besides: four blocks
+// of 96 (at most 170 registers).  double keeps two registers a column: one
+// block.
 template <typename T, int SP>
-__global__ void __launch_bounds__(SP, sizeof(T) == 4 ? 8 : 1)
+constexpr int min_blocks() {
+  return sizeof(T) != 4 ? 1 : SP <= 64 ? 8 : 4;
+}
+
+template <typename T, int SP>
+__global__ void __launch_bounds__(SP, min_blocks<T, SP>())
     inv_chol_kernel(const T* __restrict__ A, T* __restrict__ Linv,
                     T* __restrict__ Lout, int S) {
   constexpr int VEC = 16 / sizeof(T);
@@ -155,7 +168,8 @@ __global__ void __launch_bounds__(SP, sizeof(T) == 4 ? 8 : 1)
 template <typename T, int SP>
 int launch_sp(const void* A, void* Linv, void* L, long long B, int S,
               cudaStream_t st) {
-  // at most 33 KB (f64, S = 64): under the 48 KB default
+  // at most 37 KB (f32, S = 96; f64, S = 64: 33 KB): under the 48 KB
+  // default
   const size_t smem = sizeof(T) * static_cast<size_t>(S) * (S + 1);
   inv_chol_kernel<T, SP><<<static_cast<unsigned int>(B), SP, smem, st>>>(
       static_cast<const T*>(A), static_cast<T*>(Linv), static_cast<T*>(L), S);
@@ -166,6 +180,9 @@ template <typename T>
 int launch(const void* A, void* Linv, void* L, long long B, int S,
            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (sizeof(T) == 4) {
+    if (S > 64) return launch_sp<T, 96>(A, Linv, L, B, S, st);
+  }
   return S <= 32 ? launch_sp<T, 32>(A, Linv, L, B, S, st)
                  : launch_sp<T, 64>(A, Linv, L, B, S, st);
 }

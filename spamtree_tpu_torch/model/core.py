@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from spamtree_tpu_torch.ops import level as level_ops
-from spamtree_tpu_torch.ops.chol import MAX_S
+from spamtree_tpu_torch.ops.chol import max_s
 from spamtree_tpu_torch.ops.covariance import (
     CovModel,
     pairwise_cov,
@@ -140,8 +140,8 @@ class ModelStatic:
         self.spec = spec
         self.dtype = dtype
         self.device = torch.device(device)
-        # S <= 64 Cholesky goes through kernel K1 (ops.chol.inv_chol), which
-        # takes its plain version on CPU tensors
+        # Cholesky up to ops.chol.max_s(dtype) rows goes through kernel K1
+        # (ops.chol.inv_chol), which takes its plain version on CPU tensors
         self.use_kernel = use_kernel
         self.n = n
         self.p = X.shape[1]
@@ -881,7 +881,7 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
                 Rcc = identity_pad(Kcc, lvl.rmask)
                 if P > 0:
                     Rcc = Rcc - torch.einsum("...bps,...bpt->...bst", M, M)
-                use_k = ms.use_kernel and S <= MAX_S
+                use_k = ms.use_kernel and S <= max_s(ms.dtype)
                 _, Rinv, okl = chol_inv_masked(Rcc, lvl.rmask, use_k)
                 logdet = logdet + _csum(
                     torch.log(torch.diagonal(Rinv, dim1=-2, dim2=-1)), cb)
@@ -1236,7 +1236,7 @@ def gibbs_w(ms: ModelStatic, leveldata, w, tausq_inv, XB, z, y=None,
                     if acc_sl[0] is not None:
                         Sigi = Sigi + acc_sl[0]
                     Smu = Smu + acc_sl[1]
-                if ms.use_kernel and S <= MAX_S:
+                if ms.use_kernel and S <= max_s(ms.dtype):
                     _, Lci, _ = chol_inv_masked(Sigi, lvl.rmask, True)
                     tmp = torch.einsum("...bst,...bt->...bs", Lci, Smu)
                     wu = torch.einsum("...bts,...bt->...bs", Lci, tmp + zz)
@@ -1340,7 +1340,7 @@ def _joints_upto(ms: ModelStatic, params, upto: int, coords_cache=None):
                  al=ms.level_aligned[t], jpad=ms.joint_pad[t]):
             lvl, cxr, mvr, cxp, mvp = args
             S = lvl.rows.shape[1]
-            k = use_k and S <= MAX_S
+            k = use_k and S <= max_s(ms.dtype)
             Kcc = _bcov(ms, params, cxr, mvr, cxr, mvr)
             if ms.limited_tree:
                 _, J, _ = chol_inv_masked(Kcc, lvl.rmask, k)

@@ -514,26 +514,30 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
 
 
 def _launch_counts():
-    """The hand-written kernels' launch counters (K1, K3, K4)."""
+    """The hand-written kernels' launch counters (K1, K3, K4), then the
+    blocks factorised through ``ops.linalg`` by route (K1, plain)."""
     return (chol_ops.LAUNCHES, level_ops.LAUNCHES_GIBBS,
-            level_ops.LAUNCHES_DECISION)
+            level_ops.LAUNCHES_DECISION, chol_ops.K1_BLOCKS,
+            chol_ops.PLAIN_BLOCKS)
 
 
 def _set_launch_counts(counts):
     (chol_ops.LAUNCHES, level_ops.LAUNCHES_GIBBS,
-     level_ops.LAUNCHES_DECISION) = counts
+     level_ops.LAUNCHES_DECISION, chol_ops.K1_BLOCKS,
+     chol_ops.PLAIN_BLOCKS) = counts
 
 
 class _Graph:
     """One part of the iteration (or of a prediction draw, ``what``)
     captured in a CUDA graph on ``stream`` (memory from ``pool``): ``out``
     holds what the part returned, in the graph's own memory, which each
-    replay overwrites.  A replay adds to the kernels' launch counters what
-    the capture's calls would have added; the capture itself launches
-    nothing and leaves them as they were.  The capture bars host syncs on
-    its own thread only, so the keep loop's drain thread may wait on its
-    copies meanwhile.  A capture that fails raises, naming the part: the
-    error it wraps names the operation that broke it."""
+    replay overwrites.  A replay adds to the kernels' launch counters (and
+    the factorised blocks', ``_launch_counts``) what the capture's calls
+    would have added; the capture itself launches nothing and leaves them
+    as they were.  The capture bars host syncs on its own thread only, so
+    the keep loop's drain thread may wait on its copies meanwhile.  A
+    capture that fails raises, naming the part: the error it wraps names
+    the operation that broke it."""
 
     def __init__(self, name: str, fn, pool, stream,
                  what: str = "the MCMC iteration"):
@@ -1382,7 +1386,8 @@ def part_work(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     A, R, I, T0, T1 for one chain, C0, C1 for ``chains`` batched ones),
     counted from shapes on a copy of ``state`` with every draw 1.0, as
     plain calls on either device -- so the CPU and the card count the
-    same work.  ``state`` is not touched and no kernel launch is counted.
+    same work.  ``state`` is not touched and no kernel launch or
+    factorised block is counted.
     On a mesh every rank calls it (the parts hold the mesh's collectives,
     which count as copies), and each counts its own shard."""
     r = StepRunner(ms, bounds, cfg, state, None, chains=chains, n_iters=2,
@@ -1507,9 +1512,10 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
         def one(s, predicting, ran=None):
             return step(s, draw_step(ms, gen, nt, shape), predicting, ran)
 
-    res = _drive(ms, cfg, state, one, gen, 0, verbose, yhat_seed,
-                 checkpoint_path, sink_dir, sink_append, init_moments,
-                 base_counts, yhat_rngs)
+    with chol_ops.trace_blocks():
+        res = _drive(ms, cfg, state, one, gen, 0, verbose, yhat_seed,
+                     checkpoint_path, sink_dir, sink_append, init_moments,
+                     base_counts, yhat_rngs)
     _graph_result(res, runner)
     _work_result(res, counted)
     ram = res["state"].ram
@@ -1562,9 +1568,10 @@ def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
         def one(s, predicting, ran=None):
             return step(s, draw_chains(ms, gens, nt, shape), predicting, ran)
 
-    res = _drive(ms, cfg, states, one, gens, C, verbose, yhat_seed,
-                 checkpoint_path, sink_dir, sink_append, init_moments,
-                 base_counts, yhat_rngs)
+    with chol_ops.trace_blocks():
+        res = _drive(ms, cfg, states, one, gens, C, verbose, yhat_seed,
+                     checkpoint_path, sink_dir, sink_append, init_moments,
+                     base_counts, yhat_rngs)
     _graph_result(res, runner)
     _work_result(res, counted)
     gather = _chain_gather(ms, C)

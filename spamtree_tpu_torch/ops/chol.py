@@ -10,17 +10,44 @@ hold the kernel against it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
+from spamtree_tpu_torch.utils import trace
 from spamtree_tpu_torch.utils.cost import counted
 
-MAX_S = 64
+MAX_S = 96  # float32; float64 stops at MAX_S_F64 (csrc/inv_chol.cu)
+MAX_S_F64 = 64
 LAUNCHES = 0  # kernel launches by inv_chol; the plain version never counts
+# blocks factorised through ops.linalg, by route: K1 on the card, or the
+# plain route (cholesky_ex, and every CPU tensor); ``trace_blocks`` adds
+# them to the current trace record
+K1_BLOCKS = 0
+PLAIN_BLOCKS = 0
 
 _FNS = {torch.float32: "st_inv_chol_f32", torch.float64: "st_inv_chol_f64"}
 _bound: dict = {}
+
+
+@contextlib.contextmanager
+def trace_blocks():
+    """Add the blocks factorised inside the with-block to the current trace
+    record, by route: ``ops.chol.k1_blocks`` and ``ops.chol.plain_blocks``.
+    A replayed CUDA graph adds what its capture factorised
+    (``model.mcmc._Graph``), so graphed and eager runs count alike."""
+    k1, plain = K1_BLOCKS, PLAIN_BLOCKS
+    try:
+        yield
+    finally:
+        trace.count("ops.chol.k1_blocks", K1_BLOCKS - k1)
+        trace.count("ops.chol.plain_blocks", PLAIN_BLOCKS - plain)
+
+
+def max_s(dtype) -> int:
+    """The largest S the kernel takes in ``dtype``."""
+    return MAX_S_F64 if dtype == torch.float64 else MAX_S
 
 
 def _kernel(dtype):
@@ -74,9 +101,9 @@ def inv_chol(a: torch.Tensor, write_l: bool = False):
     if a.dim() != 3 or a.shape[1] != a.shape[2]:
         raise ValueError(f"inv_chol: expected (B, S, S), got {tuple(a.shape)}")
     B, S = a.shape[0], a.shape[1]
-    if B < 1 or not 1 <= S <= MAX_S:
-        raise ValueError(f"inv_chol: need B >= 1 and 1 <= S <= {MAX_S}, "
-                         f"got B={B}, S={S}")
+    if B < 1 or not 1 <= S <= max_s(a.dtype):
+        raise ValueError(f"inv_chol: need B >= 1 and 1 <= S <= "
+                         f"{max_s(a.dtype)} in {a.dtype}, got B={B}, S={S}")
     if not a.is_contiguous():
         raise ValueError("inv_chol: input must be contiguous")
     if a.device.type != "cuda":

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from spamtree_tpu_torch.ops.chol import MAX_S, inv_chol
+from spamtree_tpu_torch.ops import chol
+from spamtree_tpu_torch.ops.chol import inv_chol, max_s
 
 
 def identity_pad(mat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -36,9 +37,20 @@ def chol_nan(m: torch.Tensor) -> torch.Tensor:
     return torch.where((info != 0)[..., None, None], float("nan"), L)
 
 
+def _count_blocks(m: torch.Tensor, k1: bool) -> None:
+    """Add the blocks of the batch ``m`` (..., S, S) to the route's counter
+    (``ops.chol.K1_BLOCKS`` or ``PLAIN_BLOCKS``)."""
+    n = m.shape[:-2].numel()
+    if k1:
+        chol.K1_BLOCKS += n
+    else:
+        chol.PLAIN_BLOCKS += n
+
+
 def chol_masked(mat: torch.Tensor, mask: torch.Tensor):
     """Cholesky of the identity-padded batch; returns (L, ok) per block."""
     L = chol_nan(identity_pad(mat, mask))
+    _count_blocks(L, False)
     return L, _diag_ok(L)
 
 
@@ -59,26 +71,31 @@ def chol_inv_masked(mat: torch.Tensor, mask: torch.Tensor,
                     use_kernel: bool = False):
     """Cholesky + triangular inverse of an identity-padded batch.
 
-    Returns (L, Linv, ok).  With ``use_kernel`` (S <= 64) it goes through
-    kernel K1 (``ops.chol.inv_chol``), which never writes L, so **L comes
-    back None on that path** and ok derives from diag(Linv) = 1/diag(L).
+    Returns (L, Linv, ok).  With ``use_kernel`` (S <= ``chol.max_s``: 96
+    in float32, 64 in float64) it goes through kernel K1
+    (``ops.chol.inv_chol``), which never writes L, so **L comes back None
+    on that path** and ok derives from diag(Linv) = 1/diag(L).
     Otherwise L is ``cholesky_ex``'s factor with failed blocks set to NaN.
-    This is the JAX package's dispatch rule (``core.py`` passes
-    ``use_pallas and S <= 64``), not a fallback on error.
+    The callers choose the route by shape (``core.py`` passes
+    ``use_kernel and S <= max_s(dtype)``; the JAX package's Pallas kernel
+    stops at 64), not as a fallback on error.
 
     ``mat`` may carry leading dimensions before the block axis (a chain
     axis: (C, B, S, S)); the kernel takes them folded into one (C*B, S, S)
     batch, a view of the contiguous padded matrices, so one launch serves
-    every chain; ok comes back (C, B)."""
+    every chain; ok comes back (C, B).  Its blocks count under K1's route
+    where the kernel runs (a CUDA tensor), under the plain one otherwise
+    (``_count_blocks``)."""
     m = identity_pad(mat, mask)
     if use_kernel:
         S = m.shape[-1]
-        if S > MAX_S:
-            raise ValueError(f"chol_inv_masked: S={S} > {MAX_S}")
+        if S > max_s(m.dtype):
+            raise ValueError(f"chol_inv_masked: S={S} > {max_s(m.dtype)}")
         L, a = None, m.contiguous()
         Linv = (inv_chol(a) if a.dim() == 3
                 else inv_chol(a.reshape(-1, S, S)).reshape(a.shape))
     else:
         L = chol_nan(m)
         Linv = tri_inv(L)
+    _count_blocks(m, use_kernel and m.device.type == "cuda")
     return L, Linv, _diag_ok(Linv if L is None else L)

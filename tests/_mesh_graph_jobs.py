@@ -52,7 +52,7 @@ def _pair(mesh, tree, accept_aware, chains):
         with pytest.MonkeyPatch.context() as mp:
             graph = emulate_capture(mp)
             for graphs in (False, True):
-                mt._set_launch_counts((0, 0, 0))
+                mt._set_launch_counts((0, 0, 0, 0, 0))
                 if chains:
                     c0 = mesh.chain_rank * chains
                     states, gens = mt.stack_chain_states(
@@ -66,7 +66,7 @@ def _pair(mesh, tree, accept_aware, chains):
                 runs.append(res)
                 counts.append(mt._launch_counts())
             captured = list(graph.captured)
-        mt._set_launch_counts((0, 0, 0))
+        mt._set_launch_counts((0, 0, 0, 0, 0))
     eager, graphed = runs
     it = graphed["state"].it
     return dict(

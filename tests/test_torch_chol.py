@@ -63,16 +63,22 @@ def test_non_spd_block_is_not_ok():
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     # shape/dtype checks run before any device work: a meta tensor
     # (no storage, no card) reaches them
-    with pytest.raises(ValueError, match="S <= 64"):
-        chol.inv_chol(torch.empty((2, 65, 65), device="meta"))
+    with pytest.raises(ValueError, match="S <= 96"):
+        chol.inv_chol(torch.empty((2, 97, 97), device="meta"))
+    with pytest.raises(ValueError, match="S <= 64"):  # float64's forms
+        chol.inv_chol(torch.empty((2, 65, 65), dtype=torch.float64,
+                                  device="meta"))
     with pytest.raises(TypeError):
         chol.inv_chol(torch.empty((2, 8, 8), dtype=torch.float16,
                                   device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         chol.inv_chol(torch.empty((2, 8, 8), device="meta"))
-    with pytest.raises(ValueError, match="S=65"):
-        chol_inv_masked(torch.eye(65)[None], torch.ones(1, 65, dtype=bool),
+    with pytest.raises(ValueError, match="S=97"):
+        chol_inv_masked(torch.eye(97)[None], torch.ones(1, 97, dtype=bool),
                         use_kernel=True)
+    with pytest.raises(ValueError, match="S=65"):
+        chol_inv_masked(torch.eye(65, dtype=torch.float64)[None],
+                        torch.ones(1, 65, dtype=bool), use_kernel=True)
     before = chol.LAUNCHES
     chol.inv_chol(torch.as_tensor(_spd(3, 5, seed=0)))  # CPU: plain version
     assert chol.LAUNCHES == before
@@ -103,11 +109,10 @@ def _inv_chol_right_looking(a):
     return L, torch.tril(T * rdiag[:, :, None])
 
 
-@pytest.mark.parametrize("S", [1, 7, 47, 64])
-def test_right_looking_schedule_matches_plain(S):
-    """The kernel's schedule in float64 against inv_chol_plain (rtol 1e-10
-    of the largest entry: another summation order), and a non-SPD block
-    that must turn NaN from its first bad pivot on, and only there."""
+def _schedule_against_plain(S, dtype, tol):
+    """The kernel's schedule against inv_chol_plain in ``dtype`` (within
+    ``tol`` of the largest entry), and a non-SPD block that must turn NaN
+    from its first bad pivot on, and only there."""
     B = 5
     A = _spd(B, S, seed=S + 3)
     if S == 1:
@@ -116,12 +121,13 @@ def test_right_looking_schedule_matches_plain(S):
         A[2, 0, 1] = A[2, 1, 0] = 10.0 * S
     bad_k = next(k for k in range(S)
                  if np.linalg.eigvalsh(A[2, :k + 1, :k + 1]).min() <= 0)
-    L_e, X_e = _inv_chol_right_looking(torch.as_tensor(A))
-    L_p, X_p = chol.inv_chol_plain(torch.as_tensor(A), write_l=True)
+    a = torch.as_tensor(A.astype(dtype))
+    L_e, X_e = _inv_chol_right_looking(a)
+    L_p, X_p = chol.inv_chol_plain(a, write_l=True)
     good = [0, 1, 3, 4]
     for got, ref in ((L_e, L_p), (X_e, X_p)):
         np.testing.assert_allclose(got[good].numpy(), ref[good].numpy(),
-                                   rtol=0, atol=1e-10 * float(
+                                   rtol=0, atol=tol * float(
                                        ref[good].abs().max()))
     low = torch.tril(torch.ones(S, S, dtype=torch.bool))
     assert torch.isfinite(X_e[2, :bad_k]).all()
@@ -129,14 +135,48 @@ def test_right_looking_schedule_matches_plain(S):
     d = torch.diagonal(X_e, dim1=-2, dim2=-1)
     ok = torch.all(torch.isfinite(d) & (d > 0), dim=-1)
     assert ok.tolist() == [True, True, False, True, True]
+    _, _, ok_p = chol_inv_masked(a, torch.ones(B, S, dtype=torch.bool),
+                                 use_kernel=S <= chol.max_s(a.dtype))
+    assert ok_p.tolist() == ok.tolist()
+
+
+@pytest.mark.parametrize("S", [1, 7, 47, 64, 65, 75, 96, 128])
+def test_right_looking_schedule_matches_plain(S):
+    """float64, rtol 1e-10 of the largest entry: another summation order.
+    S 65-96 are the trivariate configuration's reference blocks (70-75
+    rows) and the ends of the kernel's 96-thread form; 128 lies past the
+    kernel, where the callers take the plain route."""
+    _schedule_against_plain(S, np.float64, 1e-10)
+
+
+@pytest.mark.parametrize("S", [65, 75, 96, 128])
+def test_right_looking_schedule_matches_plain_f32(S):
+    """float32, 1e-4 of the largest entry: each entry sums up to S
+    rounded products in an order of its own (measured: under 1e-5 at these
+    well-conditioned blocks)."""
+    _schedule_against_plain(S, np.float32, 1e-4)
 
 
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card: the kernel has no CPU mode")
 def test_kernel_matches_plain_on_card():
-    for dtype, tol in ((np.float32, 1e-4), (np.float64, 1e-10)):
-        for B, S in ((1, 50), (130, 33), (1024, 47), (3, 64)):
+    _card_parity(((1, 50), (130, 33), (1024, 47), (3, 64)))
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card_past_64():
+    """The 96-thread form, float32 only: the trivariate configuration's
+    reference shapes (1024, 70) and (64, 75), and the form's ends."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _card_parity(((1, 73), (5, 65), (1024, 70), (64, 75), (3, 96)),
+                 ((np.float32, 1e-4),))
+
+
+def _card_parity(shapes, dtypes=((np.float32, 1e-4), (np.float64, 1e-10))):
+    for dtype, tol in dtypes:
+        for B, S in shapes:
             A = _spd(B, S, seed=B + S, dtype=dtype)
             A[B // 2, 0, 1] = A[B // 2, 1, 0] = 10.0 * S  # one non-SPD block
             a = torch.as_tensor(A, device="cuda")

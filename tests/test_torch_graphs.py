@@ -55,6 +55,7 @@ from spamtree_tpu_torch.model.ram import G0
 from spamtree_tpu_torch.ops import chol, level
 from spamtree_tpu_torch.tree.partition import make_tree
 from spamtree_tpu_torch.tree.schedule import build_schedule
+from spamtree_tpu_torch.utils import trace
 from spamtree_tpu_torch.utils.convert import (
     model_state_from_numpy,
     model_state_to_numpy,
@@ -217,10 +218,10 @@ def _emulated_vs_eager(case, emulated_capture):
         fit, cfg, state = _fit(case, torch.float64)
         runs, counts = [], []
         for graphs in (False, True):
-            mt._set_launch_counts((0, 0, 0))
+            mt._set_launch_counts((0, 0, 0, 0, 0))
             runs.append(_run(fit, cfg, state, case, graphs))
             counts.append(mt._launch_counts())
-        mt._set_launch_counts((0, 0, 0))
+        mt._set_launch_counts((0, 0, 0, 0, 0))
     eager, graphed = runs
     _same_bits(eager, graphed, case)
     assert counts[0] == counts[1] and counts[0][0] > 0, counts
@@ -456,18 +457,46 @@ def test_replays_count_launches_as_eager_calls(monkeypatch):
         level.LAUNCHES_DECISION += 2
         return "out"
 
-    mt._set_launch_counts((0, 0, 0))
+    mt._set_launch_counts((0, 0, 0, 0, 0))
     for _ in range(5):
         part()
     eager = mt._launch_counts()
-    mt._set_launch_counts((0, 0, 0))
+    mt._set_launch_counts((0, 0, 0, 0, 0))
     g = mt._Graph("X", part, None, None)
-    assert g.out == "out" and g.launches == (3, 1, 2)
-    assert mt._launch_counts() == (0, 0, 0)
+    assert g.out == "out" and g.launches == (3, 1, 2, 0, 0)
+    assert mt._launch_counts() == (0, 0, 0, 0, 0)
     for _ in range(5):
         g.replay()
-    assert mt._launch_counts() == eager == (15, 5, 10)
-    mt._set_launch_counts((0, 0, 0))
+    assert mt._launch_counts() == eager == (15, 5, 10, 0, 0)
+    mt._set_launch_counts((0, 0, 0, 0, 0))
+
+
+def test_replays_count_factorised_blocks_as_eager_calls(monkeypatch):
+    """A part that factorises six blocks on K1's route and two on the
+    plain one: five replays of its capture (a stub graph) add to the block
+    counters what five eager calls would, the capture itself nothing, and
+    the call's trace record holds them (``ops.chol.trace_blocks``)."""
+    _stub_cuda_graph(monkeypatch)
+    saved = mt._launch_counts()
+
+    def part():
+        chol.K1_BLOCKS += 6
+        chol.PLAIN_BLOCKS += 2
+        return "out"
+
+    try:
+        with trace.call("blocks") as rec, chol.trace_blocks():
+            g = mt._Graph("X", part, None, None)
+            assert g.launches == (0, 0, 0, 6, 2)
+            assert mt._launch_counts() == saved
+            for _ in range(5):
+                g.replay()
+        assert mt._launch_counts() == saved[:3] + (saved[3] + 30,
+                                                   saved[4] + 10)
+        assert rec.counter("ops.chol.k1_blocks") == 30
+        assert rec.counter("ops.chol.plain_blocks") == 10
+    finally:
+        mt._set_launch_counts(saved)
 
 
 def test_failed_capture_raises_naming_the_part(monkeypatch):
@@ -479,11 +508,11 @@ def test_failed_capture_raises_naming_the_part(monkeypatch):
         chol.LAUNCHES += 1
         raise RuntimeError("operation not permitted when stream is capturing")
 
-    mt._set_launch_counts((4, 0, 0))
+    mt._set_launch_counts((4, 0, 0, 0, 0))
     with pytest.raises(RuntimeError, match="part A .*not permitted"):
         mt._Graph("A", part, None, None)
-    assert mt._launch_counts() == (4, 0, 0)
-    mt._set_launch_counts((0, 0, 0))
+    assert mt._launch_counts() == (4, 0, 0, 0, 0)
+    mt._set_launch_counts((0, 0, 0, 0, 0))
 
 
 def test_graphs_refused_on_a_mesh():

@@ -159,11 +159,11 @@ def test_emulated_capture_equals_eager_loop(limited, emulated_draw_capture):
     for graphs in (False, True):
         r = _runner(st, graphs)
         r.capture = graphs
-        mt._set_launch_counts((0, 0, 0))
+        mt._set_launch_counts((0, 0, 0, 0, 0))
         out.append(api.predict_draws(st, r, seed=2, chunk=4))
         counts.append(mt._launch_counts()[0])
         runners.append(r)
-    mt._set_launch_counts((0, 0, 0))
+    mt._set_launch_counts((0, 0, 0, 0, 0))
     assert np.array_equal(out[0], out[1])
     assert emulated_draw_capture.captured == 1
     assert runners[1].replays == 6 and runners[1].graph is not None
