@@ -36,7 +36,7 @@ from spamtree_tpu_torch.model.tuning import (
 )
 from spamtree_tpu_torch.ops.chol import trace_blocks
 from spamtree_tpu_torch.parallel.mesh import Mesh
-from spamtree_tpu_torch.tree.partition import make_tree
+from spamtree_tpu_torch.tree.partition import attach_rows, make_tree
 from spamtree_tpu_torch.tree.schedule import build_schedule
 from spamtree_tpu_torch.utils import trace
 
@@ -608,10 +608,16 @@ def spamtree_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
     """Posterior-predictive draws at NEW locations after a fit, no refit.
 
     The reference predicts only at NA rows of the original call
-    (spamtree_model.cpp:1229-1358).  This rebuilds the fit's partition over
+    (spamtree_model.cpp:1229-1358).  This builds the fit's partition over
     the augmented data -- the tree depends on the OBSERVED rows alone, so
     every observed block is unchanged and the new locations attach to the
-    prediction level by the same 1-NN rule -- then replays the fit's kept
+    prediction level by the same 1-NN rule.  When the fit carries its tree
+    (``fit["tree"]``, as ``spamtree`` returns it) that tree is extended by
+    the new rows, its prediction level rebuilt over the fit's missing rows
+    and the new ones (``tree.partition.attach_rows``); otherwise (a fit
+    through ``load_fit``, which drops the tree) the tree is rebuilt over
+    all the augmented rows; the trace counter ``predict.tree_reused`` says
+    which (1 or 0).  It then replays the fit's kept
     draws through ``predict_recompute``: for each kept (theta_s, w_s) the
     latent at the new locations is drawn from its treed-DAG conditional,
     and yhat adds X_new beta_s and observation noise.
@@ -688,6 +694,30 @@ class PredictStage(NamedTuple):
     breakdown: dict  # tree_s, stage_s: spans predict.tree, predict.model
 
 
+def _extend_fit_tree(fit, coords, mv_id, order, cs, na_which, mvs):
+    """The fit's own tree (``fit["tree"]``) extended by the augmented rows'
+    missing ones (``attach_rows``): ``make_tree``'s tree over the augmented
+    rows, since the observed rows alone set every level but the prediction
+    level.  None where the fit carries no tree (``load_fit`` drops it) or
+    one without ``attach_rows``'s facts, where the fit's sorted rows are not
+    in the same order among the augmented ones or are observed elsewhere,
+    and where the fit's own coordinates or margins (kept by ``spamtree``)
+    differ from the rows given."""
+    tree = fit.get("tree")
+    if tree is None:
+        return None
+    fo = np.asarray(fit["order"])
+    for key, given in (("coords", coords), ("mv_id", mv_id)):
+        if key in fit and not np.array_equal(given[fo], fit[key]):
+            return None
+    inv = np.empty(len(order), dtype=np.int64)
+    inv[order] = np.arange(len(order))
+    fc = fit["fit_config"]
+    return attach_rows(tree, inv[fo], cs, na_which, mvs,
+                       limited_tree=fc["limited_tree"],
+                       cherrypick_same_margin=fc["cherrypick_same_margin"])
+
+
 def stage_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
                   mv_id_new=None, n_draws=None,
                   device="cuda") -> PredictStage:
@@ -695,7 +725,10 @@ def stage_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
     with the new rows appended, and the fit's draws mapped onto it; the
     tree and the model are the spans ``predict.tree``
     (``breakdown["tree_s"]``) and ``predict.model``
-    (``breakdown["stage_s"]``)."""
+    (``breakdown["stage_s"]``).  The tree is the fit's extended by the new
+    rows (``_extend_fit_tree``) where the fit carries it, else
+    ``make_tree``'s over the augmented rows, whose observed rows must then
+    land in the fit's blocks."""
     fc = fit.get("fit_config")
     if fc is None:
         raise ValueError("fit has no 'fit_config'; re-run spamtree() to use "
@@ -772,27 +805,32 @@ def stage_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
 
     tb = {}
     with trace.span("predict.tree") as sp:
-        axis_size = (int(round(fc["cell_size"] ** (1.0 / dd)))
-                     if np.isscalar(fc["cell_size"])
-                     else np.asarray(fc["cell_size"]))
-        tree = make_tree(
-            cs, na_which, mvs, axis_cell_size=axis_size, K=fc["K"],
-            start_level=fc["start_level"], tree_depth=fc["tree_depth"],
-            last_not_reference=fc["last_not_reference"],
-            limited_tree=fc["limited_tree"],
-            cherrypick_same_margin=fc["cherrypick_same_margin"],
-            cherrypick_group_locations=fc["cherrypick_group_locations"],
-            mvbias=fc["mvbias"], rng=np.random.default_rng(fc["seed"]),
-            verbose=False)
-        # the observed rows, which alone drive the partition, landed in the
-        # same blocks as in the fit
-        fit_tree = fit.get("tree")
-        if fit_tree is not None:
-            obs_fit = np.isfinite(y[fit["order"]])
-            if not np.array_equal(tree.block_of_row[na_which],
-                                  np.asarray(fit_tree.block_of_row)[obs_fit]):
-                raise RuntimeError("augmented partition diverged from the "
-                                   "fit's on observed rows")
+        tree = _extend_fit_tree(fit, coords, mv_id, order, cs, na_which, mvs)
+        trace.count("predict.tree_reused", int(tree is not None))
+        if tree is None:
+            axis_size = (int(round(fc["cell_size"] ** (1.0 / dd)))
+                         if np.isscalar(fc["cell_size"])
+                         else np.asarray(fc["cell_size"]))
+            tree = make_tree(
+                cs, na_which, mvs, axis_cell_size=axis_size,
+                K=fc["K"], start_level=fc["start_level"],
+                tree_depth=fc["tree_depth"],
+                last_not_reference=fc["last_not_reference"],
+                limited_tree=fc["limited_tree"],
+                cherrypick_same_margin=fc["cherrypick_same_margin"],
+                cherrypick_group_locations=fc["cherrypick_group_locations"],
+                mvbias=fc["mvbias"], rng=np.random.default_rng(fc["seed"]),
+                verbose=False)
+            # the observed rows, which alone drive the partition, landed in
+            # the same blocks as in the fit
+            fit_tree = fit.get("tree")
+            if fit_tree is not None:
+                obs_fit = np.isfinite(y[fit["order"]])
+                if not np.array_equal(
+                        tree.block_of_row[na_which],
+                        np.asarray(fit_tree.block_of_row)[obs_fit]):
+                    raise RuntimeError("augmented partition diverged from "
+                                       "the fit's on observed rows")
         sched = build_schedule(tree, limited_tree=fc["limited_tree"])
     tb["tree_s"] = round(sp.seconds, 2)
     tspec = make_theta_spec(

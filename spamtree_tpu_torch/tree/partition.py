@@ -81,6 +81,77 @@ class TreeLevels:
     block_level: np.ndarray  # (n_blocks,) 1-based level of each block
     parents: list  # [n_blocks] int arrays, ref-ancestor block ids (ascending level)
     block_ct_obs: np.ndarray  # (n_blocks,) observed-row counts
+    # what ``attach_rows`` extends: blocks 0..n_obs_blocks-1 hold the
+    # observed rows (branching levels, then the leftover level), and
+    # branch_res is the deepest branching level, whose blocks host the
+    # prediction level; None where unknown
+    n_obs_blocks: int | None = None
+    branch_res: int | None = None
+
+
+def _host_level(
+    rows: np.ndarray,
+    res: int,
+    host_blocks: np.ndarray,
+    host_ref: bool,
+    coords: np.ndarray,
+    mv_id: np.ndarray,
+    block_of_row: np.ndarray,
+    res_of_row: np.ndarray,
+    block_rows: list,
+    block_level: list,
+    parents: list,
+    limited_tree: bool,
+    cherrypick_same_margin: bool,
+) -> None:
+    """Append a level ``res`` of blocks over ``rows`` (the leftover and the
+    prediction levels, make_tree.R:213-413).
+
+    Each row joins its 1-NN among the rows of ``host_blocks`` (the deepest
+    branching level; among its own margin's rows under
+    ``cherrypick_same_margin``, kd-tree), and the rows of one host form a
+    block, blocks in ascending host order, rows in their order in ``rows``.
+    A block's parents are its host's followed by the host itself when
+    ``host_ref`` (the host's level is a reference level): the host's chain
+    of reference ancestors (make_edges); ``limited_tree`` keeps only the
+    last (make_edges_limited).  Fills the rows' entries of ``block_of_row``
+    and ``res_of_row`` and extends ``block_rows``, ``block_level`` and
+    ``parents``, numbering the new blocks from ``len(block_rows)``."""
+    target = np.concatenate([block_rows[u] for u in host_blocks])
+    host = np.empty(len(rows), dtype=np.int64)
+    if cherrypick_same_margin:
+        pt_mv = mv_id[rows]
+        for vv in np.unique(pt_mv):
+            mask_p = pt_mv == vv
+            tmask = mv_id[target] == vv
+            tr = target[tmask] if tmask.any() else target
+            _, nn = cKDTree(coords[tr]).query(coords[rows[mask_p]], k=1)
+            host[mask_p] = block_of_row[tr[nn]]
+    else:
+        _, nn = cKDTree(coords[target]).query(coords[rows], k=1)
+        host[:] = block_of_row[target[nn]]
+
+    order, starts = _group_rows(host)
+    uniq_hosts = host[order[starts[:-1]]]
+    rows_sorted = rows[order]
+    base = len(block_rows)
+    block_of_row[rows_sorted] = base + np.repeat(np.arange(len(uniq_hosts)), np.diff(starts))
+    res_of_row[rows_sorted] = res
+    block_rows.extend(np.split(rows_sorted, starts[1:-1]))
+    block_level.extend([res] * len(uniq_hosts))
+    if not host_ref:
+        parents.extend(parents[h] for h in uniq_hosts)
+    elif limited_tree:
+        parents.extend(uniq_hosts[:, None])
+    else:
+        chains = [parents[h] for h in uniq_hosts]
+        ends = np.cumsum(np.fromiter(map(len, chains), np.int64, len(chains)) + 1)
+        flat = np.empty(ends[-1], dtype=np.int64)
+        own = np.zeros(flat.size, dtype=bool)
+        own[ends - 1] = True
+        flat[own] = uniq_hosts
+        flat[~own] = np.concatenate(chains)
+        parents.extend(np.split(flat, ends[:-1]))
 
 
 def make_tree(
@@ -201,18 +272,12 @@ def make_tree(
 
     ref_levels = [g for g in range(n_branch_levels) if res_is_ref_list[g] == 1]
 
-    res_is_ref_branch = np.asarray(res_is_ref_list[:n_branch_levels], dtype=np.int64)
-
-    def _chain_parents_batch(hosts: np.ndarray, include_host: bool) -> list[np.ndarray]:
-        """Reference ancestors of each host block's chain (make_edges parent
-        rule, tree_dep.cpp:75-186), batched over all hosts at once.
-
-        Hosts are always branching blocks (their rows are available rows).
-        Per host: ancestors = the reference branching levels strictly above
-        the host's own level whose coarse cell (looked up by the host's
-        first row) formed a block; ``include_host`` appends the host itself
-        when its level is a reference level; ``limited_tree`` keeps only the
-        deepest entry (make_edges_limited)."""
+    def _chain_parents_batch(hosts: np.ndarray) -> list[np.ndarray]:
+        """Reference ancestors of each branching block's chain (make_edges
+        parent rule, tree_dep.cpp:75-186), batched over all blocks at once:
+        the reference branching levels strictly above the block's own level
+        whose coarse cell (looked up by the block's first row) formed a
+        block; ``limited_tree`` keeps only the deepest (make_edges_limited)."""
         hosts = np.asarray(hosts, dtype=np.int64)
         m = hosts.size
         if m == 0:
@@ -235,9 +300,6 @@ def make_tree(
                 found = np.zeros(m, dtype=bool)
             cols.append(base + pos_c)
             valid.append(found & (g < host_lev))
-        if include_host:
-            cols.append(hosts)
-            valid.append(res_is_ref_branch[host_lev] == 1)
         if not cols:
             return [np.empty(0, dtype=np.int64)] * m
         cmat = np.stack(cols, axis=1)  # columns in ascending-level order
@@ -252,79 +314,34 @@ def make_tree(
             counts = vmat.sum(axis=1)
         return np.split(flat, np.cumsum(counts)[:-1])
 
-    parents: list[np.ndarray] = list(
-        _chain_parents_batch(np.arange(max_block_number), include_host=False)
-    )
+    parents: list[np.ndarray] = list(_chain_parents_batch(np.arange(max_block_number)))
+
+    max_branch_res = (start_level + n_branch_levels) if n_branch_levels else start_level
+    level_kw = dict(
+        host_blocks=np.flatnonzero(np.asarray(block_level_list) == max_branch_res),
+        host_ref=n_branch_levels > 0 and res_is_ref_list[-1] == 1,
+        coords=coords, mv_id=mv_id, block_of_row=block_of_row,
+        res_of_row=res_of_row, block_rows=block_rows,
+        block_level=block_level_list, parents=parents,
+        limited_tree=limited_tree, cherrypick_same_margin=cherrypick_same_margin)
 
     # ---- leftover observed rows -> 1-NN extra non-reference level ----
     # (make_tree.R:213-305)
-    def _host_blocks_for(points: np.ndarray, pt_mv: np.ndarray, target_rows: np.ndarray):
-        """1-NN host block for each point among target_rows (kd-tree)."""
-        host = np.empty(len(points), dtype=np.int64)
-        if cherrypick_same_margin:
-            for vv in np.unique(pt_mv):
-                mask_p = pt_mv == vv
-                tmask = mv_id[target_rows] == vv
-                tr = target_rows[tmask] if tmask.any() else target_rows
-                tree = cKDTree(coords[tr])
-                _, nn = tree.query(points[mask_p], k=1)
-                host[mask_p] = block_of_row[tr[nn]]
-        else:
-            tree = cKDTree(coords[target_rows])
-            _, nn = tree.query(points, k=1)
-            host[:] = block_of_row[target_rows[nn]]
-        return host
-
-    max_branch_res = (start_level + n_branch_levels) if n_branch_levels else start_level
-
-    if in_pool.any():
-        left_rows = avail[in_pool]
-        deepest_rows = np.concatenate(
-            [block_rows[u] for u in range(max_block_number)
-             if block_level_list[u] == max_branch_res]
-        )
-        host = _host_blocks_for(coords[left_rows], mv_id[left_rows], deepest_rows)
-        res_left = max_branch_res + 1
-        order2, starts = _group_rows(host)
-        uniq_hosts = host[order2[starts[:-1]]]
-        rows_sorted = left_rows[order2]
-        gid = np.repeat(np.arange(len(uniq_hosts)), np.diff(starts))
-        block_of_row[rows_sorted] = max_block_number + gid
-        res_of_row[rows_sorted] = res_left
-        block_rows.extend(np.split(rows_sorted, starts[1:-1]))
-        block_level_list.extend([res_left] * len(uniq_hosts))
-        parents.extend(_chain_parents_batch(uniq_hosts, include_host=True))
-        max_block_number += len(uniq_hosts)
+    has_leftover = bool(in_pool.any())
+    if has_leftover:
+        _host_level(avail[in_pool], max_branch_res + 1, **level_kw)
         res_is_ref_list.append(0)
-        has_leftover = True
-    else:
-        has_leftover = False
+    n_obs_blocks = len(block_rows)
 
     if len(res_is_ref_list) == 1:
         res_is_ref_list = [1]
 
     # ---- missing rows -> final prediction level ---- (make_tree.R:317-413)
     if missing.size:
-        # hosts come from the deepest *branching* (refset) level, not leftover
-        deepest_rows = np.concatenate(
-            [block_rows[u] for u in range(len(block_rows))
-             if block_level_list[u] == max_branch_res]
-        )
-        host = _host_blocks_for(coords[missing], mv_id[missing], deepest_rows)
-        res_miss = (max_branch_res + 2) if has_leftover else (max_branch_res + 1)
-        order2, starts = _group_rows(host)
-        uniq_hosts = host[order2[starts[:-1]]]
-        rows_sorted = missing[order2]
-        gid = np.repeat(np.arange(len(uniq_hosts)), np.diff(starts))
-        block_of_row[rows_sorted] = max_block_number + gid
-        res_of_row[rows_sorted] = res_miss
-        block_rows.extend(np.split(rows_sorted, starts[1:-1]))
-        block_level_list.extend([res_miss] * len(uniq_hosts))
-        parents.extend(_chain_parents_batch(uniq_hosts, include_host=True))
-        max_block_number += len(uniq_hosts)
+        _host_level(missing, max_branch_res + (2 if has_leftover else 1), **level_kw)
         res_is_ref_list.append(0)
 
-    n_blocks = max_block_number
+    n_blocks = len(block_rows)
     block_ct_obs = np.bincount(
         block_of_row[observed & (block_of_row >= 0)], minlength=n_blocks
     ).astype(np.int64)
@@ -351,4 +368,83 @@ def make_tree(
         block_level=blk_lev,
         parents=parents,
         block_ct_obs=block_ct_obs,
+        n_obs_blocks=n_obs_blocks,
+        branch_res=max_branch_res,
+    )
+
+
+def attach_rows(
+    tree: TreeLevels,
+    row_map: np.ndarray,
+    coords: np.ndarray,
+    observed: np.ndarray,
+    mv_id: np.ndarray,
+    limited_tree: bool = False,
+    cherrypick_same_margin: bool = True,
+) -> TreeLevels | None:
+    """``make_tree``'s tree over (``coords``, ``observed``, ``mv_id``), built
+    from ``tree``: ``make_tree``'s, with the same settings, over rows of
+    which ``row_map`` gives each one's position among the new rows
+    (increasing), the new rows holding the same observed rows and more
+    missing ones.
+
+    The observed rows alone set the branching and leftover levels (their
+    rows, thresholds, knots and parents), so their blocks are ``tree``'s
+    with the rows renumbered; the prediction level is built anew over every
+    missing row by ``make_tree``'s own rule (``_host_level``).  None where
+    that does not hold or ``tree`` cannot tell: ``row_map`` not increasing,
+    other observed rows, no ``n_obs_blocks`` / ``branch_res``, or a single
+    level of observed rows (``make_tree`` then reports it as a reference
+    level whatever its blocks were to the prediction level)."""
+    nb = getattr(tree, "n_obs_blocks", None)
+    hres = getattr(tree, "branch_res", None)
+    if nb is None or hres is None:
+        return None
+    n_obs_levels = tree.n_levels - int(tree.n_blocks > nb)
+    row_map = np.asarray(row_map, dtype=np.int64)
+    observed = np.asarray(observed, dtype=bool)
+    kept = tree.block_of_row < nb  # the tree's observed rows
+    if (n_obs_levels < 2
+            or row_map.shape != (tree.n_rows,) or np.any(np.diff(row_map) <= 0)
+            or int(observed.sum()) != int(kept.sum())
+            or not observed[row_map[kept]].all()):
+        return None
+    n = len(coords)
+    block_of_row = np.full(n, -1, dtype=np.int64)
+    res_of_row = np.full(n, -1, dtype=np.int64)
+    block_of_row[row_map[kept]] = tree.block_of_row[kept]
+    res_of_row[row_map[kept]] = tree.res_of_row[kept]
+    ends = np.cumsum(np.fromiter(map(len, tree.block_rows[:nb]), np.int64, nb))
+    flat = row_map[np.concatenate(tree.block_rows[:nb])]
+    block_rows = [flat[a:b] for a, b in zip([0, *ends[:-1].tolist()], ends.tolist())]
+    block_level = tree.block_level[:nb].tolist()
+    parents = list(tree.parents[:nb])
+    res_is_ref = tree.res_is_ref[:n_obs_levels].tolist()
+    missing = np.flatnonzero(~observed)
+    if missing.size:
+        _host_level(
+            missing, block_level[-1] + 1,
+            host_blocks=np.flatnonzero(tree.block_level[:nb] == hres),
+            host_ref=res_is_ref[hres - block_level[0]] == 1,
+            coords=coords, mv_id=np.asarray(mv_id, dtype=np.int64),
+            block_of_row=block_of_row, res_of_row=res_of_row,
+            block_rows=block_rows, block_level=block_level, parents=parents,
+            limited_tree=limited_tree,
+            cherrypick_same_margin=cherrypick_same_margin)
+        res_is_ref.append(0)
+    n_blocks = len(block_rows)
+    return TreeLevels(
+        n_rows=n,
+        block_of_row=block_of_row,
+        res_of_row=res_of_row,
+        res_is_ref=np.asarray(res_is_ref, dtype=np.int64),
+        n_levels=len(res_is_ref),
+        n_blocks=n_blocks,
+        block_rows=block_rows,
+        block_level=np.asarray(block_level),
+        parents=parents,
+        block_ct_obs=np.concatenate(
+            [tree.block_ct_obs[:nb], np.zeros(n_blocks - nb, dtype=np.int64)]),
+        n_obs_blocks=nb,
+        branch_res=hres,
     )

@@ -4,8 +4,9 @@ rtol 1e-8) and against the port's ``predict``; ``make_step`` with
 ``pred_in_carry`` False against the JAX step; ``spamtree_predict``
 against the port's in-fit prediction (the envelope of
 tests/test_predict_new.py), its input checks and its augmented-row
-mapping against the JAX function's; fit files and summaries across the
-two packages."""
+mapping against the JAX function's; the fit's tree extended by the new
+rows against the tree rebuilt; fit files and summaries across the two
+packages."""
 
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from spamtree_tpu_torch.model import core as ct
 from spamtree_tpu_torch.model import mcmc as mt
 from spamtree_tpu_torch.tree.partition import make_tree
 from spamtree_tpu_torch.tree.schedule import build_schedule
+from spamtree_tpu_torch.utils import trace
 from spamtree_tpu_torch.utils.convert import (
     model_state_from_numpy,
     model_state_to_numpy,
@@ -210,6 +212,48 @@ def test_predict_new_input_validation(fits):
                 device="cuda")))
 
 
+def _tree_reused():
+    return trace.history()[-1].counter("predict.tree_reused", None)
+
+
+@pytest.mark.parametrize("which", ["heldout_in_fit", "all_observed"])
+def test_fit_tree_extended_as_rebuilt(fits, which):
+    """A fit that carries its tree predicts through that tree extended by
+    the new rows (counter ``predict.tree_reused`` 1); the same fit without
+    it through make_tree over the augmented rows (0): the same draws, bit
+    for bit, with held-out rows in the fit or none."""
+    coords, X, y_full, held, fit_a, fit_b = fits
+    obs = ~held
+    fit, args = ((fit_a, (np.where(held, np.nan, y_full), X, coords))
+                 if which == "heldout_in_fit"
+                 else (fit_b, (y_full[obs], X[obs], coords[obs])))
+    rng = np.random.default_rng(4)
+    kw = dict(coords_new=rng.uniform(size=(40, 2)),
+              x_new=rng.normal(size=(40, 2)), n_draws=7, seed=5,
+              device="cpu")
+    kept = spamtree_tpu_torch.spamtree_predict(fit, *args, **kw)
+    assert _tree_reused() == 1
+    dropped = spamtree_tpu_torch.spamtree_predict(
+        {k: v for k, v in fit.items() if k != "tree"}, *args, **kw)
+    assert _tree_reused() == 0
+    for k in ("w_pred", "yhat_pred", "draw_indices"):
+        assert np.array_equal(kept[k], dropped[k]), k
+
+
+def test_predict_new_other_coordinates_raise(fits):
+    """Coordinates other than the fit's, in the same row order, leave the
+    fit's tree aside, and the rebuilt partition's observed rows leave the
+    fit's blocks: an error, as before the fit's tree was extended."""
+    coords, X, y_full, held, _, fit_b = fits
+    obs = ~held
+    other = coords[obs].copy()
+    other[:, 1] = 1.0 - other[:, 1]  # x alone sets the sort: same order
+    with pytest.raises(RuntimeError, match="diverged"):
+        spamtree_tpu_torch.spamtree_predict(
+            fit_b, y_full[obs], X[obs], other, coords_new=coords[held],
+            x_new=X[held], n_draws=2, device="cpu")
+
+
 def test_augmented_mapping_matches_jax(fits, monkeypatch):
     """The fit's draws land on the same augmented rows, and the new rows
     are read back from the same positions, as in the JAX package: with
@@ -273,8 +317,10 @@ def test_fit_files_and_summaries_cross_packages(fits, tmp_path):
               seed=1, device="cpu")
     a = spamtree_tpu_torch.spamtree_predict(
         spamtree_tpu_torch.load_fit(p), y_full[obs], X[obs], coords[obs], **kw)
+    assert _tree_reused() == 0  # load_fit drops the tree: rebuilt
     b = spamtree_tpu_torch.spamtree_predict(fit_b, y_full[obs], X[obs],
                                             coords[obs], **kw)
+    assert _tree_reused() == 1
     assert np.array_equal(a["w_pred"], b["w_pred"])
 
 

@@ -68,8 +68,9 @@ def test_tree_and_schedule_match_jax_package(case):
     dict(limited_tree=True),
     dict(cherrypick_same_margin=False, cherrypick_group_locations=False),
     dict(mvbias=1.0),
+    dict(limited_tree=True, tree_depth=3),
 ], ids=["K3", "start_level", "shallow_all_ref", "limited", "no_cherrypick",
-        "mvbias"])
+        "mvbias", "limited_shallow"])
 def test_tree_knobs_match_jax_package(kw):
     """The tree-shape knobs of tests/test_e2e.py::test_tree_knob_configs
     and bench config 4's mvbias=1.0, on three imbalanced, misaligned
