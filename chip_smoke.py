@@ -74,8 +74,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    RMSPE < 0.5 sd(y), agreement with the fit's own prediction at those
    rows within tests/test_predict_new.py's envelope, K1 launched once per
    reference level that _joints_upto factors per draw (one on a limited
-   tree).  Each of phases 8-15 sets the launch counts to 0 before its run
-   and reads them after; K1 must launch in each;
+   tree).  Each of phases 8-15 reads the kernels' counts
+   (``ops.kernel_counts``) over its run; K1 must launch in each;
 12. bench config 2 (n=1e4, univariate, deep tree) at keep=250, burn=250,
    thin=2 (half its own keep=500, burn=500, for the time limit), the
    always-emit step: phase 5's checks, and RMSPE within 15 % of the JAX
@@ -373,17 +373,6 @@ def _bound(nbytes, flops, peak_flops=PEAK_FP32_S):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def _reset_counts(chol, level):
-    chol.LAUNCHES = 0
-    level.LAUNCHES_GIBBS = 0
-    level.LAUNCHES_DECISION = 0
-
-
-def _counts(chol, level):
-    return dict(k1_launches=chol.LAUNCHES, k3_launches=level.LAUNCHES_GIBBS,
-                k4_launches=level.LAUNCHES_DECISION)
-
-
 def _event_times(torch, fns, reps):
     """CUDA-event ms per call of each of ``fns`` ({"kernel", "plain"}),
     in turns plain, kernel, kernel, plain; the minimum of each."""
@@ -565,7 +554,7 @@ def _data(bench, cfg_id):
     return _DATA[cfg_id]
 
 
-def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin,
+def run_config(bench, chol, torch, cfg_id, keep, burn, thin,
                chunk=200, limited=False, settings=None, draws=None, **kw):
     """The always-emit theta step through spamtree(); ``settings`` over
     dict(chunk=chunk), ``kw`` to spamtree (checkpoint_path, resume_from).
@@ -573,6 +562,7 @@ def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin,
     collect="summary" yhat_mean stands in for the draws' mean) and returns
     (record, thin levels (B, S, P), the fit)."""
     import spamtree_tpu_torch
+    from spamtree_tpu_torch.ops import kernel_counts
 
     c = bench.CONFIGS[cfg_id]
     y, y_full, miss, X, coords, mv = _data(bench, cfg_id)
@@ -580,7 +570,7 @@ def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin,
     settings = dict(chunk=chunk) | (settings or {})
     summary = settings.get("collect") == "summary"
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts(chol, level)
+    start = kernel_counts.snapshot()
     t0 = time.time()
     out = spamtree_tpu_torch.spamtree(
         y - ybar, X, coords, mv_id=mv, cell_size=25,
@@ -588,7 +578,7 @@ def run_config(bench, chol, level, torch, cfg_id, keep, burn, thin,
         settings=settings, seed=1, device="cuda",
         limited_tree=limited, **kw)
     wall = time.time() - t0
-    counts = _counts(chol, level)
+    counts = kernel_counts.diff(start)
     launches = counts["k1_launches"]
     n_kept = out["theta_mcmc"].shape[1]
     iters = out["burn_actual"] + n_kept * thin
@@ -658,6 +648,7 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
     from spamtree_tpu_torch.api import prepare_fit
     from spamtree_tpu_torch.model import core
     from spamtree_tpu_torch.model.mcmc import run_mcmc
+    from spamtree_tpu_torch.ops import kernel_counts
 
     c = bench.CONFIGS[cfg_id]
     y, y_full, miss, X, coords, mv = _data(bench, cfg_id)
@@ -702,10 +693,10 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
             err = check_level_kernels(level, torch, cases=cases)
             level_err = {k: max(e[k] for e in err.values())
                          for k in ("k3", "k4")}
-        _reset_counts(chol, level)
+        start = kernel_counts.snapshot()
         res = run_mcmc(ms, fit.bounds, fit.cfg._replace(accept_aware=True),
                        fit.state, fit.gen, yhat_seed=1)
-        counts = _counts(chol, level)
+        counts = kernel_counts.diff(start)
     iters = res["burn_actual"] + keep * thin
     y_post = res["yhat"].mean(axis=0) + ybar
     mo = miss[fit.order]
@@ -749,7 +740,7 @@ def run_accept_aware(bench, chol, level, torch, cfg_id, keep, burn, thin,
     return rec, (ms, res["state"])
 
 
-def run_resume(bench, chol, level, torch, kw5):
+def run_resume(bench, chol, torch, kw5):
     """Phase 10 at config 5: run A keeps the first half of kw5's draws
     with a checkpoint after every chunk (the sequential drain), run B
     resumes from it with kw5's keep and returns the other half.  Returns
@@ -757,10 +748,10 @@ def run_resume(bench, chol, level, torch, kw5):
     half = kw5["keep"] // 2
     with tempfile.TemporaryDirectory() as d:
         ck = os.path.join(d, "ck.npz")
-        ra, _, fa = run_config(bench, chol, level, torch, 5,
+        ra, _, fa = run_config(bench, chol, torch, 5,
                                **(kw5 | dict(keep=half)), checkpoint_path=ck)
         k1 = ra["k1_launches"]
-        rb, _, fb = run_config(bench, chol, level, torch, 5, **kw5,
+        rb, _, fb = run_config(bench, chol, torch, 5, **kw5,
                                draws=kw5["keep"] - half, resume_from=ck)
         k1 += rb["k1_launches"]
     it_a = ra["iters"]
@@ -852,23 +843,24 @@ def check_predict_recompute(torch, ms, state):
     return err
 
 
-def run_predict(bench, chol, level, torch, fit, m=10_000, n_draws=50):
+def run_predict(bench, torch, fit, m=10_000, n_draws=50):
     """Phase 11: spamtree_predict on phase 8's always-emit fit at m of the
     held-out rows' coordinates."""
     import spamtree_tpu_torch
+    from spamtree_tpu_torch.ops import kernel_counts
 
     y, y_full, miss, X, coords, mv = _data(bench, 5)
     ybar = np.nanmean(y)
     pick = np.sort(np.random.default_rng(0).choice(
         np.flatnonzero(miss), size=m, replace=False))
-    _reset_counts(chol, level)
+    start = kernel_counts.snapshot()
     t0 = time.time()
     pred = spamtree_tpu_torch.spamtree_predict(
         fit, y - ybar, X, coords, coords_new=coords[pick], x_new=X[pick],
         mv_id=mv, mv_id_new=mv[pick], n_draws=n_draws, seed=1,
         device="cuda")
     wall = time.time() - t0
-    counts = _counts(chol, level)
+    counts = kernel_counts.diff(start)
     yb = pred["yhat_pred"] + ybar
     rmspe = float(np.sqrt(np.mean((yb.mean(0) - y_full[pick]) ** 2)))
     sd = float(np.nanstd(y_full))
@@ -901,7 +893,7 @@ def run_predict(bench, chol, level, torch, fit, m=10_000, n_draws=50):
     return rec
 
 
-def run_oracle(chol, level, torch):
+def run_oracle(torch):
     """Phase 15: tests/test_torch_oracle.py's univariate_parity -- the
     dense NumPy oracle of the reference sampler on the host, the port's
     float64 chain (prior, starting values, tree and thresholds of
@@ -911,11 +903,13 @@ def run_oracle(chol, level, torch):
         __file__)), "tests"))
     from test_torch_oracle import univariate_parity
 
-    _reset_counts(chol, level)
+    from spamtree_tpu_torch.ops import kernel_counts
+
+    start = kernel_counts.snapshot()
     t0 = time.time()
     res = univariate_parity(device="cuda")
     rec = dict(phase="oracle_f64", dtype="float64", wall_s=time.time() - t0,
-               **res, **_counts(chol, level))
+               **res, **kernel_counts.diff(start))
     print(json.dumps(rec), flush=True)
     _check(rec["k1_launches"] > 0, "K1 never launched in the f64 oracle run")
     return rec
@@ -970,20 +964,21 @@ def check_folded_k1(chol, torch, C=K1_FOLD_C):
     return err32
 
 
-def run_chains(bench, chol, level, torch, cfg_id, C, keep, burn, thin,
+def run_chains(bench, torch, cfg_id, C, keep, burn, thin,
                chunk=200):
     """spamtree(n_chains=C), the always-emit step (C = 1: the single-chain
     run; C > 1: run_mcmc_chains, every chain's accept on the device).
     Checks each chain: finite draws, RMSPE < 0.5 sd(y) on the held-out
     rows, acceptance in (0.05, 0.8); theta_rhat finite for C > 1.  Returns
-    the record (K1's launches counted from 0 just before the call)."""
+    the record (K1's launches counted from just before the call)."""
     import spamtree_tpu_torch
+    from spamtree_tpu_torch.ops import kernel_counts
 
     c = bench.CONFIGS[cfg_id]
     y, y_full, miss, X, coords, mv = _data(bench, cfg_id)
     ybar = np.nanmean(y)
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts(chol, level)
+    start = kernel_counts.snapshot()
     t0 = time.time()
     out = spamtree_tpu_torch.spamtree(
         y - ybar, X, coords, mv_id=mv, cell_size=25,
@@ -991,7 +986,7 @@ def run_chains(bench, chol, level, torch, cfg_id, C, keep, burn, thin,
         settings=dict(chunk=chunk), seed=1, device="cuda", n_chains=C,
         **c["kwargs"])
     wall = time.time() - t0
-    counts = _counts(chol, level)
+    counts = kernel_counts.diff(start)
     iters = out["burn_actual"] + keep * thin
     # one chain: w/yhat (keep, n), theta (nt, keep); chains (keep, C, ...)
     yhat = out["yhat_mcmc"][:, None] if C == 1 else out["yhat_mcmc"]
@@ -1033,7 +1028,7 @@ def run_chains(bench, chol, level, torch, cfg_id, C, keep, burn, thin,
     return rec
 
 
-def chains_phase(bench, chol, level, torch):
+def chains_phase(bench, chol, torch):
     """Phase 16: K1 at the folded shapes, then configs 1 and 3 at C = 1, 2
     and 4; K1's launches must not grow with C (one launch per level for
     all chains); time_phases' table at config 3; then whether two batched
@@ -1053,7 +1048,7 @@ def chains_phase(bench, chol, level, torch):
                        (3, dict(keep=100, burn=200, thin=2))):
         for C in CHAINS:
             _phase(f"chains: config {cfg_id}, n_chains={C}")
-            runs[(cfg_id, C)] = run_chains(bench, chol, level, torch, cfg_id,
+            runs[(cfg_id, C)] = run_chains(bench, torch, cfg_id,
                                            C, **kw)
         k1 = {C: runs[(cfg_id, C)]["k1_launches"] for C in CHAINS}
         _check(all(k1[C] == k1[1] for C in CHAINS),
@@ -1439,6 +1434,8 @@ def check_folded_k4(level, torch, C=K4_FOLD_C):
     which alone must come out ok=False; the kernel's per-block partials of
     the same fold against the plain ones.  Returns the largest f32
     |d partials| per group."""
+    from spamtree_tpu_torch.ops import kernel_counts
+
     err = {}
     bad = C // 2
     want = [c != bad for c in range(C)]
@@ -1449,11 +1446,11 @@ def check_folded_k4(level, torch, C=K4_FOLD_C):
             for B, S, P in shapes:
                 dec = _chain_level_inputs(torch, dtype, B, S, P, Bp,
                                           seed=B + S + P, C=C, bad=bad)
-                before = level.LAUNCHES_DECISION
+                start = kernel_counts.snapshot()
                 k = level.thin_decision_chains(**dec, aligned=aligned)
                 torch.cuda.synchronize()
                 what = f"{dname} {label} C={C} B={B} S={S} P={P} Bp={Bp}"
-                _check(level.LAUNCHES_DECISION == before + 1,
+                _check(kernel_counts.diff(start)["k4_launches"] == 1,
                        f"folded K4 launches once: {what}")
                 p = level.thin_decision_chains_plain(**dec, aligned=aligned)
                 folded = level._fold_chains(**dec)
@@ -1523,6 +1520,7 @@ def run_chains_accept_aware(bench, chol, level, torch, cfg_id, C, composed,
     from spamtree_tpu_torch.api import prepare_fit
     from spamtree_tpu_torch.model import core
     from spamtree_tpu_torch.model.mcmc import run_mcmc_chains
+    from spamtree_tpu_torch.ops import kernel_counts
     from spamtree_tpu_torch.utils.summaries import rhat
 
     c = bench.CONFIGS[cfg_id]
@@ -1550,11 +1548,11 @@ def run_chains_accept_aware(bench, chol, level, torch, cfg_id, C, composed,
         k1_chunks = sum(ms.level_chunks[t] for t in range(L)
                         if ms.level_is_ref[t]
                         and ms.levels[t].rows.shape[1] <= chol.MAX_S)
-        _reset_counts(chol, level)
+        start = kernel_counts.snapshot()
         res = run_mcmc_chains(ms, fit.bounds,
                               fit.cfg._replace(accept_aware=True), fit.state,
                               fit.gen, yhat_seed=1)
-        counts = _counts(chol, level)
+        counts = kernel_counts.diff(start)
     iters = res["burn_actual"] + keep * thin
     mo = miss[fit.order]
     sd = float(np.nanstd(y_full))
@@ -1622,7 +1620,7 @@ def accept_aware_chains_phase(bench, chol, level, torch, ch):
     for cfg_id, C, _ in AA_CHAIN_RUNS:
         if (cfg_id, C) not in beside:
             _phase(f"chains: config {cfg_id}, n_chains={C}, always-emit")
-            beside[(cfg_id, C)] = run_chains(bench, chol, level, torch,
+            beside[(cfg_id, C)] = run_chains(bench, torch,
                                              cfg_id, C, **AA_DEPTH[cfg_id])
     for cfg_id, composed in {(i, comp) for i, _, comp in AA_CHAIN_RUNS}:
         k1 = {C: r["k1_per_iter"] for (i, C, comp), r in runs.items()
@@ -1823,7 +1821,6 @@ def _window(torch, bench, cfg_id, C, mesh=None, iters=5):
         draw_step,
         make_step,
     )
-    from spamtree_tpu_torch.utils.profile_step import _trace
 
     y, _, _, X, coords, mv = _data(bench, cfg_id)
     fit = prepare_fit(y - np.nanmean(y), X, coords, mv_id=mv, cell_size=25,
@@ -1847,7 +1844,7 @@ def _window(torch, bench, cfg_id, C, mesh=None, iters=5):
     t0 = time.time()
     run(iters)
     ms_it = 1e3 * (time.time() - t0) / iters
-    busy = _trace(run, iters)[0]
+    busy = _trace_ops(torch, run, iters)["busy"]
     return dict(ms_per_iter=ms_it, busy_ms_per_iter=busy,
                 idle=1.0 - busy / ms_it)
 
@@ -1892,7 +1889,7 @@ def _mesh_step(mesh, cfg_id):
     from spamtree_tpu_torch.api import prepare_fit
     from spamtree_tpu_torch.model.core import level_coords, tausq_shape
     from spamtree_tpu_torch.model.mcmc import draw_step, make_step
-    from spamtree_tpu_torch.ops import chol, level
+    from spamtree_tpu_torch.ops import kernel_counts
 
     y, _, _, X, coords, mv = _data(bench, cfg_id)
     kw = dict(mv_id=mv, cell_size=25, mcmc=dict(keep=1, burn=0),
@@ -1917,11 +1914,11 @@ def _mesh_step(mesh, cfg_id):
     with _env(SPAMTREE_LEVEL_KERNELS="1", SPAMTREE_COMPOSED_FACTORS="0"):
         fit = prepare_fit(y - np.nanmean(y), X, coords, mesh=mesh, **kw)
         for aa in (False, True):
-            _reset_counts(chol, level)
+            start = kernel_counts.snapshot()
             st, trail = walk(fit, aa)
             torch.cuda.synchronize()
             counts[aa] = _rank_tensor(mesh, torch, list(
-                _counts(chol, level).values()))
+                kernel_counts.diff(start).values()))
             got[aa] = (st, trail, [(mesh.cat_blocks(d.H),
                                     mesh.cat_blocks(d.prec))
                                    for d in st.leveldata])
@@ -1941,10 +1938,10 @@ def _mesh_step(mesh, cfg_id):
                 e[f"H{t}"] = _rel_err(H[:B].cpu(), d.H.cpu())
                 e[f"prec{t}"] = _rel_err(prec[:B].cpu(), d.prec.cpu())
             errs["accept_aware" if aa else "always_emit"] = e
+    names = list(kernel_counts.snapshot())
     return dict(errs=errs, launches={
         ("accept_aware" if aa else "always_emit"): [
-            dict(zip(("k1_launches", "k3_launches", "k4_launches"),
-                     map(int, r))) for r in c]
+            dict(zip(names, map(int, r))) for r in c]
         for aa, c in counts.items()})
 
 
@@ -2002,12 +1999,13 @@ def _count_gathers(mesh):
 
 
 def _count_replayed(gathers):
-    """Wrap model.mcmc's graphs so that each capture keeps the all-gathers
-    it issued (counted in ``gathers``) and each replay adds them to the
-    returned one-element list: the all-gathers replayed from the graphs."""
-    from spamtree_tpu_torch.model import mcmc
+    """Wrap the graphs (``model.graph.Graph``) so that each capture keeps
+    the all-gathers it issued (counted in ``gathers``) and each replay adds
+    them to the returned one-element list: the all-gathers replayed from
+    the graphs."""
+    from spamtree_tpu_torch.model.graph import Graph
 
-    replayed, init, replay = [0], mcmc._Graph.__init__, mcmc._Graph.replay
+    replayed, init, replay = [0], Graph.__init__, Graph.replay
 
     def counted_init(self, *a, **k):
         g0 = gathers[0]
@@ -2018,8 +2016,8 @@ def _count_replayed(gathers):
         replay(self)
         replayed[0] += self.gathers
 
-    mcmc._Graph.__init__ = counted_init
-    mcmc._Graph.replay = counted_replay
+    Graph.__init__ = counted_init
+    Graph.replay = counted_replay
     return replayed
 
 
@@ -2058,13 +2056,12 @@ def _mesh_graphs(mesh, cfg_id):
         # so that K1, K3 and K4 all launch
         with _env(SPAMTREE_LEVEL_KERNELS="1" if aa else "0",
                   SPAMTREE_COMPOSED_FACTORS="0" if aa else "1"):
-            pair = _graph_pair(fits["mesh"], cfg["mesh"], 0, chol, level,
-                               torch)
-            one = _graph_pair(fits["one"], cfg["one"], 0, chol, level, torch,
+            pair = _graph_pair(fits["mesh"], cfg["mesh"], 0, torch)
+            one = _graph_pair(fits["one"], cfg["one"], 0, torch,
                               paths=(True,))[True]
             with _deterministic(torch):
-                det = _graph_pair(fits["mesh"], cfg["mesh"], 0, chol, level,
-                                  torch, paths=(True,))[True]
+                det = _graph_pair(fits["mesh"], cfg["mesh"], 0, torch,
+                                  paths=(True,))[True]
             win = {}
             for name, fit_key, graphs in (("graphed", "mesh", True),
                                           ("eager", "mesh", False),
@@ -2132,7 +2129,7 @@ def mesh_job(mesh, runs, window_cfg=None, step_cfg=None,
 
     from spamtree_tpu_torch import bench
     import spamtree_tpu_torch
-    from spamtree_tpu_torch.ops import chol, level
+    from spamtree_tpu_torch.ops import kernel_counts
 
     torch.use_deterministic_algorithms(deterministic, warn_only=True)
     step = None if step_cfg is None else _mesh_step(mesh, step_cfg)
@@ -2143,19 +2140,18 @@ def mesh_job(mesh, runs, window_cfg=None, step_cfg=None,
                   mcmc=dict(keep=keep, burn=burn, thin=thin),
                   settings=dict(chunk=200), seed=1,
                   dtype=torch.float64 if f64 else torch.float32)
-        _reset_counts(chol, level)
+        start = kernel_counts.snapshot()
         torch.cuda.reset_peak_memory_stats()
         out = spamtree_tpu_torch.spamtree(y - np.nanmean(y), X, coords,
                                           n_chains=C, mesh=mesh, **kw)
+        counted = kernel_counts.diff(start)
         ranks = _rank_tensor(mesh, torch, [
-            *_counts(chol, level).values(),
-            torch.cuda.max_memory_allocated()])
+            *counted.values(), torch.cuda.max_memory_allocated()])
         ref = (_reference(mesh, y - np.nanmean(y), X, coords, C, kw)
                if with_ref else None)
         outs.append(dict(out=_lean(out), ref=ref, launches=[
-            dict(zip(("k1_launches", "k3_launches", "k4_launches"),
-                     map(int, r[:3]))) for r in ranks],
-            peak_bytes=[int(r[3]) for r in ranks]))
+            dict(zip(counted, map(int, r[:-1]))) for r in ranks],
+            peak_bytes=[int(r[-1]) for r in ranks]))
     torch.use_deterministic_algorithms(False)
     win = None
     if window_cfg is not None:
@@ -2288,7 +2284,7 @@ def _mesh_graphs_checks(rec):
     return rec
 
 
-def mesh_phase(bench, chol, level, torch):
+def mesh_phase(bench, torch):
     """Phase 17: (a) config 3 (SHORT3) through spamtree(mesh=...) on a
     one-rank NCCL mesh, graphed, then that rank's graphed-against-eager
     check (``_mesh_graphs``), and config 1 (DEVICES1) through
@@ -2358,7 +2354,8 @@ def mesh_phase(bench, chol, level, torch):
         _check(not bad, f"mesh (b) {mode} steps against the unsharded "
                f"steps: {bad}")
     for r, c in enumerate(step["launches"]["accept_aware"]):
-        k1_, k3_, k4_ = c.values()
+        k1_, k3_, k4_ = (c[k] for k in ("k1_launches", "k3_launches",
+                                        "k4_launches"))
         print(f"mesh (b) accept-aware steps, rank {r}: K1 {k1_}, K3 {k3_}, "
               f"K4 {k4_}", flush=True)
         _check(k1_ > 0 and k3_ > 0 and k4_ > 0,
@@ -2515,7 +2512,7 @@ def _leaves(x):
     return []
 
 
-def _graph_pair(fit, cfg, C, chol, level, torch, paths=(False, True)):
+def _graph_pair(fit, cfg, C, torch, paths=(False, True)):
     """run_mcmc (C = 0) or run_mcmc_chains eager, then graphed (``paths``),
     from one prepared chain with the same generator seeds: each run's
     result, launch counts and peak device memory."""
@@ -2524,10 +2521,11 @@ def _graph_pair(fit, cfg, C, chol, level, torch, paths=(False, True)):
         run_mcmc_chains,
         stack_chain_states,
     )
+    from spamtree_tpu_torch.ops import kernel_counts
 
     out = {}
     for graphs in paths:
-        _reset_counts(chol, level)
+        start = kernel_counts.snapshot()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         if C:
@@ -2539,7 +2537,7 @@ def _graph_pair(fit, cfg, C, chol, level, torch, paths=(False, True)):
             res = run_mcmc(fit.ms, fit.bounds, cfg, fit.state, gen,
                            yhat_seed=1, graphs=graphs)
         torch.cuda.synchronize()
-        out[graphs] = dict(res=res, counts=_counts(chol, level),
+        out[graphs] = dict(res=res, counts=kernel_counts.diff(start),
                            peak=torch.cuda.max_memory_allocated())
     return out
 
@@ -2556,6 +2554,57 @@ def _same_chain(a, b):
     return not diff and len(la) == len(lb), diff
 
 
+class Iterations:
+    """``it(k)``: k more iterations of one chain (predicting every other
+    one, as thin=2 keeps), synchronised at the end -- replayed CUDA graphs
+    (``mcmc.StepRunner``, ``runner``) with ``graphs``, else the eager step.
+    ``fit`` from ``api.prepare_fit``; ``chains`` C > 0: C chains stacked
+    from its state, generators seeded 1..C (one chain: ``fit.gen``).
+    ``replays``: the runner's (0 eager)."""
+
+    def __init__(self, torch, fit, cfg, chains, graphs, n_iters):
+        from spamtree_tpu_torch.model.core import level_coords, tausq_shape
+        from spamtree_tpu_torch.model.mcmc import (
+            StepRunner,
+            draw_chains,
+            draw_step,
+            make_step,
+            stack_chain_states,
+        )
+
+        ms = fit.ms
+        shape = tausq_shape(ms, cfg.tausq_ab)
+        nt = fit.state.theta.shape[-1]
+        state, gens = fit.state, fit.gen
+        if chains:
+            state, gens = stack_chain_states(fit.state, 1 + np.arange(chains))
+        draw = ((lambda out=None: draw_chains(ms, gens, nt, shape, out=out))
+                if chains else
+                (lambda out=None: draw_step(ms, gens, nt, shape, out=out)))
+        self.sync = torch.cuda.synchronize
+        self.runner = self.step = None
+        if graphs:
+            self.runner = StepRunner(ms, fit.bounds, cfg, state, draw,
+                                     chains=chains, n_iters=n_iters)
+        else:
+            self.step = make_step(ms, fit.bounds, cfg,
+                                  coords_cache=level_coords(ms),
+                                  chains=bool(chains))
+            self.state, self.draw = state, draw
+
+    def __call__(self, k: int):
+        for i in range(k):
+            if self.runner is not None:
+                self.runner.step(i % 2 == 1)
+            else:
+                self.state = self.step(self.state, self.draw(), i % 2 == 1)
+        self.sync()
+
+    @property
+    def replays(self):
+        return self.runner.replays if self.runner is not None else 0
+
+
 def _graph_window(torch, fit, cfg, C, graphs, count=None, seed=None):
     """ms per iteration (host clock, synchronised) over GRAPH_WINDOW
     iterations after three warm-up ones (the graphs captured at the
@@ -2569,13 +2618,10 @@ def _graph_window(torch, fit, cfg, C, graphs, count=None, seed=None):
     idle share compares the same iterations (the next ones may accept
     more or less often).  ``count``: a counter read around the traced
     iterations (its change per iteration is ``counted_per_iter``)."""
-    from spamtree_tpu_torch.utils.profile_step import Iterations
-
     def start():
         if seed is not None:
             fit.gen.manual_seed(seed)
-        it = Iterations(fit, cfg, chains=C, graphs=graphs,
-                        n_iters=3 + 2 * GRAPH_WINDOW)
+        it = Iterations(torch, fit, cfg, C, graphs, 3 + 2 * GRAPH_WINDOW)
         it(3)
         return it
 
@@ -2635,14 +2681,14 @@ def _deterministic(torch):
             torch.use_deterministic_algorithms(False)
 
 
-def _det_case(fit, cfg, C, chol, level, torch, pair, what):
+def _det_case(fit, cfg, C, torch, pair, what):
     """Phase 19's graphed run once more under deterministic algorithms:
     the bits of the default graphed run and of the eager one, the same
     launches, and a window (ms/it, busy, idle)."""
     import torch.utils.deterministic as tud
 
     with _deterministic(torch):
-        d = _graph_pair(fit, cfg, C, chol, level, torch, paths=(True,))[True]
+        d = _graph_pair(fit, cfg, C, torch, paths=(True,))[True]
         win = _graph_window(torch, fit, cfg, C, True)
         # the same without deterministic mode's NaN fill of every new
         # tensor, which the graphs replay too
@@ -2854,7 +2900,7 @@ def probe_row_writes(torch):
     return rec
 
 
-def graphs_phase(bench, chol, level, torch):
+def graphs_phase(bench, torch):
     """Phase 19: for each of GRAPH_CASES, one prepared chain per config run
     eager (graphs=False) and graphed (the default) at GRAPH_DEPTH from the
     same generator seeds: the same bits (kept draws, final state,
@@ -2884,11 +2930,10 @@ def graphs_phase(bench, chol, level, torch):
         fit = fits[cfg_id]
         cfg = fit.cfg._replace(accept_aware=aa)
         with _env(SPAMTREE_LEVEL_KERNELS="1" if aa else "0"):
-            pair = _graph_pair(fit, cfg, C, chol, level, torch)
+            pair = _graph_pair(fit, cfg, C, torch)
             repeat = None
             if (cfg_id, C, aa) == (3, 0, False):
-                again = _graph_pair(fit, cfg, C, chol, level,
-                                    torch)[False]["res"]
+                again = _graph_pair(fit, cfg, C, torch)[False]["res"]
                 repeat = _same_chain(pair[False]["res"], again)[0]
             win = {g: _graph_window(torch, fit, cfg, C, g)
                    for g in (True, False)}
@@ -2932,8 +2977,8 @@ def graphs_phase(bench, chol, level, torch):
                    f"{v[True]} graphed, {v[False]} eager")
         if (cfg_id, C, aa) in GRAPH_DET_CASES:
             with _env(SPAMTREE_LEVEL_KERNELS="1" if aa else "0"):
-                rec["deterministic"] = _det_case(fit, cfg, C, chol, level,
-                                                 torch, pair, what)
+                rec["deterministic"] = _det_case(fit, cfg, C, torch, pair,
+                                                 what)
         if (cfg_id, C, aa) in GRAPH_DONATE_CASES:
             rec["donate"] = _donate_pair(fit, cfg, torch, what)
         _check(per_it["k1_launches"][True] > 0, f"graphs, {what}: no K1")
@@ -2959,7 +3004,7 @@ PREDICT_CASES = [(5, 10_000, 50), (3, 2000, 20)]
 PREDICT_WINDOW = 10  # draws timed, then traced, per path
 
 
-def _predict_path(torch, chol, level, st, graphs, n_draws):
+def _predict_path(torch, st, graphs, n_draws):
     """spamtree_predict's draws of a staged prediction through a
     DrawRunner, eager or graphed: the draws, the run's launches, seconds
     and peak device memory above its start, then PREDICT_WINDOW more draws
@@ -2967,18 +3012,18 @@ def _predict_path(torch, chol, level, st, graphs, n_draws):
     per draw)."""
     from spamtree_tpu_torch.api import predict_draws
     from spamtree_tpu_torch.model.predict import DrawRunner
-    from spamtree_tpu_torch.utils.profile_step import _trace
+    from spamtree_tpu_torch.ops import kernel_counts
 
     r = DrawRunner(st.ms, st.theta_draws.shape[1], st.new_pos, st.cc,
                    graphs=graphs)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts(chol, level)
+    start = kernel_counts.snapshot()
     t0 = time.time()
     w = predict_draws(st, r, seed=1)
     wall = time.time() - t0
-    counts = _counts(chol, level)
+    counts = kernel_counts.diff(start)
     peak = torch.cuda.max_memory_allocated() - base
 
     def window(k):
@@ -2988,7 +3033,8 @@ def _predict_path(torch, chol, level, st, graphs, n_draws):
     t0 = time.time()
     window(PREDICT_WINDOW)
     ms_draw = 1e3 * (time.time() - t0) / PREDICT_WINDOW
-    busy, kernels, _ = _trace(window, PREDICT_WINDOW)
+    ops = _trace_ops(torch, window, PREDICT_WINDOW)
+    busy, kernels = ops["busy"], ops["nodes"]
     rec = dict(ms_per_draw_run=1e3 * wall / n_draws, ms_per_draw=ms_draw,
                busy_ms_per_draw=busy, idle=1.0 - busy / ms_draw,
                kernels_per_draw=kernels, capture_s=r.capture_s,
@@ -2998,7 +3044,7 @@ def _predict_path(torch, chol, level, st, graphs, n_draws):
     return w, rec
 
 
-def predict_phase(bench, chol, level, torch, fits):
+def predict_phase(bench, torch, fits):
     """Phase 20: for each of PREDICT_CASES, the prediction staged once
     (stage_predict) from the fit in ``fits`` at m held-out rows, then its
     draws eager (graphs=False) and graphed (spamtree_predict's default on
@@ -3020,10 +3066,10 @@ def predict_phase(bench, chol, level, torch, fits):
                            coords_new=coords[pick], x_new=X[pick], mv_id=mv,
                            mv_id_new=mv[pick], n_draws=n_draws,
                            device="cuda")
-        out = {g: _predict_path(torch, chol, level, st, g, n_draws)
+        out = {g: _predict_path(torch, st, g, n_draws)
                for g in (False, True)}
         with _deterministic(torch):
-            out["det"] = _predict_path(torch, chol, level, st, True,
+            out["det"] = _predict_path(torch, st, True,
                                        n_draws)
         limited = fit["fit_config"]["limited_tree"]
         per_draw = (1 if limited
@@ -3067,17 +3113,17 @@ def predict_phase(bench, chol, level, torch, fits):
     return recs
 
 
-def _predict_fits(bench, chol, level, torch):
+def _predict_fits(bench, chol, torch):
     """Phase 20's fits when it runs alone (``--graphs``): phase 8's
     config-5 run and phase 5's config-3 run."""
     c5 = bench.CONFIGS[5]
     _phase("predict: config 5 fit (phase 8's)")
-    fit5 = run_config(bench, chol, level, torch, 5, keep=c5["keep"] // 2,
+    fit5 = run_config(bench, chol, torch, 5, keep=c5["keep"] // 2,
                       burn=c5["burn"] // 2, thin=c5["thin"],
                       chunk=c5["chunk"],
                       limited=c5["kwargs"]["limited_tree"])[2]
     _phase("predict: config 3 fit (phase 5's)")
-    fit3 = run_config(bench, chol, level, torch, 3, keep=100, burn=200,
+    fit3 = run_config(bench, chol, torch, 3, keep=100, burn=200,
                       thin=2)[2]
     return {5: fit5, 3: fit3}
 
@@ -3182,16 +3228,16 @@ def main() -> int:
         torch.use_deterministic_algorithms(True)
         return 0 if resume_bits(bench, torch) else 1
     if sys.argv[1:] == ["--chains"]:
-        ch = chains_phase(bench, chol, level, torch)
+        ch = chains_phase(bench, chol, torch)
         accept_aware_chains_phase(bench, chol, level, torch, ch)
         return 0
     if sys.argv[1:] == ["--mesh"]:
-        mesh_phase(bench, chol, level, torch)
+        mesh_phase(bench, torch)
         return 0
     if sys.argv[1:] == ["--graphs"]:
-        graphs_phase(bench, chol, level, torch)
-        predict_phase(bench, chol, level, torch,
-                      _predict_fits(bench, chol, level, torch))
+        graphs_phase(bench, torch)
+        predict_phase(bench, torch,
+                      _predict_fits(bench, chol, torch))
         return 0
     if sys.argv[1:] == ["--bench"]:
         bench_phase(bench, torch)
@@ -3212,9 +3258,9 @@ def main() -> int:
     _phase("config 1")
     # cut from the bench's keep=1000, burn=1000 (3200 iterations) to keep
     # the whole run near half its time limit
-    run_config(bench, chol, level, torch, 1, keep=500, burn=500, thin=2)
+    run_config(bench, chol, torch, 1, keep=500, burn=500, thin=2)
     _phase("config 3")
-    r3, thin3, fit3 = run_config(bench, chol, level, torch, 3, keep=100,
+    r3, thin3, fit3 = run_config(bench, chol, torch, 3, keep=100,
                                  burn=200, thin=2)
     _check(len(thin3) == 1, f"config 3 thin levels {thin3}")
     _phase(f"K3/K4 vs plain (config 3 thin level {thin3[0]})")
@@ -3255,16 +3301,16 @@ def main() -> int:
            f"config 5: K3 on {a5['k3_levels']} levels, K4 on "
            f"{a5['k4_levels']}, {a5['k4_launches']} K4 launches")
     _phase("config 5, limited tree, always-emit (pipelined drain)")
-    r8, _, fit8 = run_config(bench, chol, level, torch, 5, **kw5)
+    r8, _, fit8 = run_config(bench, chol, torch, 5, **kw5)
 
     # phases 9-11 at config 5's full width, each launching K1
     _phase("config 5, collect='summary', summary_draws=20")
-    r9, _, _ = run_config(bench, chol, level, torch, 5, **kw5,
+    r9, _, _ = run_config(bench, chol, torch, 5, **kw5,
                           settings=dict(collect="summary", summary_draws=20),
                           draws=20)
     _check(r9["k1_launches"] > 0, "K1 never launched in the summary run")
     _phase("config 5, checkpoint every chunk, then resume")
-    r10a, r10b, k1_10 = run_resume(bench, chol, level, torch, kw5)
+    r10a, r10b, k1_10 = run_resume(bench, chol, torch, kw5)
     _phase("config 1, resume bit for bit")
     print(f"config 1 resume: {check_resume_bits(bench, torch)}")
     for name, r in (("always-emit, pipelined drain", r8),
@@ -3280,18 +3326,18 @@ def main() -> int:
     _phase("config 5, predict_recompute vs predict; spamtree_predict")
     check_predict_recompute(torch, ms5, state5)
     del ms5, state5
-    r11 = run_predict(bench, chol, level, torch, fit8)
+    r11 = run_predict(bench, torch, fit8)
     print(f"spamtree_predict: {r11['s_per_draw'] * 1e3:.2f} ms per draw, "
           f"K1 launches {r11['k1_launches']} for {r11['n_draws']} draws, "
           f"setup {r11['breakdown']}", flush=True)
 
     c2, c4 = bench.CONFIGS[2], bench.CONFIGS[4]
     _phase("config 2, always-emit")
-    r2, _, _ = run_config(bench, chol, level, torch, 2, keep=c2["keep"] // 2,
+    r2, _, _ = run_config(bench, chol, torch, 2, keep=c2["keep"] // 2,
                           burn=c2["burn"] // 2, thin=c2["thin"])
     kw4 = dict(keep=c4["keep"] // 2, burn=c4["burn"] // 2, thin=c4["thin"])
     _phase(f"config 4 ({c4['kwargs']}), always-emit")
-    r4, thin4, _ = run_config(bench, chol, level, torch, 4, **kw4,
+    r4, thin4, _ = run_config(bench, chol, torch, 4, **kw4,
                               **c4["kwargs"])
     _phase(f"config 4 ({c4['kwargs']}), accept-aware, level kernels, no "
            f"composed factors; K3/K4 vs plain at its thin levels {thin4}")
@@ -3308,13 +3354,13 @@ def main() -> int:
         k3=time_gibbs_shapes(level, torch, thin4, "config-4"),
         k4=time_decision_shapes(level, torch, thin4, None, "config-4"))
     _phase("oracle chain, float64, on the card")
-    ro = run_oracle(chol, level, torch)
+    ro = run_oracle(torch)
     _phase("chains: K1 at the folded (C*B, S) shapes")
-    ch = chains_phase(bench, chol, level, torch)
-    mesh = mesh_phase(bench, chol, level, torch)
+    ch = chains_phase(bench, chol, torch)
+    mesh = mesh_phase(bench, torch)
     aa = accept_aware_chains_phase(bench, chol, level, torch, ch)
-    graphs_phase(bench, chol, level, torch)
-    r20 = predict_phase(bench, chol, level, torch, {5: fit8, 3: fit3})
+    graphs_phase(bench, torch)
+    r20 = predict_phase(bench, torch, {5: fit8, 3: fit3})
     del fit8, fit3
     r21 = bench_phase(bench, torch)
     print(f"chip_smoke: every phase passed in {time.time() - _T0:.1f} s",

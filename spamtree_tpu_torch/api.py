@@ -34,7 +34,7 @@ from spamtree_tpu_torch.model.tuning import (
     prepare_chain,
     subsample_curvature_sd,
 )
-from spamtree_tpu_torch.ops.chol import trace_blocks
+from spamtree_tpu_torch.ops.kernel_counts import trace_blocks
 from spamtree_tpu_torch.parallel.mesh import Mesh
 from spamtree_tpu_torch.tree.partition import attach_rows, make_tree
 from spamtree_tpu_torch.tree.schedule import build_schedule

@@ -17,8 +17,9 @@ one kept draw, counted from shapes for each part of the iteration and
 weighted by the part's calls in the keep loop.  ``bandwidth_util`` is that
 byte rate over ``PEAK_BYTES_S``, the H100 SXM's published 3.35 TB/s
 (``bench.py``'s 405 GB/s is a TPU v5e envelope and does not apply); it is
-null where the run was not on a CUDA device.  The kernels' launches, the
-graph replays and each part's work print on lines before the JSON line.
+null where the run was not on a CUDA device.  The kernels' counts
+(``ops.kernel_counts``: launches and factorised blocks), the graph
+replays and each part's work print on lines before the JSON line.
 
 ``--device cuda`` (the default) needs CUDA: without it the entry prints
 ``bench.py``'s error line and exits 3, never falling back to the CPU.
@@ -110,27 +111,15 @@ CONFIGS = {
 }
 
 
-def _launch_counts():
-    """{name: count} of the hand-written kernels' launch counters."""
-    from spamtree_tpu_torch.ops import chol, level
-
-    return dict(k1_launches=chol.LAUNCHES, k3_launches=level.LAUNCHES_GIBBS,
-                k4_launches=level.LAUNCHES_DECISION)
-
-
-def _reset_launch_counts():
-    from spamtree_tpu_torch.ops import chol, level
-
-    chol.LAUNCHES = level.LAUNCHES_GIBBS = level.LAUNCHES_DECISION = 0
-
-
 def run_config(cfg_id, keep=None, burn=None, thin=None, cell_size=25,
                n_chains=1, verbose=False, collect="all", chunk=None,
                device="cuda"):
     """``bench.run_config``'s fit and figures through the port on
-    ``device``; prints the run's kernel launches, graph replays and work
-    counts (a line starting "bench run: " and a JSON object)."""
+    ``device``; prints the run's kernel counts (``ops.kernel_counts``),
+    graph replays and work counts (a line starting "bench run: " and a JSON
+    object)."""
     from spamtree_tpu_torch import spamtree
+    from spamtree_tpu_torch.ops import kernel_counts
 
     c = CONFIGS[cfg_id]
     y, y_full, miss, X, coords, mv = c["maker"]()
@@ -139,7 +128,7 @@ def run_config(cfg_id, keep=None, burn=None, thin=None, cell_size=25,
     thin = thin or c["thin"]
     chunk = chunk or c.get("chunk", 200)
     ybar = np.nanmean(y)
-    _reset_launch_counts()
+    before = kernel_counts.snapshot()
     t_setup = time.time()
     out = spamtree(
         y - ybar, X, coords, mv_id=mv,
@@ -181,7 +170,7 @@ def run_config(cfg_id, keep=None, burn=None, thin=None, cell_size=25,
     instrumented = sum(v for k, v in sb.items() if k.endswith("_s"))
     sb["uninstrumented_s"] = round(max(setup - instrumented, 0.0), 2)
     print("bench run: " + json.dumps(dict(
-        config=c["name"], device=device, **_launch_counts(),
+        config=c["name"], device=device, **kernel_counts.diff(before),
         graph_replays=out.get("graph_replays", 0),
         flops_per_kept_sample=out.get("flops_per_kept_sample"),
         bytes_per_kept_sample=out.get("bytes_per_kept_sample"),

@@ -67,6 +67,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from spamtree_tpu_torch.model import graph
 from spamtree_tpu_torch.model.core import (
     ModelStatic,
     _tree_map,
@@ -96,8 +97,7 @@ from spamtree_tpu_torch.model.transforms import (
     transf_back,
     transf_fwd,
 )
-from spamtree_tpu_torch.ops import chol as chol_ops
-from spamtree_tpu_torch.ops import level as level_ops
+from spamtree_tpu_torch.ops import kernel_counts
 from spamtree_tpu_torch.utils import cost, trace
 
 
@@ -513,55 +513,6 @@ def make_step(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     return step
 
 
-def _launch_counts():
-    """The hand-written kernels' launch counters (K1, K3, K4), then the
-    blocks factorised through ``ops.linalg`` by route (K1, plain)."""
-    return (chol_ops.LAUNCHES, level_ops.LAUNCHES_GIBBS,
-            level_ops.LAUNCHES_DECISION, chol_ops.K1_BLOCKS,
-            chol_ops.PLAIN_BLOCKS)
-
-
-def _set_launch_counts(counts):
-    (chol_ops.LAUNCHES, level_ops.LAUNCHES_GIBBS,
-     level_ops.LAUNCHES_DECISION, chol_ops.K1_BLOCKS,
-     chol_ops.PLAIN_BLOCKS) = counts
-
-
-class _Graph:
-    """One part of the iteration (or of a prediction draw, ``what``)
-    captured in a CUDA graph on ``stream`` (memory from ``pool``): ``out``
-    holds what the part returned, in the graph's own memory, which each
-    replay overwrites.  A replay adds to the kernels' launch counters (and
-    the factorised blocks', ``_launch_counts``) what the capture's calls
-    would have added; the capture itself launches nothing and leaves them
-    as they were.  The capture bars host syncs on its own thread only, so
-    the keep loop's drain thread may wait on its copies meanwhile.  A
-    capture that fails raises, naming the part: the error it wraps names
-    the operation that broke it."""
-
-    def __init__(self, name: str, fn, pool, stream,
-                 what: str = "the MCMC iteration"):
-        before = _launch_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                self.out = fn()
-        except Exception as e:
-            raise RuntimeError(
-                f"capturing part {name} of {what} in a CUDA graph "
-                f"failed: {type(e).__name__}: {e}") from e
-        finally:
-            after = _launch_counts()
-            _set_launch_counts(before)
-        self.launches = tuple(a - b for a, b in zip(after, before))
-
-    def replay(self):
-        self.graph.replay()
-        _set_launch_counts(tuple(
-            a + b for a, b in zip(_launch_counts(), self.launches)))
-
-
 def _copy_tree(dst, src):
     """Copy every tensor leaf of ``src`` into the matching leaf of ``dst``
     (nested tuples, None leaves skipped)."""
@@ -624,8 +575,8 @@ class StepRunner:
                  state: MCMCState, draw, chains: int = 0, n_iters: int = 0,
                  donate: bool = False, capture: bool = True):
         if capture:
-            _check_capturable(ms.device.type,
-                              None if ms.mesh is None else ms.mesh.backend)
+            graph.check_capturable(ms.device.type, None if ms.mesh is None
+                                   else ms.mesh.backend)
         self.ms, self.cfg, self.C, self.draw = ms, cfg, chains, draw
         self.P = _Parts(ms, bounds, cfg, level_coords(ms), bool(chains))
         self.capture = capture and ms.device.type == "cuda"
@@ -841,15 +792,15 @@ class StepRunner:
                 # every part once on this stream before its capture,
                 # without writing the state and uncounted (not the chain's
                 # work); A ran first, so R and I have its output
-                counts = _launch_counts()
+                before = kernel_counts.snapshot()
                 for name in [n for n in parts if n not in ran]:
                     self.out[name] = parts[name](commit=False)
-                _set_launch_counts(counts)
+                kernel_counts.restore(before)
             torch.cuda.current_stream(self.ms.device).wait_stream(side)
             pool = torch.cuda.graph_pool_handle()
             graphs = {}
             for name, fn in parts.items():
-                graphs[name] = _Graph(name, fn, pool, side)
+                graphs[name] = graph.Graph(name, fn, pool, side)
                 self.out[name] = graphs[name].out
             self.graphs = graphs
             torch.cuda.synchronize(self.ms.device)
@@ -1342,28 +1293,11 @@ def _summary_result(res, acc: Moments, empty_shape):
         res["yhat"] = np.zeros(empty_shape)
 
 
-def graphs_default(device_type: str, backend: str | None) -> bool:
-    """Whether ``graphs=None`` runs graphs for a model on ``device_type``
-    on a mesh over ``backend`` (None: no mesh): on CUDA alone or on an
-    NCCL mesh; eager on the CPU and on a gloo mesh."""
-    return device_type == "cuda" and backend in (None, "nccl")
-
-
-def _check_capturable(device_type: str, backend: str | None) -> None:
-    """Raise where a capture cannot hold a collective of the mesh: gloo
-    stages CUDA tensors through host memory."""
-    if device_type == "cuda" and backend == "gloo":
-        raise ValueError("CUDA graphs do not run on a gloo mesh: gloo "
-                         "stages CUDA tensors through host memory, which "
-                         "a capture cannot hold (graphs=False, or an "
-                         "NCCL mesh)")
-
-
 def _graphed(ms: ModelStatic, graphs) -> bool:
     """Resolve run_mcmc's ``graphs`` (``graphs_default`` for None)."""
     if graphs is None:
-        return graphs_default(ms.device.type,
-                              None if ms.mesh is None else ms.mesh.backend)
+        return graph.graphs_default(ms.device.type, None if ms.mesh is None
+                                    else ms.mesh.backend)
     return bool(graphs)
 
 
@@ -1371,7 +1305,7 @@ def _runner(ms, bounds, cfg, state, draw, chains, donate):
     """(StepRunner, its ``one(state, predicting)`` for ``_drive``).  The
     drain may stay pipelined when the capture falls inside the keep loop (a
     reference warmup longer than the burn): a capture bars host syncs on
-    its own thread only (``_Graph``)."""
+    its own thread only (``graph.Graph``)."""
     _, ipc, _, n_burn_chunks = chunk_sizes(cfg)
     r = StepRunner(ms, bounds, cfg, state, draw, chains=chains,
                    n_iters=n_burn_chunks * ipc + cfg.keep * cfg.thin,
@@ -1394,14 +1328,14 @@ def part_work(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
                    capture=False)
     for t in r.d:
         t.fill_(1.0)
-    counts, work = _launch_counts(), {}
+    before, work = kernel_counts.snapshot(), {}
     try:
         for name, fn in r._parts().items():  # A first: R and I read its out
             with cost.Counter() as c:
                 r.out[name] = fn()
             work[name] = c
     finally:
-        _set_launch_counts(counts)
+        kernel_counts.restore(before)
     return work
 
 
@@ -1454,6 +1388,36 @@ def _graph_result(res: dict, runner):
                                if k.startswith("mcmc.replays."))
 
 
+def _sample(ms, bounds, cfg, state, gens, chains, draw, graphs, donate,
+            count_work, drive_args) -> dict:
+    """The body of ``run_mcmc`` (``chains=0``, ``gens`` its generator,
+    ``draw`` = ``draw_step``) and ``run_mcmc_chains`` (``chains=C``,
+    ``draw_chains``): the work count, the graphed or eager iteration and
+    ``_drive``'s loop, with ``drive_args`` = (verbose, yhat_seed,
+    checkpoint_path, sink_dir, sink_append, init_moments, base_counts,
+    yhat_rngs)."""
+    nt = state.theta.shape[-1]
+    shape = tausq_shape(ms, cfg.tausq_ab)
+    counted = _count_work(ms, bounds, cfg, state, chains, count_work)
+    runner = None
+    if _graphed(ms, graphs):
+        runner, one = _runner(
+            ms, bounds, cfg, state,
+            lambda out: draw(ms, gens, nt, shape, out=out), chains, donate)
+    else:
+        step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms),
+                         chains=bool(chains))
+
+        def one(s, predicting, ran=None):
+            return step(s, draw(ms, gens, nt, shape), predicting, ran)
+
+    with kernel_counts.trace_blocks():
+        res = _drive(ms, cfg, state, one, gens, chains, *drive_args)
+    _graph_result(res, runner)
+    _work_result(res, counted)
+    return res
+
+
 @trace.entry("run_mcmc")
 def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
              state: MCMCState, gen: torch.Generator, verbose: bool = False,
@@ -1498,26 +1462,10 @@ def run_mcmc(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     behind a kept draw, as the JAX package's XLA count of its keep chunk;
     without it they are None.  On a mesh they are this rank's: its shard
     of every level, the collectives as copies."""
-    nt = state.theta.shape[0]
-    shape = tausq_shape(ms, cfg.tausq_ab)
-    counted = _count_work(ms, bounds, cfg, state, 0, count_work)
-    runner = None
-    if _graphed(ms, graphs):
-        runner, one = _runner(
-            ms, bounds, cfg, state,
-            lambda out: draw_step(ms, gen, nt, shape, out=out), 0, donate)
-    else:
-        step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms))
-
-        def one(s, predicting, ran=None):
-            return step(s, draw_step(ms, gen, nt, shape), predicting, ran)
-
-    with chol_ops.trace_blocks():
-        res = _drive(ms, cfg, state, one, gen, 0, verbose, yhat_seed,
-                     checkpoint_path, sink_dir, sink_append, init_moments,
-                     base_counts, yhat_rngs)
-    _graph_result(res, runner)
-    _work_result(res, counted)
+    res = _sample(ms, bounds, cfg, state, gen, 0, draw_step, graphs, donate,
+                  count_work, (verbose, yhat_seed, checkpoint_path, sink_dir,
+                               sink_append, init_moments, base_counts,
+                               yhat_rngs))
     ram = res["state"].ram
     res["accept_ratio"] = ram.accept_count / max(ram.propos_count, 1)
     return res
@@ -1551,29 +1499,13 @@ def run_mcmc_chains(ms: ModelStatic, bounds: np.ndarray, cfg: MCMCConfig,
     outside the graphs.  ``count_work`` as in ``run_mcmc``: the count
     covers every chain's work (one batched step), on a chains mesh this
     rank's chains."""
-    C, nt = states.theta.shape
+    C = states.theta.shape[0]
     if len(gens) != C:
         raise ValueError(f"{len(gens)} generators for {C} chains")
-    shape = tausq_shape(ms, cfg.tausq_ab)
-    counted = _count_work(ms, bounds, cfg, states, C, count_work)
-    runner = None
-    if _graphed(ms, graphs):
-        runner, one = _runner(
-            ms, bounds, cfg, states,
-            lambda out: draw_chains(ms, gens, nt, shape, out=out), C, donate)
-    else:
-        step = make_step(ms, bounds, cfg, coords_cache=level_coords(ms),
-                         chains=True)
-
-        def one(s, predicting, ran=None):
-            return step(s, draw_chains(ms, gens, nt, shape), predicting, ran)
-
-    with chol_ops.trace_blocks():
-        res = _drive(ms, cfg, states, one, gens, C, verbose, yhat_seed,
-                     checkpoint_path, sink_dir, sink_append, init_moments,
-                     base_counts, yhat_rngs)
-    _graph_result(res, runner)
-    _work_result(res, counted)
+    res = _sample(ms, bounds, cfg, states, gens, C, draw_chains, graphs,
+                  donate, count_work, (verbose, yhat_seed, checkpoint_path,
+                                       sink_dir, sink_append, init_moments,
+                                       base_counts, yhat_rngs))
     gather = _chain_gather(ms, C)
     acc = _host(gather(res["state"].ram.accept_count, 0))
     prop = _host(gather(res["state"].ram.propos_count, 0))

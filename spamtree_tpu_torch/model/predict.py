@@ -12,8 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from spamtree_tpu_torch.model import core
-from spamtree_tpu_torch.model.mcmc import _Graph
+from spamtree_tpu_torch.model import core, graph
 from spamtree_tpu_torch.utils import trace
 
 
@@ -29,10 +28,11 @@ class DrawRunner:
     runs eagerly on a side stream, then one draw is captured
     (``capture_s`` seconds, the span ``predict.capture``; its launches are
     not counted) and every later draw replays it (``replays`` counts
-    them), adding to the kernels' launch counters what the eager draw
-    adds.  On the CPU, where there are no graphs, the same buffers go
-    through plain calls.  Without graphs each draw is a plain call on the
-    given tensors.  A capture that fails raises, naming the draw."""
+    them), adding to the kernels' counts (``ops.kernel_counts``) what the
+    eager draw adds.  On the CPU, where there are no graphs, the same
+    buffers go through plain calls.  Without graphs each draw is a plain
+    call on the given tensors.  A capture that fails raises, naming the
+    draw."""
 
     def __init__(self, ms: core.ModelStatic, n_theta: int, new_pos,
                  coords_cache=None, graphs=None):
@@ -78,10 +78,10 @@ class DrawRunner:
             out = self._draw(self.theta, self.w)
         torch.cuda.current_stream(dev).wait_stream(side)
         with trace.span("predict.capture") as sp:
-            self.graph = _Graph("draw",
-                                lambda: self._draw(self.theta, self.w),
-                                torch.cuda.graph_pool_handle(), side,
-                                what="a prediction draw")
+            self.graph = graph.Graph("draw",
+                                     lambda: self._draw(self.theta, self.w),
+                                     torch.cuda.graph_pool_handle(), side,
+                                     what="a prediction draw")
             torch.cuda.synchronize(dev)
         self.capture_s = sp.seconds
         return out

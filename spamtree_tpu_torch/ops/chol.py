@@ -10,39 +10,18 @@ hold the kernel against it.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 
-from spamtree_tpu_torch.utils import trace
+from spamtree_tpu_torch.ops import kernel_counts
 from spamtree_tpu_torch.utils.cost import counted
 
 MAX_S = 96  # float32; float64 stops at MAX_S_F64 (csrc/inv_chol.cu)
 MAX_S_F64 = 64
-LAUNCHES = 0  # kernel launches by inv_chol; the plain version never counts
-# blocks factorised through ops.linalg, by route: K1 on the card, or the
-# plain route (cholesky_ex, and every CPU tensor); ``trace_blocks`` adds
-# them to the current trace record
-K1_BLOCKS = 0
-PLAIN_BLOCKS = 0
 
 _FNS = {torch.float32: "st_inv_chol_f32", torch.float64: "st_inv_chol_f64"}
 _bound: dict = {}
-
-
-@contextlib.contextmanager
-def trace_blocks():
-    """Add the blocks factorised inside the with-block to the current trace
-    record, by route: ``ops.chol.k1_blocks`` and ``ops.chol.plain_blocks``.
-    A replayed CUDA graph adds what its capture factorised
-    (``model.mcmc._Graph``), so graphed and eager runs count alike."""
-    k1, plain = K1_BLOCKS, PLAIN_BLOCKS
-    try:
-        yield
-    finally:
-        trace.count("ops.chol.k1_blocks", K1_BLOCKS - k1)
-        trace.count("ops.chol.plain_blocks", PLAIN_BLOCKS - plain)
 
 
 def max_s(dtype) -> int:
@@ -92,8 +71,8 @@ def inv_chol_cost(B: int, S: int, write_l: bool, dtype) -> tuple:
 def inv_chol(a: torch.Tensor, write_l: bool = False):
     """Batched (B, S, S) SPD -> Linv (or (L, Linv) with ``write_l``), both
     lower triangular.  CUDA tensors launch the kernel; CPU tensors take
-    ``inv_chol_plain``."""
-    global LAUNCHES
+    ``inv_chol_plain``; each launch counts as ``k1_launches``
+    (``ops.kernel_counts``)."""
     if a.device.type == "cpu":
         return inv_chol_plain(a, write_l)
     if a.dtype not in _FNS:
@@ -117,5 +96,5 @@ def inv_chol(a: torch.Tensor, write_l: bool = False):
                  L.data_ptr() if write_l else None, B, S, stream)
     if err != 0:
         raise RuntimeError(f"inv_chol kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    kernel_counts.add("k1_launches")
     return (L, Linv) if write_l else Linv

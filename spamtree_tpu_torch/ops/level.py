@@ -22,13 +22,12 @@ import os
 
 import torch
 
+from spamtree_tpu_torch.ops import kernel_counts
 from spamtree_tpu_torch.utils.cost import counted
 
 # the JAX package's static gate (pallas_level.py:39-40)
 MAX_P = 1024
 MAX_S = 512
-LAUNCHES_GIBBS = 0  # kernel launches by thin_gibbs_level
-LAUNCHES_DECISION = 0  # kernel launches by thin_decision_level
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _bound: dict = {}
@@ -152,8 +151,8 @@ def thin_gibbs_level(H, prec, wpar, z, ti, resid, rmask_f):
     (the limited tree's thin levels); slabs up to (72, 320) in float32 or
     (80, 320) in float64 sit in one thread block's registers (the full
     tree's thin level); both read H once.  Anything larger, up to the gate,
-    takes the tiled variant, which reads H twice."""
-    global LAUNCHES_GIBBS
+    takes the tiled variant, which reads H twice.  Each launch counts as
+    ``k3_launches`` (``ops.kernel_counts``)."""
     if H.device.type == "cpu":
         return thin_gibbs_level_plain(H, prec, wpar, z, ti, resid, rmask_f)
     if H.dim() != 3:
@@ -180,7 +179,7 @@ def thin_gibbs_level(H, prec, wpar, z, ti, resid, rmask_f):
                  wu.data_ptr(), msg.data_ptr(), B, S, P, stream)
     if err != 0:
         raise RuntimeError(f"thin_gibbs kernel launch failed: CUDA error {err}")
-    LAUNCHES_GIBBS += 1
+    kernel_counts.add("k3_launches")
     return wu, msg
 
 
@@ -225,8 +224,8 @@ def thin_decision_level_plain(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
 def thin_decision_partials(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
                            kdiag, rmask_f, aligned=False):
     """Per-block (B, 4) partials (logdet, qn, qc, ok) from kernel K4 (CUDA
-    tensors) or from ``thin_decision_partials_plain`` (CPU tensors)."""
-    global LAUNCHES_DECISION
+    tensors) or from ``thin_decision_partials_plain`` (CPU tensors); each
+    launch counts as ``k4_launches`` (``ops.kernel_counts``)."""
     if Kxc.device.type == "cpu":
         return thin_decision_partials_plain(Kxc, joint, lp_pos, wpar, w_r,
                                             prevH, prevprec, kdiag, rmask_f,
@@ -268,7 +267,7 @@ def thin_decision_partials(Kxc, joint, lp_pos, wpar, w_r, prevH, prevprec,
     if err != 0:
         raise RuntimeError(
             f"thin_decision kernel launch failed: CUDA error {err}")
-    LAUNCHES_DECISION += 1
+    kernel_counts.add("k4_launches")
     return part
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from spamtree_tpu_torch.ops import chol
+from spamtree_tpu_torch.ops import kernel_counts
 from spamtree_tpu_torch.ops.chol import inv_chol, max_s
 
 
@@ -37,20 +37,10 @@ def chol_nan(m: torch.Tensor) -> torch.Tensor:
     return torch.where((info != 0)[..., None, None], float("nan"), L)
 
 
-def _count_blocks(m: torch.Tensor, k1: bool) -> None:
-    """Add the blocks of the batch ``m`` (..., S, S) to the route's counter
-    (``ops.chol.K1_BLOCKS`` or ``PLAIN_BLOCKS``)."""
-    n = m.shape[:-2].numel()
-    if k1:
-        chol.K1_BLOCKS += n
-    else:
-        chol.PLAIN_BLOCKS += n
-
-
 def chol_masked(mat: torch.Tensor, mask: torch.Tensor):
     """Cholesky of the identity-padded batch; returns (L, ok) per block."""
     L = chol_nan(identity_pad(mat, mask))
-    _count_blocks(L, False)
+    kernel_counts.add("plain_blocks", L.shape[:-2].numel())
     return L, _diag_ok(L)
 
 
@@ -85,7 +75,7 @@ def chol_inv_masked(mat: torch.Tensor, mask: torch.Tensor,
     batch, a view of the contiguous padded matrices, so one launch serves
     every chain; ok comes back (C, B).  Its blocks count under K1's route
     where the kernel runs (a CUDA tensor), under the plain one otherwise
-    (``_count_blocks``)."""
+    (``ops.kernel_counts``: ``k1_blocks``, ``plain_blocks``)."""
     m = identity_pad(mat, mask)
     if use_kernel:
         S = m.shape[-1]
@@ -97,5 +87,6 @@ def chol_inv_masked(mat: torch.Tensor, mask: torch.Tensor,
     else:
         L = chol_nan(m)
         Linv = tri_inv(L)
-    _count_blocks(m, use_kernel and m.device.type == "cuda")
+    kernel_counts.add("k1_blocks" if use_kernel and m.device.type == "cuda"
+                      else "plain_blocks", m.shape[:-2].numel())
     return L, Linv, _diag_ok(Linv if L is None else L)

@@ -4,11 +4,12 @@ CUDA graphs run only on the card.  These helpers stand in for them so
 that a CPU test holds what a capture needs: ``_host_read_guard`` raises on
 any read of a device value by the host and any host-to-device copy on
 the capturing thread, ``_EmulatedGraph`` captures a part once under that
-guard and replays it by running it again into the captured outputs, and
-``emulate_capture`` installs both into ``model.mcmc``.  Shared by
-tests/test_torch_graphs.py, tests/test_torch_predict_graphs.py and the
-mesh rank jobs of tests/_mesh_graph_jobs.py; imports no jax, as the
-mesh's worker processes must not.
+guard and replays it by running it again into the captured outputs
+(``_EmulatedCounts``: the kernels' counts as a graph keeps them), and
+``emulate_capture`` installs both in place of ``model.graph.Graph``.
+Shared by tests/test_torch_graphs.py, tests/test_torch_predict_graphs.py
+and the mesh rank jobs of tests/_mesh_graph_jobs.py; imports no jax, as
+the mesh's worker processes must not.
 """
 
 import contextlib
@@ -17,8 +18,9 @@ import threading
 import pytest
 import torch
 
+from spamtree_tpu_torch.model import graph
 from spamtree_tpu_torch.model import mcmc as mt
-from spamtree_tpu_torch.ops import chol, level, linalg
+from spamtree_tpu_torch.ops import kernel_counts, level, linalg
 
 
 def _leaves(x):
@@ -101,8 +103,30 @@ def _copy_out(dst, src):
             _copy_out(a, b)
 
 
-class _EmulatedGraph:
-    """Stands in for ``mcmc._Graph`` on the CPU.  The capture runs the part
+class _EmulatedCounts:
+    """What ``graph.Graph`` does with the kernels' counts
+    (``ops.kernel_counts``): the capture keeps its calls' difference
+    (``counted``) and leaves the counts as they were; a replay adds that
+    difference, whatever the part counts when it runs again."""
+
+    def _capture(self, fn):
+        before = kernel_counts.snapshot()
+        with _host_read_guard():
+            self.out = fn()
+        self.counted = kernel_counts.diff(before)
+        kernel_counts.restore(before)
+        self.fn = fn
+
+    def replay(self):
+        before = kernel_counts.snapshot()
+        _copy_out(self.out, self.fn())
+        kernel_counts.restore(before)
+        for name, n in self.counted.items():
+            kernel_counts.add(name, n)
+
+
+class _EmulatedGraph(_EmulatedCounts):
+    """Stands in for ``graph.Graph`` on the CPU.  The capture runs the part
     once under ``_host_read_guard`` and then puts every buffer of the
     runner back as it was (a capture computes nothing); a replay runs the
     part again and copies its outputs into the captured ones, as a graph's
@@ -115,17 +139,10 @@ class _EmulatedGraph:
         r = _EmulatedGraph.runner
         bufs = _leaves(r.state) + [r.it_dev]
         snap = [b.clone() for b in bufs]
-        counts = mt._launch_counts()
-        with _host_read_guard():
-            self.out = fn()
+        self._capture(fn)
         for b, s in zip(bufs, snap):
             b.copy_(s)
-        mt._set_launch_counts(counts)
-        self.fn = fn
         _EmulatedGraph.captured.append(name)
-
-    def replay(self):
-        _copy_out(self.out, self.fn())
 
 
 class _NoStream:
@@ -133,12 +150,13 @@ class _NoStream:
         pass
 
 
-def _counting(fn, name, attr):
+def _counting(fn, name):
     """``fn`` (a kernel wrapper's plain version on the CPU) that counts its
-    calls in ``name.attr``, as the wrapper counts its launches."""
+    calls as ``ops.kernel_counts``'s ``name``, as the wrapper counts its
+    launches."""
 
     def f(*a, **k):
-        setattr(name, attr, getattr(name, attr) + 1)
+        kernel_counts.add(name)
         return fn(*a, **k)
 
     return f
@@ -150,12 +168,12 @@ def emulate_capture(monkeypatch):
     through ``monkeypatch`` (a ``pytest.MonkeyPatch``); returns
     ``_EmulatedGraph``."""
     monkeypatch.setattr(linalg, "inv_chol",
-                        _counting(linalg.inv_chol, chol, "LAUNCHES"))
+                        _counting(linalg.inv_chol, "k1_launches"))
     monkeypatch.setattr(level, "thin_gibbs_level", _counting(
-        level.thin_gibbs_level, level, "LAUNCHES_GIBBS"))
+        level.thin_gibbs_level, "k3_launches"))
     for f in ("thin_decision_level", "thin_decision_chains"):
         monkeypatch.setattr(level, f, _counting(
-            getattr(level, f), level, "LAUNCHES_DECISION"))
+            getattr(level, f), "k4_launches"))
 
     class Runner(mt.StepRunner):
         def __init__(self, *a, **k):
@@ -165,7 +183,7 @@ def emulate_capture(monkeypatch):
 
     _EmulatedGraph.captured = []
     monkeypatch.setattr(mt, "StepRunner", Runner)
-    monkeypatch.setattr(mt, "_Graph", _EmulatedGraph)
+    monkeypatch.setattr(graph, "Graph", _EmulatedGraph)
     monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: _NoStream())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda *a, **k: _NoStream())

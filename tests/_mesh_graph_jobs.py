@@ -16,6 +16,7 @@ import _sharding_jobs as J
 from _graph_capture import _leaves, emulate_capture
 from spamtree_tpu_torch.model import mcmc as mt
 from spamtree_tpu_torch.model.core import LevelData
+from spamtree_tpu_torch.ops import kernel_counts
 
 # 12 iterations: a burn chunk of 4, then 4 kept draws at thin 2
 CFG = mt.MCMCConfig(keep=4, burn=4, thin=2, chunk=2, wire_dtype="none")
@@ -48,11 +49,11 @@ def _pair(mesh, tree, accept_aware, chains):
         ms, tspec = J.model(tree, mesh.n_blocks, mesh)
         cfg = CFG._replace(accept_aware=accept_aware)
         state = mt.init_state(ms, tspec.bounds, tspec.start, cfg=cfg)
-        runs, counts = [], []
+        runs, counted = [], []
         with pytest.MonkeyPatch.context() as mp:
             graph = emulate_capture(mp)
             for graphs in (False, True):
-                mt._set_launch_counts((0, 0, 0, 0, 0))
+                before = kernel_counts.snapshot()
                 if chains:
                     c0 = mesh.chain_rank * chains
                     states, gens = mt.stack_chain_states(
@@ -64,13 +65,12 @@ def _pair(mesh, tree, accept_aware, chains):
                                       torch.Generator().manual_seed(5),
                                       yhat_seed=3, graphs=graphs)
                 runs.append(res)
-                counts.append(mt._launch_counts())
+                counted.append(kernel_counts.diff(before))
             captured = list(graph.captured)
-        mt._set_launch_counts((0, 0, 0, 0, 0))
     eager, graphed = runs
     it = graphed["state"].it
     return dict(
-        differs=_diff(eager, graphed), counts=counts, captured=captured,
+        differs=_diff(eager, graphed), counts=counted, captured=captured,
         replays_per_iter=graphed["graph_replays"] / (it - 1),
         accept=np.asarray(eager.get("accept_by_chain",
                                     eager["accept_ratio"])).tolist(),

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from spamtree_tpu_torch.ops import chol
+from spamtree_tpu_torch.ops import chol, kernel_counts
 from spamtree_tpu_torch.ops.linalg import chol_inv_masked
 
 # jax is imported inside the tests that compare with the JAX package, so
@@ -79,9 +79,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="S=65"):
         chol_inv_masked(torch.eye(65, dtype=torch.float64)[None],
                         torch.ones(1, 65, dtype=bool), use_kernel=True)
-    before = chol.LAUNCHES
+    before = kernel_counts.snapshot()
     chol.inv_chol(torch.as_tensor(_spd(3, 5, seed=0)))  # CPU: plain version
-    assert chol.LAUNCHES == before
+    assert kernel_counts.diff(before)["k1_launches"] == 0
 
 
 def _inv_chol_right_looking(a):
@@ -180,11 +180,11 @@ def _card_parity(shapes, dtypes=((np.float32, 1e-4), (np.float64, 1e-10))):
             A = _spd(B, S, seed=B + S, dtype=dtype)
             A[B // 2, 0, 1] = A[B // 2, 1, 0] = 10.0 * S  # one non-SPD block
             a = torch.as_tensor(A, device="cuda")
-            before = chol.LAUNCHES
+            before = kernel_counts.snapshot()
             L_k, X_k = chol.inv_chol(a, write_l=True)
             X_only = chol.inv_chol(a)
             torch.cuda.synchronize()
-            assert chol.LAUNCHES == before + 2
+            assert kernel_counts.diff(before)["k1_launches"] == 2
             L_p, X_p = chol.inv_chol_plain(a, write_l=True)
             good = torch.ones(B, dtype=torch.bool, device="cuda")
             good[B // 2] = False

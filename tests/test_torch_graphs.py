@@ -19,7 +19,7 @@ outside.
   of a device value by the host or any host-to-device copy.
 * Five steps of the runner equal five of the JAX package's steps given
   the same draws, at rtol 1e-10 in f64.
-* A replay adds to the kernels' launch counters what an eager call adds
+* A replay adds to every one of the kernels' counts what an eager call adds
   (a stub graph); a failed capture raises naming its part; a gloo mesh
   on CUDA tensors is refused.
 * Under deterministic algorithms the emulated capture gives the same
@@ -50,9 +50,10 @@ from spamtree_tpu.tree.partition import make_tree as make_tree_jax
 from spamtree_tpu.tree.schedule import build_schedule as build_schedule_jax
 from spamtree_tpu_torch.api import prepare_fit
 from spamtree_tpu_torch.model import core as ct
+from spamtree_tpu_torch.model import graph
 from spamtree_tpu_torch.model import mcmc as mt
 from spamtree_tpu_torch.model.ram import G0
-from spamtree_tpu_torch.ops import chol, level
+from spamtree_tpu_torch.ops import kernel_counts
 from spamtree_tpu_torch.tree.partition import make_tree
 from spamtree_tpu_torch.tree.schedule import build_schedule
 from spamtree_tpu_torch.utils import trace
@@ -216,17 +217,17 @@ def test_emulated_capture_equals_eager_deterministic(case,
 def _emulated_vs_eager(case, emulated_capture):
     with _env(CASES[case].get("env", {})):
         fit, cfg, state = _fit(case, torch.float64)
-        runs, counts = [], []
+        runs, counted = [], []
         for graphs in (False, True):
-            mt._set_launch_counts((0, 0, 0, 0, 0))
+            before = kernel_counts.snapshot()
             runs.append(_run(fit, cfg, state, case, graphs))
-            counts.append(mt._launch_counts())
-        mt._set_launch_counts((0, 0, 0, 0, 0))
+            counted.append(kernel_counts.diff(before))
     eager, graphed = runs
     _same_bits(eager, graphed, case)
-    assert counts[0] == counts[1] and counts[0][0] > 0, counts
+    assert counted[0] == counted[1] and counted[0]["k1_launches"] > 0, counted
     if "level_kernels" in case:
-        assert counts[0][1] > 0 and counts[0][2] > 0, counts
+        assert (counted[0]["k3_launches"] > 0
+                and counted[0]["k4_launches"] > 0), counted
     C = CASES[case].get("chains", 0)
     want = (["C0", "C1"] if C else
             ["A"] + (["R"] if CASES[case].get("accept_aware") else [])
@@ -430,7 +431,7 @@ def test_runner_steps_match_jax(accept_aware):
     assert True in accepted and False in accepted, accepted
 
 
-# -- launch counters, failures, the mesh -------------------------------------
+# -- kernel counts, failures, the mesh ---------------------------------------
 
 
 class _StubCUDAGraph:
@@ -446,73 +447,74 @@ def _stub_cuda_graph(monkeypatch):
 
 
 def test_replays_count_launches_as_eager_calls(monkeypatch):
-    """A part whose eager call launches K1 three times, K3 once and K4
-    twice: five eager calls and five replays of its capture (a stub graph)
-    leave the counters alike; the capture itself adds nothing."""
+    """A part that adds its own amount to every name of the kernels'
+    counts (``ops.kernel_counts``, whatever names it lists): five replays
+    of its capture (a stub graph) add what five eager calls add, name by
+    name; the capture itself adds nothing."""
     _stub_cuda_graph(monkeypatch)
+    names = list(kernel_counts.snapshot())
+    assert {"k1_launches", "k3_launches", "k4_launches", "k1_blocks",
+            "plain_blocks"} <= set(names), names
+    once = {name: i + 1 for i, name in enumerate(names)}
 
     def part():
-        chol.LAUNCHES += 3
-        level.LAUNCHES_GIBBS += 1
-        level.LAUNCHES_DECISION += 2
+        for name, n in once.items():
+            kernel_counts.add(name, n)
         return "out"
 
-    mt._set_launch_counts((0, 0, 0, 0, 0))
+    before = kernel_counts.snapshot()
     for _ in range(5):
         part()
-    eager = mt._launch_counts()
-    mt._set_launch_counts((0, 0, 0, 0, 0))
-    g = mt._Graph("X", part, None, None)
-    assert g.out == "out" and g.launches == (3, 1, 2, 0, 0)
-    assert mt._launch_counts() == (0, 0, 0, 0, 0)
+    eager = kernel_counts.diff(before)
+    assert eager == {name: 5 * n for name, n in once.items()}
+    before = kernel_counts.snapshot()
+    g = graph.Graph("X", part, None, None)
+    assert g.out == "out" and g.counted == once
+    assert kernel_counts.snapshot() == before
     for _ in range(5):
         g.replay()
-    assert mt._launch_counts() == eager == (15, 5, 10, 0, 0)
-    mt._set_launch_counts((0, 0, 0, 0, 0))
+    assert kernel_counts.diff(before) == eager
 
 
 def test_replays_count_factorised_blocks_as_eager_calls(monkeypatch):
     """A part that factorises six blocks on K1's route and two on the
     plain one: five replays of its capture (a stub graph) add to the block
-    counters what five eager calls would, the capture itself nothing, and
-    the call's trace record holds them (``ops.chol.trace_blocks``)."""
+    counts what five eager calls would, the capture itself nothing, and
+    the call's trace record holds them (``ops.kernel_counts.trace_blocks``)."""
     _stub_cuda_graph(monkeypatch)
-    saved = mt._launch_counts()
 
     def part():
-        chol.K1_BLOCKS += 6
-        chol.PLAIN_BLOCKS += 2
+        kernel_counts.add("k1_blocks", 6)
+        kernel_counts.add("plain_blocks", 2)
         return "out"
 
-    try:
-        with trace.call("blocks") as rec, chol.trace_blocks():
-            g = mt._Graph("X", part, None, None)
-            assert g.launches == (0, 0, 0, 6, 2)
-            assert mt._launch_counts() == saved
-            for _ in range(5):
-                g.replay()
-        assert mt._launch_counts() == saved[:3] + (saved[3] + 30,
-                                                   saved[4] + 10)
-        assert rec.counter("ops.chol.k1_blocks") == 30
-        assert rec.counter("ops.chol.plain_blocks") == 10
-    finally:
-        mt._set_launch_counts(saved)
+    blocks = {"k1_blocks": 6, "plain_blocks": 2}
+    with trace.call("blocks") as rec, kernel_counts.trace_blocks():
+        before = kernel_counts.snapshot()
+        g = graph.Graph("X", part, None, None)
+        assert g.counted == dict.fromkeys(before, 0) | blocks
+        assert kernel_counts.snapshot() == before
+        for _ in range(5):
+            g.replay()
+    assert kernel_counts.diff(before) == dict.fromkeys(before, 0) | {
+        k: 5 * n for k, n in blocks.items()}
+    assert rec.counter("ops.chol.k1_blocks") == 30
+    assert rec.counter("ops.chol.plain_blocks") == 10
 
 
 def test_failed_capture_raises_naming_the_part(monkeypatch):
     """No fallback: the error names the part and keeps the operation's
-    own message; the counters are left as they were."""
+    own message; the counts are left as they were."""
     _stub_cuda_graph(monkeypatch)
 
     def part():
-        chol.LAUNCHES += 1
+        kernel_counts.add("k1_launches")
         raise RuntimeError("operation not permitted when stream is capturing")
 
-    mt._set_launch_counts((4, 0, 0, 0, 0))
+    before = kernel_counts.snapshot()
     with pytest.raises(RuntimeError, match="part A .*not permitted"):
-        mt._Graph("A", part, None, None)
-    assert mt._launch_counts() == (4, 0, 0, 0, 0)
-    mt._set_launch_counts((0, 0, 0, 0, 0))
+        graph.Graph("A", part, None, None)
+    assert kernel_counts.snapshot() == before
 
 
 def test_graphs_refused_on_a_mesh():

@@ -20,7 +20,7 @@ import torch
 
 from spamtree_tpu_torch.model import core as ct
 from spamtree_tpu_torch.model.params import make_theta_spec
-from spamtree_tpu_torch.ops import level
+from spamtree_tpu_torch.ops import kernel_counts, level
 from spamtree_tpu_torch.tree.partition import make_tree
 from spamtree_tpu_torch.tree.schedule import build_schedule
 
@@ -478,12 +478,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="P <= 1024"):
         level.thin_decision_level(torch.empty(B, 1025, S, **m),
                                   *args[1:])
-    before = (level.LAUNCHES_GIBBS, level.LAUNCHES_DECISION)
+    before = kernel_counts.snapshot()
     d = _decision_inputs(0, B=3, Bp=2, P=5, S=4, lp_pos=[1, 0, 1])
     level.thin_decision_level(*(_t(d[k]) for k in (
         "Kxc", "joint", "lp_pos", "wpar", "w_r", "prevH", "prevprec",
         "kdiag", "rmask_f")))  # CPU: the plain version, never counted
-    assert (level.LAUNCHES_GIBBS, level.LAUNCHES_DECISION) == before
+    launched = kernel_counts.diff(before)
+    assert (launched["k3_launches"], launched["k4_launches"]) == (0, 0)
 
 
 def test_apply_parts_thin_matches_jax():
@@ -701,10 +702,10 @@ def test_kernels_match_plain_on_card():
             args = [torch.as_tensor(d[k], device="cuda",
                                     dtype=torch.int64 if k == "lp_pos"
                                     else dtype) for k in names]
-            before = level.LAUNCHES_DECISION
+            before = kernel_counts.snapshot()
             pk = level.thin_decision_partials(*args, aligned=aligned)
             torch.cuda.synchronize()
-            assert level.LAUNCHES_DECISION == before + 1
+            assert kernel_counts.diff(before)["k4_launches"] == 1
             pp = level.thin_decision_partials_plain(*args, aligned=aligned)
             assert torch.equal(pk[:, 3], pp[:, 3])
             assert ((pk - pp).abs() <= tol * pp.abs().clamp(min=1)).all()
@@ -736,10 +737,10 @@ def test_decision_chains_on_card():
             a = {k: torch.as_tensor(v, device="cuda",
                                     dtype=torch.int64 if k == "lp_pos"
                                     else dtype) for k, v in d.items()}
-            before = level.LAUNCHES_DECISION
+            before = kernel_counts.snapshot()
             got = level.thin_decision_chains(**a, aligned=aligned)
             torch.cuda.synchronize()
-            assert level.LAUNCHES_DECISION == before + 1
+            assert kernel_counts.diff(before)["k4_launches"] == 1
             ref = level.thin_decision_chains_plain(**a, aligned=aligned)
             assert got[1].tolist() == ref[1].tolist() == [True, False, True]
             for i in (0, 2, 3):

@@ -44,6 +44,7 @@ from spamtree_tpu.model.params import make_theta_spec
 from spamtree_tpu.tree.partition import make_tree as make_tree_jax
 from spamtree_tpu.tree.schedule import build_schedule as build_schedule_jax
 from spamtree_tpu_torch.model import core as ct
+from spamtree_tpu_torch.model import graph
 from spamtree_tpu_torch.model import mcmc as mt
 from spamtree_tpu_torch.parallel.launch import launch
 from spamtree_tpu_torch.parallel.mesh import _join
@@ -95,9 +96,11 @@ def _check_pair(reports, case, chains=0):
         what = f"{_case_id(case)}, rank {r}"
         assert rep["differs"] == [], (what, rep["differs"])
         eager, graphed = rep["counts"]
-        assert eager == graphed and eager[0] > 0, (what, rep["counts"])
+        assert eager == graphed and eager["k1_launches"] > 0, (
+            what, rep["counts"])
         if accept_aware and not chains:
-            assert eager[1] > 0 and eager[2] > 0, (what, rep["counts"])
+            assert eager["k3_launches"] > 0 and eager["k4_launches"] > 0, (
+                what, rep["counts"])
         assert rep["captured"] == want, (what, rep["captured"])
         reps = rep["replays_per_iter"]
         assert (reps == 1.0) if chains else (2.0 <= reps <= 4.0), (what, reps)
@@ -220,7 +223,7 @@ def test_graph_resolution(device, backend):
     refused on a gloo mesh with CUDA tensors (gloo's host staging), and
     allowed everywhere else (on the CPU the parts run as plain calls)."""
     want = device == "cuda" and backend != "gloo"
-    assert mt.graphs_default(device, backend) is want
+    assert graph.graphs_default(device, backend) is want
     ms = SimpleNamespace(device=torch.device(device), mesh=None
                          if backend is None else SimpleNamespace(
                              backend=backend))
@@ -229,12 +232,12 @@ def test_graph_resolution(device, backend):
     if device == "cuda" and backend == "gloo":
         with pytest.raises(ValueError, match="gloo stages CUDA tensors "
                            "through host memory"):
-            mt._check_capturable(device, backend)
+            graph.check_capturable(device, backend)
         # the runner refuses before it touches the device
         with pytest.raises(ValueError, match="gloo"):
             mt.StepRunner(ms, None, mt.MCMCConfig(), None, None)
     else:
-        mt._check_capturable(device, backend)
+        graph.check_capturable(device, backend)
 
 
 # -- the collectives' layout ------------------------------------------------

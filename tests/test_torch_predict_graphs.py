@@ -28,17 +28,12 @@ import pytest
 import torch
 
 import spamtree_tpu_torch
-from _graph_capture import (
-    _copy_out,
-    _counting,
-    _host_read_guard,
-    _NoStream,
-)
+from _graph_capture import _counting, _EmulatedCounts, _NoStream
 from spamtree_tpu.model import core as cj
 from spamtree_tpu_torch import api
-from spamtree_tpu_torch.model import mcmc as mt
+from spamtree_tpu_torch.model import graph
 from spamtree_tpu_torch.model import predict as pr
-from spamtree_tpu_torch.ops import chol
+from spamtree_tpu_torch.ops import kernel_counts
 from test_torch_predict import THETA, _models
 
 
@@ -110,24 +105,17 @@ def test_graphed_draws_equal_eager_loop(limited, dtype):
     assert pred["predict_breakdown"]["capture_s"] == 0.0
 
 
-class _EmulatedDrawGraph:
-    """Stands in for ``mcmc._Graph`` in ``model.predict``: the capture
-    runs the draw under ``_host_read_guard`` with the kernels' counters
-    left as they were; a replay runs it again and copies its output into
-    the captured one."""
+class _EmulatedDrawGraph(_EmulatedCounts):
+    """Stands in for ``graph.Graph`` in ``model.predict``: the capture
+    runs the draw under ``_host_read_guard`` with the kernels' counts
+    left as they were; a replay runs it again, copies its output into
+    the captured one and adds what the capture counted."""
 
     captured = 0
 
     def __init__(self, name, fn, pool, stream, what=""):
-        counts = mt._launch_counts()
-        with _host_read_guard():
-            self.out = fn()
-        mt._set_launch_counts(counts)
-        self.fn = fn
+        self._capture(fn)
         _EmulatedDrawGraph.captured += 1
-
-    def replay(self):
-        _copy_out(self.out, self.fn())
 
 
 @pytest.fixture
@@ -135,8 +123,8 @@ def emulated_draw_capture(monkeypatch):
     from spamtree_tpu_torch.ops import linalg
 
     monkeypatch.setattr(linalg, "inv_chol",
-                        _counting(linalg.inv_chol, chol, "LAUNCHES"))
-    monkeypatch.setattr(pr, "_Graph", _EmulatedDrawGraph)
+                        _counting(linalg.inv_chol, "k1_launches"))
+    monkeypatch.setattr(graph, "Graph", _EmulatedDrawGraph)
     monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: _NoStream())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda *a, **k: _NoStream())
@@ -155,20 +143,19 @@ def test_emulated_capture_equals_eager_loop(limited, emulated_draw_capture):
     called as often on both (on a full tree several reference levels a
     draw, every level up to the prediction parent)."""
     _, _, _, st = _stage(limited, torch.float64)
-    out, counts, runners = [], [], []
+    out, k1, runners = [], [], []
     for graphs in (False, True):
         r = _runner(st, graphs)
         r.capture = graphs
-        mt._set_launch_counts((0, 0, 0, 0, 0))
+        before = kernel_counts.snapshot()
         out.append(api.predict_draws(st, r, seed=2, chunk=4))
-        counts.append(mt._launch_counts()[0])
+        k1.append(kernel_counts.diff(before)["k1_launches"])
         runners.append(r)
-    mt._set_launch_counts((0, 0, 0, 0, 0))
     assert np.array_equal(out[0], out[1])
     assert emulated_draw_capture.captured == 1
     assert runners[1].replays == 6 and runners[1].graph is not None
     levels = 1 if limited else st.ms.pred_lp + 1
-    assert counts[0] == counts[1] == 7 * levels, counts
+    assert k1[0] == k1[1] == 7 * levels, k1
     assert limited or levels > 1
 
 
