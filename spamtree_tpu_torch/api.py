@@ -273,7 +273,8 @@ def prepare_fit(y, x, coords, mv_id=None, cell_size=25, K=2, mcmc=None,
                          cherrypick_group_locations=cherrypick_group_locations,
                          mvbias=mvbias, rng=np.random.default_rng(seed),
                          verbose=verbose)
-        sched = build_schedule(tree, limited_tree=limited_tree)
+        with trace.span("setup.schedule"):
+            sched = build_schedule(tree, limited_tree=limited_tree)
     tb["tree_s"] = round(rec.seconds("setup.tree"), 2)
     start_theta = starting["theta"]
     if start_theta is None:
@@ -637,8 +638,9 @@ def spamtree_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
     Returns dict(w_pred (S, m), yhat_pred (S, m), draw_indices,
     predict_breakdown) in the row order of ``coords_new``;
     ``predict_breakdown`` holds the seconds of the call's spans (its trace
-    record, ``utils.trace``): tree_s (``predict.tree``) and stage_s
-    (``predict.model``) of ``predict.stage``; draws_s (``predict.draws``:
+    record, ``utils.trace``): tree_s (``predict.tree``, which holds the
+    schedule's span ``predict.schedule``) and stage_s (``predict.model``)
+    of ``predict.stage``; draws_s (``predict.draws``:
     the draw runner's set-up and the draws), of which capture_s
     (``predict.capture``) and upload_s (``predict.upload``: the fit's draws
     indexed on the host, copied and laid out on the device, chunk by
@@ -724,7 +726,8 @@ def stage_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
     """``spamtree_predict``'s checks, tree and model over the fit's data
     with the new rows appended, and the fit's draws mapped onto it; the
     tree and the model are the spans ``predict.tree``
-    (``breakdown["tree_s"]``) and ``predict.model``
+    (``breakdown["tree_s"]``; the schedule within it ``predict.schedule``)
+    and ``predict.model``
     (``breakdown["stage_s"]``).  The tree is the fit's extended by the new
     rows (``_extend_fit_tree``) where the fit carries it, else
     ``make_tree``'s over the augmented rows, whose observed rows must then
@@ -831,7 +834,8 @@ def stage_predict(fit, y, x, coords, coords_new, x_new, mv_id=None,
                         np.asarray(fit_tree.block_of_row)[obs_fit]):
                     raise RuntimeError("augmented partition diverged from "
                                        "the fit's on observed rows")
-        sched = build_schedule(tree, limited_tree=fc["limited_tree"])
+        with trace.span("predict.schedule"):
+            sched = build_schedule(tree, limited_tree=fc["limited_tree"])
     tb["tree_s"] = round(sp.seconds, 2)
     tspec = make_theta_spec(
         dd, q, btmlim=fc["btmlim"] if fc["btmlim"] is not None else 1e-3,

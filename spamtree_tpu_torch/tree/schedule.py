@@ -81,11 +81,45 @@ class Schedule:
     pred_buckets: list = None  # size-bucketed prediction plans (see _bucket_plan)
 
 
-def _pad2(arrs: list[np.ndarray], width: int, fill) -> np.ndarray:
-    out = np.full((len(arrs), width), fill, dtype=np.int64)
-    for i, a in enumerate(arrs):
-        out[i, : len(a)] = a
+def _csr(arrs: list) -> tuple[np.ndarray, np.ndarray]:
+    """(offsets (len + 1,), flat entries) of a list of 1-D integer arrays:
+    entry i is ``flat[offsets[i]:offsets[i + 1]]``."""
+    off = np.zeros(len(arrs) + 1, dtype=np.int64)
+    np.cumsum(np.fromiter(map(len, arrs), np.int64, len(arrs)), out=off[1:])
+    return off, np.concatenate(arrs).astype(np.int64, copy=False)
+
+
+def _pad_rows(vals: np.ndarray, lens: np.ndarray, width: int,
+              fill) -> np.ndarray:
+    """(len(lens), width) int64: row i holds the next lens[i] entries of
+    ``vals`` in order, then ``fill``."""
+    mask = np.arange(width) < lens[:, None]
+    out = np.full(mask.shape, fill, dtype=np.int64)
+    out[mask] = vals  # row-major: each row's entries in order
     return out
+
+
+def _gather_pad(off: np.ndarray, flat: np.ndarray, ids: np.ndarray, fill,
+                width: int | None = None) -> np.ndarray:
+    """Entries ``ids`` of a CSR list (``_csr``), padded with ``fill`` to
+    ``width`` (default: the longest); none may be longer than ``width``."""
+    lens = off[ids + 1] - off[ids]
+    if width is None:
+        width = int(lens.max())
+    # entry k of the selection: its list's start, less the selection's
+    # entries before that list, plus k
+    skip = np.repeat(off[ids] - (np.cumsum(lens) - lens), lens)
+    return _pad_rows(flat[skip + np.arange(len(skip))], lens, width, fill)
+
+
+def _groups_by(keys: np.ndarray):
+    """(order, starts, group) of non-empty ``keys``: a stable sort, the
+    sorted positions where each run of equal keys starts, and each sorted
+    position's run."""
+    order = np.argsort(keys, kind="stable")
+    ks = keys[order]
+    first = np.r_[True, ks[1:] != ks[:-1]]
+    return order, np.flatnonzero(first), np.cumsum(first) - 1
 
 
 def _bucket_boundaries(sizes: np.ndarray, max_buckets: int) -> list[np.ndarray]:
@@ -145,28 +179,23 @@ def _merge_by_ancestor(plan: LevelPlan, n: int, nb: int) -> LevelPlan:
     """
     if plan.P == 0 or plan.B <= 1 or plan.is_ref:
         return plan
-    order = np.argsort(plan.lp_pos, kind="stable")
-    lp_sorted = plan.lp_pos[order]
-    starts = np.flatnonzero(np.r_[True, lp_sorted[1:] != lp_sorted[:-1]])
-    groups = np.split(order, starts[1:])
-    if len(groups) == plan.B:
+    order, starts, _ = _groups_by(plan.lp_pos)
+    if len(starts) == plan.B:
         return plan
-    sizes = (plan.rows < n).sum(axis=1)
-    row_lists = [
-        np.concatenate([plan.rows[i, : sizes[i]] for i in g]) for g in groups
-    ]
-    S = max(len(r) for r in row_lists)
-    bid = plan.block_ids.reshape(plan.B, -1)  # (B,) or (B, M0) -> 2D view
-    ids_src = [np.concatenate([bid[i][bid[i] < nb] for i in g]) for g in groups]
-    M = max(len(s) for s in ids_src)
-    ids = np.full((len(groups), M), nb, dtype=np.int64)
-    for k, s in enumerate(ids_src):
-        ids[k, : len(s)] = s
-    first = np.array([g[0] for g in groups])
+
+    def _merged(a, fill):
+        # each sorted block's real entries (< fill), concatenated group by
+        # group in block order, padded with ``fill``
+        a = a[order]
+        real = a < fill
+        lens = np.add.reduceat(real.sum(axis=1), starts)
+        return _pad_rows(a[real], lens, int(lens.max()), fill)
+
+    first = order[starts]
     return LevelPlan(
         res=plan.res, is_ref=plan.is_ref,
-        block_ids=ids,
-        rows=_pad2(row_lists, S, n),
+        block_ids=_merged(plan.block_ids.reshape(plan.B, -1), nb),
+        rows=_merged(plan.rows, n),
         prows=plan.prows[first],
         lp_pos=plan.lp_pos[first], lp_level=plan.lp_level,
         anc_blocks=plan.anc_blocks[first],
@@ -235,22 +264,19 @@ def _group_ref_plan(plan: LevelPlan, n: int, nb: int,
     """
     if plan.P == 0 or plan.B <= 1 or not plan.is_ref:
         return plan
-    order = np.argsort(plan.lp_pos, kind="stable")
-    lp_sorted = plan.lp_pos[order]
-    starts = np.flatnonzero(np.r_[True, lp_sorted[1:] != lp_sorted[:-1]])
-    groups = np.split(order, starts[1:])
-    C = max(len(g) for g in groups)
-    if C <= 1 or len(groups) * C > max_waste * plan.B:
+    order, starts, grp = _groups_by(plan.lp_pos)
+    C = int(np.diff(np.r_[starts, plan.B]).max())
+    if C <= 1 or len(starts) * C > max_waste * plan.B:
         return plan
-    # permutation with -1 marking dummy slots
-    perm = np.full(len(groups) * C, -1, dtype=np.int64)
-    for k, g in enumerate(groups):
-        perm[k * C : k * C + len(g)] = g
+    # permutation with -1 marking dummy slots: group k's children at
+    # k * C + their rank in the group
+    perm = np.full(len(starts) * C, -1, dtype=np.int64)
+    perm[grp * C + np.arange(plan.B) - starts[grp]] = order
     real = perm >= 0
     src = np.maximum(perm, 0)
     # dummies copy their group leader's parent pointers (the gather then
     # reads no extra factor) but get sentinel rows/ancestors (masked out)
-    leader = np.repeat([g[0] for g in groups], C)
+    leader = np.repeat(order[starts], C)
     take = np.where(real, src, leader)
 
     def _take(a, dummy_fill=None):
@@ -342,13 +368,13 @@ def build_schedule(
     n = tree.n_rows
     nb = tree.n_blocks
     if validate is None:
-        # the per-block layout asserts are O(n_blocks * n_anc * S) python
-        # loops; skip them at large scale (they are structural invariants
-        # fully exercised by the test suite at small n)
+        # the layout asserts gather every block's ancestor segments again;
+        # skip them at large scale (they are structural invariants fully
+        # exercised by the test suite at small n)
         validate = nb <= 20000
 
     # group blocks by level, ascending; separate all-empty (prediction) levels
-    levels_1b = sorted(set(int(v) for v in tree.block_level))
+    levels_1b = np.unique(tree.block_level).tolist()
     sweep_levels: list[LevelPlan] = []
     pred_plan: LevelPlan | None = None
 
@@ -361,11 +387,17 @@ def build_schedule(
             if (tree.block_ct_obs[ids0] > 0).any() and tree.res_is_ref[li] == 1:
                 last_ref_res = res
 
+    # every block's rows and parents as CSR lists, read level by level
+    row_off, row_flat = _csr(tree.block_rows)
+    par_off, par_flat = _csr(tree.parents)
+    row_len = np.diff(row_off)
     # per REF sweep level: padded joint layout rows + static segment structure
     joint_rows: dict[int, np.ndarray] = {}
     joint_segs: dict[int, tuple] = {}  # t -> (seg_off list, seg_size list)
-    block_pos: dict[int, int] = {}  # block id -> position in its level batch
-    block_sweep_level: dict[int, int] = {}
+    # per block of a REF sweep level: its position in its level batch and
+    # that level's sweep index (-1: not registered)
+    block_pos = np.full(nb, -1, dtype=np.int64)
+    block_sweep_level = np.full(nb, -1, dtype=np.int64)
     t_sweep = 0
 
     for li, res in enumerate(levels_1b):
@@ -376,32 +408,31 @@ def build_schedule(
             assert obs.all(), f"level {res} mixes observed and empty blocks"
         is_ref = bool(tree.res_is_ref[li] == 1) and not is_pred_level
 
-        row_lists = [tree.block_rows[u] for u in ids]
-        S = max(len(r) for r in row_lists)
-        rows = _pad2(row_lists, S, n)
+        rows = _gather_pad(row_off, row_flat, ids, n)
+        S = rows.shape[1]
 
         # parent layout
-        par_lists = [tree.parents[u] for u in ids]
-        has_par = [len(p) > 0 for p in par_lists]
-        if not any(has_par):
+        n_par = par_off[ids + 1] - par_off[ids]
+        if not n_par.any():
             prows = np.zeros((len(ids), 0), dtype=np.int64)
             lp_pos = np.full(len(ids), -1, dtype=np.int64)
             lp_level = -1
             anc_blocks = np.zeros((len(ids), 0), dtype=np.int64)
             seg_off, seg_size = [], []
         else:
-            assert all(has_par), f"level {res} mixes root and non-root blocks"
-            n_anc_set = {len(p) for p in par_lists}
-            assert len(n_anc_set) == 1, (
-                f"level {res}: blocks have ragged ancestor counts {n_anc_set}"
+            assert n_par.all(), f"level {res} mixes root and non-root blocks"
+            assert (n_par == n_par[0]).all(), (
+                f"level {res}: blocks have ragged ancestor counts "
+                f"{set(np.unique(n_par).tolist())}"
             )
-            lps = np.array([p[-1] for p in par_lists])
-            lp_levels = {block_sweep_level[int(b)] for b in lps}
-            assert len(lp_levels) == 1, (
-                f"level {res}: deepest ancestors at multiple levels {lp_levels}"
+            anc_blocks = par_flat[par_off[ids][:, None] + np.arange(n_par[0])]
+            lps = anc_blocks[:, -1]
+            lp_levels = set(np.unique(block_sweep_level[lps]).tolist())
+            assert len(lp_levels) == 1 and -1 not in lp_levels, (
+                f"level {res}: deepest ancestors at levels {lp_levels}"
             )
             lp_level = lp_levels.pop()
-            lp_pos = np.array([block_pos[int(b)] for b in lps])
+            lp_pos = block_pos[lps]
             if limited_tree:
                 src_rows = sweep_levels[lp_level].rows
                 seg_off = [0]
@@ -410,22 +441,22 @@ def build_schedule(
                 src_rows = joint_rows[lp_level]
                 seg_off, seg_size = joint_segs[lp_level]
             prows = src_rows[lp_pos]
-            anc_blocks = np.stack(par_lists, axis=0)
             assert anc_blocks.shape[1] == len(seg_off), (
                 f"level {res}: {anc_blocks.shape[1]} ancestors vs "
                 f"{len(seg_off)} layout segments"
             )
             # invariant: segment a of the layout == padded rows of ancestor a
             if validate:
-                for i, u in enumerate(ids):
-                    for a, (o, s) in enumerate(zip(seg_off, seg_size)):
-                        seg = prows[i, o : o + s]
-                        rows_a = tree.block_rows[par_lists[i][a]]
-                        assert np.array_equal(
-                            seg[: len(rows_a)], rows_a
-                        ) and np.all(
-                            seg[len(rows_a) :] == n
-                        ), f"block {u}: segment {a} layout mismatch"
+                for a, (o, s) in enumerate(zip(seg_off, seg_size)):
+                    anc = anc_blocks[:, a]
+                    ok = row_len[anc] <= s
+                    if ok.all():
+                        ok = (prows[:, o : o + s] == _gather_pad(
+                            row_off, row_flat, anc, n, width=s)).all(axis=1)
+                    assert ok.all(), (
+                        f"block {ids[np.argmin(ok)]}: segment {a} layout "
+                        "mismatch"
+                    )
 
         plan = LevelPlan(
             res=res, is_ref=is_ref, block_ids=ids, rows=rows, prows=prows,
@@ -441,11 +472,9 @@ def build_schedule(
         if is_ref:
             if group_ref:
                 plan = _group_ref_plan(plan, n, nb)
-            for i, u in enumerate(plan.block_ids):
-                if u >= nb:  # dummy group-padding block
-                    continue
-                block_pos[int(u)] = i
-                block_sweep_level[int(u)] = t_sweep
+            real = plan.block_ids < nb  # not a dummy group-padding block
+            block_pos[plan.block_ids[real]] = np.flatnonzero(real)
+            block_sweep_level[plan.block_ids[real]] = t_sweep
             joint = np.concatenate([plan.prows, plan.rows], axis=1)
             if last_ref_res is not None and res == last_ref_res:
                 W = joint.shape[1]

@@ -9,6 +9,8 @@ the CPU.
 * An inactive call opens no profiler range; under
   ``torch.profiler`` (host activities) a small ``run_mcmc`` and
   ``spamtree_predict`` show their ``mcmc.*`` and ``predict.*`` spans.
+* The schedule's span sits inside the tree's: ``setup.schedule`` in
+  ``setup.tree``, ``predict.schedule`` in ``predict.tree``.
 * The results' timings and counters are the record's: ``mcmc.chunks`` the
   keep chunks, ``graph_replays`` the replay counters' sum (the capture
   emulated), ``iter_s``, ``save_s`` and ``drain_work_s`` their spans;
@@ -335,6 +337,35 @@ def test_profiler_shows_the_program_spans():
     assert set(tb) == {"tree_s", "stage_s", "draws_s", "capture_s",
                        "upload_s", "yhat_s"}
 
+
+
+def test_schedule_spans_sit_inside_the_tree_spans():
+    """``build_schedule``'s seconds are a span of their own, the only child
+    of the tree's span: ``setup.schedule`` in ``setup.tree`` of a
+    ``prepare_fit`` call, ``predict.schedule`` in ``predict.tree`` of a
+    ``spamtree_predict`` call (also as the profiler's host ranges)."""
+    y, X, coords, mv = _data()
+    res = api.spamtree(y, X, coords, mv_id=mv, cell_size=16, K=2, seed=3,
+                       device="cpu", mcmc=dict(keep=8, burn=4),
+                       settings=dict(chunk=4))
+    rec = _newest("prepare_fit")
+    assert rec.calls("setup.schedule") == 1
+    assert 0 < rec.seconds("setup.schedule") <= rec.seconds("setup.tree")
+    assert rec.children_s("setup.tree") == pytest.approx(
+        rec.seconds("setup.schedule"))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _predict(res, y, X, coords, mv)
+    rec = _newest("spamtree_predict")
+    assert rec.calls("predict.schedule") == 1
+    assert 0 < rec.seconds("predict.schedule") <= rec.seconds("predict.tree")
+    assert rec.children_s("predict.tree") == pytest.approx(
+        rec.seconds("predict.schedule"))
+    ranges = {e.name: e.time_range for e in prof.events()
+              if e.name in ("predict.tree", "predict.schedule")}
+    assert set(ranges) == {"predict.tree", "predict.schedule"}
+    assert (ranges["predict.tree"].start <= ranges["predict.schedule"].start
+            and ranges["predict.schedule"].end <= ranges["predict.tree"].end)
 
 # -- the benchmark's readers -------------------------------------------------
 
