@@ -9,20 +9,21 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 2. builds the kernels with nvcc for sm_90a, one nvcc per source, started
    together: K1 (csrc/inv_chol.cu) and K3/K4 (csrc/thin_level.cu); prints
    each kernel's registers, shared memory and spills;
-3. holds K1 against its plain PyTorch version at config 3's, config 5's
-   and the trivariate configuration's reference-level shapes (B up to
-   16384 at S = 25; S 70-75 and the 96-thread form's ends 65 and 96 in
-   f32 only, double stopping at 64) and more, f32 and f64, with and
-   without L, each batch also with one non-SPD block that must come out
-   ok=False; times both at the config-3 shapes, Linv alone (K1) and with
-   L (the TPU's K2), and K1 at the trivariate shapes;
+3. holds K1 against its plain PyTorch version at config 3's, config 5's,
+   the trivariate and the q = 5 configuration's reference-level shapes (B
+   up to 16384 at S = 25; S 70-75 and the 96-thread form's ends 65 and 96,
+   and the 128-thread form at S 112-121 and its ends 97 and 128, in f32
+   only, double stopping at 64) and more, f32 and f64, with and without
+   L, each batch also with one non-SPD block that must come out ok=False;
+   times both at the config-3 shapes, Linv alone (K1) and with L (the
+   TPU's K2), and K1 at the trivariate and the q = 5 shapes;
 4. runs spamtree(device="cuda") on bench config 1 (n=625) at keep=500,
    burn=500, thin=2 (the always-emit theta step; the bench's keep=1000,
    burn=1000 cut to keep the whole run near half its time limit);
 5. runs config 3 (n=1e5, bivariate AG10) with burn=200, keep=100, thin=2.
    Both runs must give finite draws, RMSPE < 0.5 sd(y) on the held-out rows,
    acceptance in (0.05, 0.8), and K1 launched twice per iteration on every
-   reference level with S <= 96 (K1's limit, ``chol.MAX_S``);
+   reference level with S <= 128 (K1's float32 limit, ``chol.MAX_S``);
 6. holds K3 (thin_gibbs) and K4 (thin_decision) against their plain
    versions, f32 and f64, at config 3's thin level (aligned), config 1's
    (through lp_pos, repeated and shuffled parents, Bp != B), config 5's
@@ -314,8 +315,13 @@ CONFIG5_THIN = [(6235, 23, 25), (5917, 29, 25), (3678, 37, 25), (554, 57, 25)]
 # the trivariate configuration (benchmark triv_n1.5e5_ag10: three outcomes
 # at each of config 3's sites): its reference levels, K1's 96-thread form
 TRIV_SHAPES = [(1, 70), (4, 73), (16, 74), (64, 75), (256, 74), (1024, 70)]
-CHECK_SHAPES = (CONFIG3_SHAPES + CONFIG5_SHAPES + TRIV_SHAPES
-                + [(1024, 64), (3, 7), (130, 33), (5, 65), (3, 96)])
+# the q = 5 configuration's (q5_n2.5e5_ag10: five outcomes at each of
+# config 3's sites): its reference levels, K1's 128-thread form
+Q5_SHAPES = [(1, 112), (4, 119), (16, 121), (64, 120), (256, 121),
+             (1024, 116)]
+CHECK_SHAPES = (CONFIG3_SHAPES + CONFIG5_SHAPES + TRIV_SHAPES + Q5_SHAPES
+                + [(1024, 64), (3, 7), (130, 33), (5, 65), (3, 96),
+                   (3, 97), (2, 128)])
 # K3 once more per variant of its launcher (B, S, P): the flat variant at
 # its gate's edges, both rows capacities, the tiled variant past them
 K3_VARIANT_SHAPES = [(64, 48, 32), (64, 128, 12), (64, 1, 1), (64, 32, 128),
@@ -454,9 +460,10 @@ def _spd_batch(torch, B, S, dtype, seed):
 
 def check_kernel(chol, torch):
     """K1 against inv_chol_plain; returns the largest f32 |dLinv| at
-    config 5's, config 3's and the trivariate reference-level shapes."""
+    config 5's, config 3's, the trivariate and the q = 5 reference-level
+    shapes."""
     paths = {"config5": CONFIG5_SHAPES, "config3": CONFIG3_SHAPES,
-             "triv": TRIV_SHAPES}
+             "triv": TRIV_SHAPES, "q5": Q5_SHAPES}
     max_err32 = {k: 0.0 for k in paths}
     for dname in ("float32", "float64"):
         dtype = getattr(torch, dname)
@@ -3247,6 +3254,7 @@ def main() -> int:
         time_kernel(chol, torch)
         time_kernel(chol, torch, write_l=True)
         time_kernel(chol, torch, shapes=TRIV_SHAPES, label="triv")
+        time_kernel(chol, torch, shapes=Q5_SHAPES, label="q5")
         time_level_kernels(level, torch, CONFIG3_THIN)
         time_config5_kernels(chol, level, torch)
         return 0
@@ -3255,6 +3263,7 @@ def main() -> int:
     rows = time_kernel(chol, torch)
     time_kernel(chol, torch, write_l=True)
     triv_rows = time_kernel(chol, torch, shapes=TRIV_SHAPES, label="triv")
+    q5_rows = time_kernel(chol, torch, shapes=Q5_SHAPES, label="q5")
     _phase("config 1")
     # cut from the bench's keep=1000, burn=1000 (3200 iterations) to keep
     # the whole run near half its time limit
@@ -3450,9 +3459,11 @@ def main() -> int:
         r3["k1_launches"], max_err["config5"], max_err["config3"],
         k1_path(t5["k1"]), k1_path(rows), "k1", k1_path(t4["k1"]))
     # phase 3: K1 at the trivariate configuration's reference levels (mean
-    # per level, as above), its 96-thread form
-    k1.update({f"{k}_triv": v for k, v in k1_path(triv_rows).items()})
-    k1["max_abs_err_triv"] = max_err["triv"]
+    # per level, as above), its 96-thread form, and at the q = 5
+    # configuration's, its 128-thread form
+    for label, trows in (("triv", triv_rows), ("q5", q5_rows)):
+        k1.update({f"{k}_{label}": v for k, v in k1_path(trows).items()})
+        k1[f"max_abs_err_{label}"] = max_err[label]
     # phase 16: K1 at config 3's and config 5's reference levels folded
     # over K1_FOLD_C chains (mean per level, as above), and its launches
     # in the batched runs of config 3

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernels spamtree_tpu/ops/pallas_chol.py::
 // inv_chol_lanes (L stays on chip) and chol_and_inv_lanes (L written out,
-// here the write-L form of the same kernel).  For A (B, S, S), S <= 96
+// here the write-L form of the same kernel).  For A (B, S, S), S <= 128
 // (double: S <= 64), row-major and contiguous, it writes Linv = chol(A)^-1
 // (lower triangular, zeros above the diagonal) and, when L is non-null,
 // L = chol(A).
@@ -11,11 +11,12 @@
 // level (B = 1024, S = 47) the launch moves ~18 MB in f32 (5 us at the
 // card's memory rate) and every matrix fits on the card at once, so a
 // launch costs the dependent chain of one matrix.  Design: one thread block
-// per matrix, S padded to SP = 32, 64 or 96 threads, thread i holding row
-// i in registers (96, float only, serves the trivariate configuration's
-// 70-75 row reference blocks: three outcomes at each of 25 sites; a double
-// row of 96 spills past the 255 registers a thread has, so double stops at
-// 64 and the callers take the plain route above).  A right-looking
+// per matrix, S padded to SP = 32, 64, 96 or 128 threads, thread i holding
+// row i in registers (96 and 128, float only: 96 serves the trivariate
+// configuration's 70-75 row reference blocks, three outcomes at each of 25
+// sites, and 128 the five-outcome configuration's 112-121 row blocks; a
+// double row of 96 spills past the 255 registers a thread has, so double
+// stops at 64 and the callers take the plain route above).  A right-looking
 // Cholesky carries the inverse along in the same registers: before step k,
 // row i holds [T[i, 0..k-1] | A[i, k..]], with T the residual of the
 // inverse, unscaled (T = I at the start; row k of Linv is row k of T over
@@ -33,7 +34,10 @@
 // in register 0: every register index is static while the step loop stays
 // rolled and the code small.  A and Linv pass through shared memory once,
 // so their device-memory accesses are coalesced, and A's copies (cp.async)
-// are all in flight at once.
+// are all in flight at once.  The 128-thread form is the same code: its
+// 128-float row leaves two blocks an SM, and its S x (S + 1) buffer (65 KB
+// at S = 128) passes the 48 KB default: its launcher raises the kernel's
+// limit once per device, before the first launch there.
 //
 // Failure contract: no early exit and no error path.  A non-SPD block
 // takes the square root of a non-positive pivot, which turns that row of
@@ -77,11 +81,11 @@ __device__ __forceinline__ void store_row(T* v, const T (&c)[SP]) {
 // Blocks that share an SM.  float, SP <= 64: at most 128 registers, so
 // eight blocks of 64 share an SM and a batch of 1024 fits the card at once.
 // A row of SP = 96 floats needs that many registers besides: four blocks
-// of 96 (at most 170 registers).  double keeps two registers a column: one
-// block.
+// of 96 (at most 170 registers); a row of 128, two blocks of 128 (at most
+// 255).  double keeps two registers a column: one block.
 template <typename T, int SP>
 constexpr int min_blocks() {
-  return sizeof(T) != 4 ? 1 : SP <= 64 ? 8 : 4;
+  return sizeof(T) != 4 ? 1 : SP <= 64 ? 8 : SP <= 96 ? 4 : 2;
 }
 
 template <typename T, int SP>
@@ -165,12 +169,33 @@ __global__ void __launch_bounds__(SP, min_blocks<T, SP>())
   }
 }
 
+// The dynamic shared memory that SP's largest S needs, allowed once per
+// device (an attribute of the kernel, not of a stream: it holds in and out
+// of a graph capture)
+template <typename T, int SP>
+cudaError_t allow_smem() {
+  constexpr int kDevices = 64;
+  static bool done[kDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < kDevices && done[dev])) return e;
+  e = cudaFuncSetAttribute(inv_chol_kernel<T, SP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(sizeof(T) * SP * (SP + 1)));
+  if (e == cudaSuccess && dev < kDevices) done[dev] = true;
+  return e;
+}
+
 template <typename T, int SP>
 int launch_sp(const void* A, void* Linv, void* L, long long B, int S,
               cudaStream_t st) {
-  // at most 37 KB (f32, S = 96; f64, S = 64: 33 KB): under the 48 KB
-  // default
+  // at most 37 KB up to SP = 96 (f32, S = 96; f64, S = 64: 33 KB): under
+  // the 48 KB default; SP = 128 takes up to 65 KB
   const size_t smem = sizeof(T) * static_cast<size_t>(S) * (S + 1);
+  if constexpr (SP > 96) {
+    const cudaError_t e = allow_smem<T, SP>();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   inv_chol_kernel<T, SP><<<static_cast<unsigned int>(B), SP, smem, st>>>(
       static_cast<const T*>(A), static_cast<T*>(Linv), static_cast<T*>(L), S);
   return static_cast<int>(cudaGetLastError());
@@ -181,6 +206,7 @@ int launch(const void* A, void* Linv, void* L, long long B, int S,
            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (sizeof(T) == 4) {
+    if (S > 96) return launch_sp<T, 128>(A, Linv, L, B, S, st);
     if (S > 64) return launch_sp<T, 96>(A, Linv, L, B, S, st);
   }
   return S <= 32 ? launch_sp<T, 32>(A, Linv, L, B, S, st)

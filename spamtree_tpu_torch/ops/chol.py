@@ -17,8 +17,9 @@ import torch
 from spamtree_tpu_torch.ops import kernel_counts
 from spamtree_tpu_torch.utils.cost import counted
 
-MAX_S = 96  # float32; float64 stops at MAX_S_F64 (csrc/inv_chol.cu)
+MAX_S = 128  # float32; float64 stops at MAX_S_F64 (csrc/inv_chol.cu)
 MAX_S_F64 = 64
+WIDE_S = 96  # float32 blocks past it take the kernel's 128-thread form
 
 _FNS = {torch.float32: "st_inv_chol_f32", torch.float64: "st_inv_chol_f64"}
 _bound: dict = {}

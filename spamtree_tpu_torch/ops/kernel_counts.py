@@ -5,7 +5,9 @@ kernels K1 (``chol.inv_chol``), K3 (``level.thin_gibbs_level``) and K4
 (``level.thin_decision_partials``); their plain versions count none.
 ``k1_blocks`` and ``plain_blocks`` count the blocks factorised through
 ``ops.linalg`` by route: K1 on a CUDA tensor, else the plain route
-(``cholesky_ex``, and every CPU tensor).
+(``cholesky_ex``, and every CPU tensor); ``k1_wide_blocks`` counts those of
+K1's blocks that its 128-thread form factorised (96 < S <= 128), which
+``k1_blocks`` counts too.
 
 A wrapper adds to its own names where it launches (``add``).  A reader
 takes a ``snapshot`` and later the ``diff`` since it.  A captured CUDA
@@ -24,10 +26,11 @@ import contextlib
 from spamtree_tpu_torch.utils import trace
 
 _counts = dict.fromkeys(("k1_launches", "k3_launches", "k4_launches",
-                         "k1_blocks", "plain_blocks"), 0)
+                         "k1_blocks", "k1_wide_blocks", "plain_blocks"), 0)
 # the names ``trace_blocks`` adds to the trace record, under these names
-# (``benchmark/metrics/k1_block_share.py`` reads them)
+# (``benchmark/metrics/k1_block_share.py`` reads two of them)
 _TRACED = {"k1_blocks": "ops.chol.k1_blocks",
+           "k1_wide_blocks": "ops.chol.k1_wide_blocks",
            "plain_blocks": "ops.chol.plain_blocks"}
 
 
@@ -54,8 +57,9 @@ def diff(before: dict) -> dict:
 @contextlib.contextmanager
 def trace_blocks():
     """Add the blocks factorised inside the with-block to the current trace
-    record, by route: ``ops.chol.k1_blocks`` and ``ops.chol.plain_blocks``
-    (zero included)."""
+    record, by route: ``ops.chol.k1_blocks`` (of which
+    ``ops.chol.k1_wide_blocks``) and ``ops.chol.plain_blocks`` (zero
+    included)."""
     before = snapshot()
     try:
         yield

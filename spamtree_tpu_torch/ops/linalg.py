@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from spamtree_tpu_torch.ops import kernel_counts
-from spamtree_tpu_torch.ops.chol import inv_chol, max_s
+from spamtree_tpu_torch.ops.chol import WIDE_S, inv_chol, max_s
 
 
 def identity_pad(mat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -61,7 +61,7 @@ def chol_inv_masked(mat: torch.Tensor, mask: torch.Tensor,
                     use_kernel: bool = False):
     """Cholesky + triangular inverse of an identity-padded batch.
 
-    Returns (L, Linv, ok).  With ``use_kernel`` (S <= ``chol.max_s``: 96
+    Returns (L, Linv, ok).  With ``use_kernel`` (S <= ``chol.max_s``: 128
     in float32, 64 in float64) it goes through kernel K1
     (``ops.chol.inv_chol``), which never writes L, so **L comes back None
     on that path** and ok derives from diag(Linv) = 1/diag(L).
@@ -74,8 +74,10 @@ def chol_inv_masked(mat: torch.Tensor, mask: torch.Tensor,
     axis: (C, B, S, S)); the kernel takes them folded into one (C*B, S, S)
     batch, a view of the contiguous padded matrices, so one launch serves
     every chain; ok comes back (C, B).  Its blocks count under K1's route
-    where the kernel runs (a CUDA tensor), under the plain one otherwise
-    (``ops.kernel_counts``: ``k1_blocks``, ``plain_blocks``)."""
+    where the kernel runs (a CUDA tensor), and those past 96 rows also as
+    the kernel's 128-thread form's, under the plain one otherwise
+    (``ops.kernel_counts``: ``k1_blocks``, ``k1_wide_blocks``,
+    ``plain_blocks``)."""
     m = identity_pad(mat, mask)
     if use_kernel:
         S = m.shape[-1]
@@ -87,6 +89,11 @@ def chol_inv_masked(mat: torch.Tensor, mask: torch.Tensor,
     else:
         L = chol_nan(m)
         Linv = tri_inv(L)
-    kernel_counts.add("k1_blocks" if use_kernel and m.device.type == "cuda"
-                      else "plain_blocks", m.shape[:-2].numel())
+    nb = m.shape[:-2].numel()
+    if use_kernel and m.device.type == "cuda":
+        kernel_counts.add("k1_blocks", nb)
+        if m.shape[-1] > WIDE_S:
+            kernel_counts.add("k1_wide_blocks", nb)
+    else:
+        kernel_counts.add("plain_blocks", nb)
     return L, Linv, _diag_ok(Linv if L is None else L)

@@ -63,8 +63,8 @@ def test_non_spd_block_is_not_ok():
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     # shape/dtype checks run before any device work: a meta tensor
     # (no storage, no card) reaches them
-    with pytest.raises(ValueError, match="S <= 96"):
-        chol.inv_chol(torch.empty((2, 97, 97), device="meta"))
+    with pytest.raises(ValueError, match="S <= 128"):
+        chol.inv_chol(torch.empty((2, 129, 129), device="meta"))
     with pytest.raises(ValueError, match="S <= 64"):  # float64's forms
         chol.inv_chol(torch.empty((2, 65, 65), dtype=torch.float64,
                                   device="meta"))
@@ -73,9 +73,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                                   device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         chol.inv_chol(torch.empty((2, 8, 8), device="meta"))
-    with pytest.raises(ValueError, match="S=97"):
-        chol_inv_masked(torch.eye(97)[None], torch.ones(1, 97, dtype=bool),
-                        use_kernel=True)
+    with pytest.raises(ValueError, match="S=129"):
+        chol_inv_masked(torch.eye(129)[None],
+                        torch.ones(1, 129, dtype=bool), use_kernel=True)
     with pytest.raises(ValueError, match="S=65"):
         chol_inv_masked(torch.eye(65, dtype=torch.float64)[None],
                         torch.ones(1, 65, dtype=bool), use_kernel=True)
@@ -144,16 +144,17 @@ def _schedule_against_plain(S, dtype, tol):
 def test_right_looking_schedule_matches_plain(S):
     """float64, rtol 1e-10 of the largest entry: another summation order.
     S 65-96 are the trivariate configuration's reference blocks (70-75
-    rows) and the ends of the kernel's 96-thread form; 128 lies past the
-    kernel, where the callers take the plain route."""
+    rows) and the ends of the kernel's 96-thread form; in float64 128 lies
+    past the kernel, where the callers take the plain route."""
     _schedule_against_plain(S, np.float64, 1e-10)
 
 
-@pytest.mark.parametrize("S", [65, 75, 96, 128])
+@pytest.mark.parametrize("S", [65, 75, 96, 97, 112, 121, 128])
 def test_right_looking_schedule_matches_plain_f32(S):
     """float32, 1e-4 of the largest entry: each entry sums up to S
     rounded products in an order of its own (measured: under 1e-5 at these
-    well-conditioned blocks)."""
+    well-conditioned blocks).  97-128 are the kernel's 128-thread form:
+    its ends and the five-outcome configuration's 112-121-row blocks."""
     _schedule_against_plain(S, np.float32, 1e-4)
 
 
@@ -172,6 +173,62 @@ def test_kernel_matches_plain_on_card_past_64():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     _card_parity(((1, 73), (5, 65), (1024, 70), (64, 75), (3, 96)),
                  ((np.float32, 1e-4),))
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card_past_96():
+    """The 128-thread form, float32 only: the five-outcome configuration's
+    reference shapes (1, 112), (256, 121) and (1024, 116), and the form's
+    ends (3, 97) and (2, 128); each batch with one non-SPD block that comes
+    back NaN (ok=False).  Through ``chol_inv_masked`` its blocks count as
+    K1's and as the wide form's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    shapes = ((1, 112), (256, 121), (1024, 116), (3, 97), (2, 128))
+    _card_parity(shapes, ((np.float32, 1e-4),))
+    for B, S in shapes + ((4, 96),):
+        a = torch.as_tensor(_spd(B, S, seed=S, dtype=np.float32),
+                            device="cuda")
+        before = kernel_counts.snapshot()
+        _, X, ok = chol_inv_masked(a, torch.ones(B, S, dtype=torch.bool,
+                                                 device="cuda"), True)
+        d = kernel_counts.diff(before)
+        assert bool(ok.all()) and torch.isfinite(X).all()
+        assert d["k1_blocks"] == B and d["plain_blocks"] == 0
+        assert d["k1_wide_blocks"] == (B if S > 96 else 0)
+
+
+_CAPTURE_FIRST = """
+import torch
+from spamtree_tpu_torch.ops import chol
+g = torch.Generator(device="cuda").manual_seed(7)
+m = torch.randn(64, 121, 121, generator=g, device="cuda")
+a = m @ m.mT / 121 + torch.eye(121, device="cuda")
+graph = torch.cuda.CUDAGraph()
+with torch.cuda.graph(graph):
+    out = chol.inv_chol(a)
+graph.replay()
+want = chol.inv_chol(a)
+torch.cuda.synchronize()
+assert torch.equal(out, want), (out - want).abs().max()
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+def test_wide_form_first_launched_inside_a_capture():
+    """A process whose first launch of the 128-thread form is captured in
+    a CUDA graph: the form's raised shared-memory limit holds inside the
+    capture, and the replay gives the eager call's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import subprocess
+    import sys
+
+    chol._kernel(torch.float32)  # the build, outside the child's capture
+    out = subprocess.run([sys.executable, "-c", _CAPTURE_FIRST],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 def _card_parity(shapes, dtypes=((np.float32, 1e-4), (np.float64, 1e-10))):

@@ -454,7 +454,7 @@ def test_replays_count_launches_as_eager_calls(monkeypatch):
     _stub_cuda_graph(monkeypatch)
     names = list(kernel_counts.snapshot())
     assert {"k1_launches", "k3_launches", "k4_launches", "k1_blocks",
-            "plain_blocks"} <= set(names), names
+            "k1_wide_blocks", "plain_blocks"} <= set(names), names
     once = {name: i + 1 for i, name in enumerate(names)}
 
     def part():
@@ -477,18 +477,20 @@ def test_replays_count_launches_as_eager_calls(monkeypatch):
 
 
 def test_replays_count_factorised_blocks_as_eager_calls(monkeypatch):
-    """A part that factorises six blocks on K1's route and two on the
-    plain one: five replays of its capture (a stub graph) add to the block
-    counts what five eager calls would, the capture itself nothing, and
-    the call's trace record holds them (``ops.kernel_counts.trace_blocks``)."""
+    """A part that factorises six blocks on K1's route, four of them on its
+    128-thread form, and two on the plain one: five replays of its capture
+    (a stub graph) add to the block counts what five eager calls would,
+    the capture itself nothing, and the call's trace record holds them
+    (``ops.kernel_counts.trace_blocks``)."""
     _stub_cuda_graph(monkeypatch)
 
     def part():
         kernel_counts.add("k1_blocks", 6)
+        kernel_counts.add("k1_wide_blocks", 4)
         kernel_counts.add("plain_blocks", 2)
         return "out"
 
-    blocks = {"k1_blocks": 6, "plain_blocks": 2}
+    blocks = {"k1_blocks": 6, "k1_wide_blocks": 4, "plain_blocks": 2}
     with trace.call("blocks") as rec, kernel_counts.trace_blocks():
         before = kernel_counts.snapshot()
         g = graph.Graph("X", part, None, None)
@@ -499,6 +501,7 @@ def test_replays_count_factorised_blocks_as_eager_calls(monkeypatch):
     assert kernel_counts.diff(before) == dict.fromkeys(before, 0) | {
         k: 5 * n for k, n in blocks.items()}
     assert rec.counter("ops.chol.k1_blocks") == 30
+    assert rec.counter("ops.chol.k1_wide_blocks") == 20
     assert rec.counter("ops.chol.plain_blocks") == 10
 
 
