@@ -7,7 +7,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 1. the card (nvidia-smi name and power limit) and the software versions;
    exits non-zero at once when CUDA is absent;
 2. builds the kernels with nvcc for sm_90a, one nvcc per source, started
-   together: K1 (csrc/inv_chol.cu) and K3/K4 (csrc/thin_level.cu); prints
+   together: K1 (csrc/inv_chol.cu), K3/K4 (csrc/thin_level.cu) and K6
+   (csrc/ag10_cov.cu); prints
    each kernel's registers, shared memory and spills;
 3. holds K1 against its plain PyTorch version at config 3's, config 5's,
    the trivariate and the q = 5 configuration's reference-level shapes (B
@@ -16,14 +17,20 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    only, double stopping at 64) and more, f32 and f64, with and without
    L, each batch also with one non-SPD block that must come out ok=False;
    times both at the config-3 shapes, Linv alone (K1) and with L (the
-   TPU's K2), and K1 at the trivariate and the q = 5 shapes;
+   TPU's K2), and K1 at the trivariate and the q = 5 shapes; then holds
+   K6 (csrc/ag10_cov.cu, the masked AG10 covariance blocks) against its
+   plain version at every call shape of a sweep of config 3 (with and
+   without four chains, f32 and f64) and of the q = 5, the trivariate and
+   the climate configuration (f32), Kxc masked and Kcc identity-padded,
+   and times both at those shapes;
 4. runs spamtree(device="cuda") on bench config 1 (n=625) at keep=500,
    burn=500, thin=2 (the always-emit theta step; the bench's keep=1000,
    burn=1000 cut to keep the whole run near half its time limit);
 5. runs config 3 (n=1e5, bivariate AG10) with burn=200, keep=100, thin=2.
    Both runs must give finite draws, RMSPE < 0.5 sd(y) on the held-out rows,
-   acceptance in (0.05, 0.8), and K1 launched twice per iteration on every
-   reference level with S <= 128 (K1's float32 limit, ``chol.MAX_S``);
+   acceptance in (0.05, 0.8), K1 launched twice per iteration on every
+   reference level with S <= 128 (K1's float32 limit, ``chol.MAX_S``), and
+   every covariance block on K6 (every path through ``run_config``);
 6. holds K3 (thin_gibbs) and K4 (thin_decision) against their plain
    versions, f32 and f64, at config 3's thin level (aligned), config 1's
    (through lp_pos, repeated and shuffled parents, Bp != B), config 5's
@@ -234,7 +241,12 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    bandwidth_util in (0, 1.05], and K1 must launch; config 1's work count
    of each part of the iteration on the card must equal the count of the
    same model staged on the CPU in f32 (``mcmc.part_work``).  The bench
-   lines print in full.
+   lines print in full;
+22. K6 against its plain version at every distinct call that phases 4-20
+   made in this process (``CovCalls``: by configuration, q, chains, shape,
+   form and dtype; on the call's own coordinates, margins, masks and
+   parameters where it was first made outside a graph's capture), and
+   each distinct f32 call timed; configs 1-5 must all have made calls.
 
 Kernel and plain times (the kernels record's ms and plain_ms) are CUDA
 events around eager calls of the wrappers the sweeps call, host time
@@ -286,6 +298,10 @@ config 5's and the trivariate configuration's known levels, for comparing
 two trees in one call (copy this script into the other tree and run it
 there).
 
+    python3 chip_smoke.py --cov
+
+runs phases 1-2 and phase 3's check and timings of K6 alone (~1 min).
+
     python3 chip_smoke.py --bench
 
 runs phases 1-2 and phase 21 alone.  Imports no jax; the data makers
@@ -297,6 +313,7 @@ functions (``ops.chol.inv_chol_cost``, ``ops.level.thin_gibbs_cost``,
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -322,6 +339,43 @@ Q5_SHAPES = [(1, 112), (4, 119), (16, 121), (64, 120), (256, 121),
 CHECK_SHAPES = (CONFIG3_SHAPES + CONFIG5_SHAPES + TRIV_SHAPES + Q5_SHAPES
                 + [(1024, 64), (3, 7), (130, 33), (5, 65), (3, 96),
                    (3, 97), (2, 128)])
+# kernel K6's calls (B, n1, n2, identity pad) in a sweep of config 3, of
+# the q = 5, the trivariate and the climate configuration (the benchmark's
+# cells), with their q: each reference level's Kcc and Kxc, the thin
+# levels' and the prediction buckets' Kxc (a slab's B where a level runs
+# in slabs).  The paths that run_config and the other phases take in this
+# process are held at their own calls besides (``CovCalls``).
+COV_CALLS = {
+    "config3": (2, [(1, 46, 46, True), (4, 49, 49, True), (16, 50, 50, True),
+                    (64, 50, 50, True), (256, 50, 50, True),
+                    (1024, 47, 47, True), (4, 46, 49, False),
+                    (16, 95, 50, False), (64, 145, 50, False),
+                    (256, 195, 50, False), (1024, 245, 47, False),
+                    (1024, 292, 70, False), (1024, 292, 23, False)]),
+    "q5": (5, [(1, 110, 110, True), (4, 118, 118, True),
+               (16, 119, 119, True), (64, 121, 121, True),
+               (256, 122, 122, True), (344, 116, 116, True),
+               (4, 110, 118, False), (16, 228, 119, False),
+               (64, 347, 121, False), (256, 468, 122, False),
+               (344, 590, 116, False), (256, 706, 182, False),
+               (1032, 706, 47, False)]),
+    "triv": (3, [(1, 67, 67, True), (4, 71, 71, True), (16, 73, 73, True),
+                 (64, 74, 74, True), (256, 75, 75, True), (512, 69, 69, True),
+                 (4, 67, 71, False), (16, 138, 73, False),
+                 (64, 211, 74, False), (256, 285, 75, False),
+                 (512, 360, 69, False), (512, 429, 103, False),
+                 (1024, 429, 33, False)]),
+    "climate": (2, [(4 ** k, 25, 25, True) for k in range(8)]
+                + [(4 ** k, 25, 25, False) for k in range(1, 8)]
+                + [(6159, 25, 23, False), (5958, 25, 29, False),
+                   (3768, 25, 37, False), (499, 25, 55, False),
+                   (7109, 25, 5, False), (6435, 25, 8, False),
+                   (2350, 25, 11, False), (451, 25, 20, False)]),
+}
+# |K6 - plain| <= COV_RTOL * |plain|: the same IEEE operations in the same
+# order and the same libm, so at most the libm's rounding of an exp
+# (a few ulps) amplified by the exponent's size
+COV_RTOL = {"float32": 4e-6, "float64": 1e-14}
 # K3 once more per variant of its launcher (B, S, P): the flat variant at
 # its gate's edges, both rows capacities, the tiled variant past them
 K3_VARIANT_SHAPES = [(64, 48, 32), (64, 128, 12), (64, 1, 1), (64, 32, 128),
@@ -348,7 +402,11 @@ K3_TIME_SHAPES_F64 = [(1024, 32, 128), CONFIG3_THIN]
 _T0 = time.time()
 
 
+_PHASE = [""]  # the phase running, which labels the K6 calls it makes
+
+
 def _phase(name):
+    _PHASE[0] = name
     print(f"== {name} (at {time.time() - _T0:.1f} s)", flush=True)
 
 
@@ -435,14 +493,17 @@ def card_info(torch):
 
 
 def build_kernels(chol, level, _build, torch):
+    from spamtree_tpu_torch.ops import covariance
+
     t0 = time.time()
-    with ThreadPoolExecutor(2) as ex:  # one nvcc per source, together
-        list(ex.map(_build.load, ("inv_chol", "thin_level")))
+    with ThreadPoolExecutor(3) as ex:  # one nvcc per source, together
+        list(ex.map(_build.load, ("inv_chol", "thin_level", "ag10_cov")))
     for dt in (torch.float32, torch.float64):
         chol._kernel(dt)
         level._kernel("thin_gibbs", dt)
         level._kernel("thin_decision", dt)
-    print(f"K1, K3, K4 built/loaded in {time.time() - t0:.2f} s")
+        covariance._kernel(dt)
+    print(f"K1, K3, K4, K6 built/loaded in {time.time() - t0:.2f} s")
     for name, (secs, log) in _build.BUILD_LOG.items():
         print(f"nvcc {name}: {secs:.2f} s")
         for line in log.splitlines():
@@ -546,6 +607,255 @@ def time_kernel(chol, torch, write_l=False, reps=50, shapes=CONFIG3_SHAPES,
     return rows
 
 
+def _cov_inputs(torch, cv, q, B, n1, n2, dtype, seed, C=None):
+    """Seeded arguments of one K6 call on the card: coordinates in the unit
+    square, margins, masks with a padded tail in each block, and the AG10
+    parameters of ``C`` chains (None: no chain axis)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    spec = cv.make_cov_model(2, q)
+    nt = spec.npars + spec.k
+    theta = torch.rand((nt,) if C is None else (C, nt), generator=g,
+                       device="cuda", dtype=torch.float64) * 1.7 + 0.3
+    if q > 2:
+        theta[..., 3 * q + 1] = 0.4  # beta_psi1 in (0, 1)
+
+    def mask(n):
+        keep = torch.randint(1, n + 1, (B, 1), generator=g, device="cuda")
+        return torch.arange(n, device="cuda")[None, :] < keep
+
+    coords = lambda n: torch.rand(B, n, 2, generator=g, device="cuda",
+                                  dtype=torch.float64).to(dtype)
+    ids = lambda n: torch.randint(0, q, (B, n), generator=g, device="cuda")
+    return dict(cx1=coords(n1), mv1=ids(n1), cx2=coords(n2), mv2=ids(n2),
+                m1=mask(n1), m2=mask(n2),
+                params=cv.unpack_theta(theta.to(dtype), spec), spec=spec)
+
+
+def _cov_fns(cv, d, eye):
+    """{"kernel", "plain"}: the K6 call and its plain version on ``d``."""
+    if eye:
+        a = (d["cx1"], d["mv1"], d["cx1"], d["mv1"], d["params"], d["spec"],
+             d["m1"])
+        kw = dict(eye=True)
+    else:
+        a = (d["cx1"], d["mv1"], d["cx2"], d["mv2"], d["params"], d["spec"],
+             d["m1"], d["m2"])
+        kw = {}
+    return {"kernel": lambda: cv.cov_block(*a, **kw),
+            "plain": lambda: cv.cov_block_plain(*a, **kw)}
+
+
+def check_cov_kernel(torch, times=True):
+    """K6 against cov_block_plain at ``COV_CALLS`` (config 3 also with
+    four chains and in f64); with ``times``, CUDA-event ms of eager calls,
+    kernel and plain, and the device ms of both in a CUDA graph, at each
+    f32 call of one chain, beside the call's bound (``cov_block_cost``).
+    Returns {label: dict(ms, plain_ms, dev_ms, plain_dev_ms, bound_ms,
+    max_rel_err, bit_equal, calls)}, times summed over the label's calls."""
+    from spamtree_tpu_torch.ops import covariance as cv
+    from spamtree_tpu_torch.ops import kernel_counts
+
+    out = {}
+    for label, (q, calls) in COV_CALLS.items():
+        tot = dict(ms=0.0, plain_ms=0.0, dev_ms=0.0, plain_dev_ms=0.0,
+                   bound_ms=0.0, max_rel_err=0.0, bit_equal=0, calls=0)
+        cases = [("float32", None), ("float64", None), ("float32", 4)]
+        for dname, C in cases if label == "config3" else cases[:1]:
+            dtype = getattr(torch, dname)
+            for i, (B, n1, n2, eye) in enumerate(calls):
+                d = _cov_inputs(torch, cv, q, B, n1, n2, dtype, seed=i, C=C)
+                fns = _cov_fns(cv, d, eye)
+                before = kernel_counts.snapshot()
+                k = fns["kernel"]()
+                _check(kernel_counts.diff(before)["cov_launches"] == 1,
+                       f"K6 {label} {(B, n1, n2)}: not one launch")
+                p = fns["plain"]()
+                torch.cuda.synchronize()
+                _check(k.shape == p.shape and k.is_contiguous()
+                       and torch.equal(k.isnan(), p.isnan())
+                       and torch.equal(k == 0, p == 0),
+                       f"K6 {label} {dname} C={C} {(B, n1, n2, eye)}: "
+                       f"shape, NaNs or zeros differ from plain")
+                rel = float(((k - p).abs() / p.abs().clamp_min(1e-300))
+                            .nan_to_num().max())
+                _check(rel <= COV_RTOL[dname],
+                       f"K6 {label} {dname} C={C} {(B, n1, n2, eye)}: "
+                       f"relative error {rel}")
+                tot["max_rel_err"] = max(tot["max_rel_err"], rel)
+                tot["bit_equal"] += int(torch.equal(k.nan_to_num(),
+                                                    p.nan_to_num()))
+                tot["calls"] += 1
+                del k, p
+                if not times or dname != "float32" or C is not None:
+                    continue
+                km, pm = _event_times(torch, fns, 10)
+                gk = _graph_ms(torch, fns["kernel"], 10)
+                gp = _graph_ms(torch, fns["plain"], 5)
+                flops, nb = cv.cov_block_cost(1, B, n1, n2, q, 2,
+                                              1 if eye else 2, dtype)
+                bound = _bound(nb, flops)
+                for key, v in (("ms", km), ("plain_ms", pm), ("dev_ms", gk),
+                               ("plain_dev_ms", gp), ("bound_ms", bound[0])):
+                    tot[key] += v
+                print(f"K6 time {label} B={B} n1={n1} n2={n2} eye={eye}: "
+                      f"kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
+                      f"{bound[0]:.4f} ms ({bound[1]}); device time in a "
+                      f"CUDA graph: kernel {gk:.4f} ms, plain {gp:.4f} ms",
+                      flush=True)
+        print(f"K6 {label}: {tot['calls']} calls held against plain, "
+              f"{tot['bit_equal']} to the bit, max relative error "
+              f"{tot['max_rel_err']:.3e}; one sweep's calls summed (f32): "
+              f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+              f"bound {tot['bound_ms']:.4f} ms; device time in a CUDA "
+              f"graph: kernel {tot['dev_ms']:.4f} ms, plain "
+              f"{tot['plain_dev_ms']:.4f} ms", flush=True)
+        out[label] = tot
+    return out
+
+
+def _cov_label(phase):
+    """The configuration a phase runs ("config<N>"), else the phase's
+    first words."""
+    m = re.search(r"config (\d)", phase)
+    if m:
+        return f"config{m.group(1)}"
+    return re.sub(r"\W+", "_", phase.split(":")[0].split(",")[0]).strip("_")
+
+
+class CovCalls:
+    """The calls of kernel K6 that the paths make in this process, recorded
+    while they run: installed, it wraps ``model.core.cov_block`` and keys
+    each call by (label, q, chains, B, n1, n2, eye, dtype), the label
+    being the configuration of the phase that made it (``_cov_label``).
+    The first call of each key outside a CUDA graph's capture and a cost
+    counter keeps a copy of its arguments, to be held against plain after
+    the paths ran (``check_recorded_cov``); a key seen only inside a
+    capture is held on seeded arguments of its shape.  Runs in other
+    processes (the mesh ranks, the bench entry) are not recorded."""
+
+    COPY_BYTES = 1 << 30  # copies kept in all, then shapes alone
+
+    def __init__(self, torch):
+        import inspect
+
+        from spamtree_tpu_torch.model import core
+        from spamtree_tpu_torch.utils import cost
+
+        self.torch, self.core, self.cost = torch, core, cost
+        self.fn = core.cov_block
+        self.sig = inspect.signature(self.fn)
+        self.calls = {}  # key -> copied arguments, or None
+        self.copied = 0
+
+    def install(self):
+        self.core.cov_block = self
+        return self
+
+    def remove(self):
+        self.core.cov_block = self.fn
+
+    def __call__(self, *a, **kw):
+        torch = self.torch
+        x = self.sig.bind(*a, **kw)
+        x.apply_defaults()
+        x = x.arguments
+        cx1, p = x["cx1"], x["params"]
+        key = (_cov_label(_PHASE[0]), x["spec"].q,
+               tuple(p.ai1.shape[:-1]), tuple(cx1.shape[:-2]),
+               cx1.shape[-2], x["cx2"].shape[-2], bool(x["eye"]),
+               str(cx1.dtype).split(".")[-1])
+        if self.calls.get(key) is None:
+            self.calls[key] = None
+            names = ("cx1", "mv1", "cx2", "mv2", "m1", "m2")
+            size = sum(x[n].nbytes for n in names if x[n] is not None)
+            if (cx1.is_cuda and self.cost.active() is None
+                    and not torch.cuda.is_current_stream_capturing()
+                    and self.copied + size <= self.COPY_BYTES):
+                d = {n: None if x[n] is None else x[n].clone() for n in names}
+                d.update(params=type(p)(*(t.clone() for t in p)),
+                         spec=x["spec"], eye=x["eye"], cov=x["cov"])
+                self.calls[key] = d
+                self.copied += size
+        return self.fn(*a, **kw)
+
+
+def check_recorded_cov(torch, rec):
+    """K6 against cov_block_plain at every call ``rec`` recorded, on the
+    call's own arguments where it kept them; each distinct f32 shape timed
+    once (eager and graph-replayed, beside its bound).  Returns {label:
+    dict(calls, real, bit_equal, max_rel_err, ms, plain_ms, dev_ms,
+    plain_dev_ms, bound_ms)}, times summed over the label's distinct f32
+    calls."""
+    from spamtree_tpu_torch.ops import covariance as cv
+    from spamtree_tpu_torch.ops import kernel_counts
+
+    torch.cuda.synchronize()
+    out, timed = {}, {}
+    for i, (key, d) in enumerate(sorted(rec.calls.items(),
+                                        key=lambda kv: kv[0])):
+        label, q, chains, lead, n1, n2, eye, dname = key
+        dtype = getattr(torch, dname)
+        B = int(np.prod(lead))
+        if d is None:
+            d = _cov_inputs(torch, cv, q, B, n1, n2, dtype, seed=i,
+                            C=chains[0] if chains else None)
+            d.update(eye=eye, cov=cv.pairwise_cov)
+            if eye:
+                d.update(cx2=d["cx1"], mv2=d["mv1"], m2=None)
+        _check(d["cov"] is cv.pairwise_cov,
+               f"K6 {key}: the path handed another formula")
+        a = (d["cx1"], d["mv1"], d["cx2"], d["mv2"], d["params"], d["spec"],
+             d["m1"], d["m2"])
+        fns = {"kernel": lambda: cv.cov_block(*a, eye=eye),
+               "plain": lambda: cv.cov_block_plain(*a, eye=eye)}
+        before = kernel_counts.snapshot()
+        k = fns["kernel"]()
+        _check(kernel_counts.diff(before)["cov_launches"] == 1,
+               f"K6 {key}: not one launch")
+        pl = fns["plain"]()
+        torch.cuda.synchronize()
+        _check(k.shape == pl.shape and k.is_contiguous()
+               and torch.equal(k.isnan(), pl.isnan())
+               and torch.equal(k == 0, pl == 0),
+               f"K6 {key}: shape, NaNs or zeros differ from plain")
+        rel = float(((k - pl).abs() / pl.abs().clamp_min(1e-300))
+                    .nan_to_num().max())
+        _check(rel <= COV_RTOL[dname], f"K6 {key}: relative error {rel}")
+        t = out.setdefault(label, dict(calls=0, real=0, bit_equal=0,
+                                       max_rel_err=0.0, ms=0.0, plain_ms=0.0,
+                                       dev_ms=0.0, plain_dev_ms=0.0,
+                                       bound_ms=0.0))
+        t["calls"] += 1
+        t["real"] += int(rec.calls[key] is not None)
+        t["bit_equal"] += int(torch.equal(k.nan_to_num(), pl.nan_to_num()))
+        t["max_rel_err"] = max(t["max_rel_err"], rel)
+        del k, pl
+        if dname != "float32":
+            continue
+        shape = key[1:]
+        if shape not in timed:
+            km, pm = _event_times(torch, fns, 5)
+            gk = _graph_ms(torch, fns["kernel"], 5)
+            gp = _graph_ms(torch, fns["plain"], 3)
+            C = chains[0] if chains else 1
+            flops, nb = cv.cov_block_cost(C, B, n1, n2, q, d["cx1"].shape[-1],
+                                          1 if eye else 2, dtype)
+            timed[shape] = (km, pm, gk, gp, _bound(nb, flops)[0])
+        for name, v in zip(("ms", "plain_ms", "dev_ms", "plain_dev_ms",
+                            "bound_ms"), timed[shape]):
+            t[name] += v
+    for label, t in sorted(out.items()):
+        print(f"K6 at the paths' calls, {label}: {t['calls']} distinct "
+              f"calls ({t['real']} on their own arguments) held against "
+              f"plain, {t['bit_equal']} to the bit, max relative error "
+              f"{t['max_rel_err']:.3e}; the distinct f32 calls summed: "
+              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms; device time in a CUDA graph: "
+              f"kernel {t['dev_ms']:.4f} ms, plain {t['plain_dev_ms']:.4f} "
+              f"ms", flush=True)
+    return out
+
+
 def _level_shapes(levels):
     """[(B, S, P)] of a list of LevelArrays."""
     return [tuple(lv.rows.shape) + (lv.prows.shape[1],) for lv in levels]
@@ -621,6 +931,9 @@ def run_config(bench, chol, torch, cfg_id, keep, burn, thin,
            f"acceptance {out['accept_ratio']} outside (0.05, 0.8)")
     _check(n_ref > 0 and launches >= 2 * n_ref * iters,
            f"K1 launches {launches} < 2 x {n_ref} ref levels x {iters} its")
+    _check(counts["cov_launches"] > 0 and counts["cov_plain_calls"] == 0,
+           f"covariance blocks: {counts['cov_launches']} K6 launches, "
+           f"{counts['cov_plain_calls']} plain calls")
     _check_reference(cfg_id, rmspe, sd)
     if settings == dict(chunk=200) and not kw and not limited:
         _keep_draws(cfg_id, 1, keep, burn, thin, out)
@@ -3229,7 +3542,7 @@ def main() -> int:
         return 0
     _phase("card")
     card_info(torch)
-    _phase("build K1, K3, K4")
+    _phase("build K1, K3, K4, K6")
     build_kernels(chol, level, _build, torch)
     if sys.argv[1:] == ["--resume-bits"]:
         torch.use_deterministic_algorithms(True)
@@ -3249,14 +3562,19 @@ def main() -> int:
     if sys.argv[1:] == ["--bench"]:
         bench_phase(bench, torch)
         return 0
+    if sys.argv[1:] == ["--cov"]:
+        _phase("K6 vs plain")
+        check_cov_kernel(torch)
+        return 0
     if sys.argv[1:] == ["--times"]:
-        _phase("K1, K2, K3, K4 times")
+        _phase("K1, K2, K3, K4, K6 times")
         time_kernel(chol, torch)
         time_kernel(chol, torch, write_l=True)
         time_kernel(chol, torch, shapes=TRIV_SHAPES, label="triv")
         time_kernel(chol, torch, shapes=Q5_SHAPES, label="q5")
         time_level_kernels(level, torch, CONFIG3_THIN)
         time_config5_kernels(chol, level, torch)
+        check_cov_kernel(torch)
         return 0
     _phase("K1 vs plain")
     max_err = check_kernel(chol, torch)
@@ -3264,6 +3582,9 @@ def main() -> int:
     time_kernel(chol, torch, write_l=True)
     triv_rows = time_kernel(chol, torch, shapes=TRIV_SHAPES, label="triv")
     q5_rows = time_kernel(chol, torch, shapes=Q5_SHAPES, label="q5")
+    _phase("K6 vs plain")
+    cov = check_cov_kernel(torch)
+    rec = CovCalls(torch).install()  # every path's K6 calls from here
     _phase("config 1")
     # cut from the bench's keep=1000, burn=1000 (3200 iterations) to keep
     # the whole run near half its time limit
@@ -3372,6 +3693,12 @@ def main() -> int:
     r20 = predict_phase(bench, torch, {5: fit8, 3: fit3})
     del fit8, fit3
     r21 = bench_phase(bench, torch)
+    rec.remove()
+    _phase("K6 vs plain at every path's calls")
+    cov_paths = check_recorded_cov(torch, rec)
+    _check({"config1", "config2", "config3", "config4", "config5"}
+           <= set(cov_paths), f"K6 calls recorded in {sorted(cov_paths)}")
+    del rec
     print(f"chip_smoke: every phase passed in {time.time() - _T0:.1f} s",
           flush=True)
 
@@ -3488,7 +3815,18 @@ def main() -> int:
                    for k, v in level_path(t, len(shapes)).items()})
         k4[f"device_ms_{c}"] = t["dev"] / len(shapes)
         k4[f"max_abs_err_{c}"] = aa["err"][label]
-    print(json.dumps({"kernels": [k1, k3, k4]}))
+    # K6: one sweep's calls at config 3's and the q = 5 configuration's
+    # shapes (f32, one chain), times summed; its launches in config 3's
+    # always-emit run and each path's
+    k6 = dict(name="ag10_cov", route="cuda",
+              source="spamtree_tpu_torch/csrc/ag10_cov.cu", replaces=None,
+              launches_config3=r3["cov_launches"],
+              launches_paths={k: r.get("cov_launches") for k, r in
+                              paths.items() if isinstance(r, dict)})
+    for label, t in cov.items():
+        k6.update({f"{k}_{label}": v for k, v in t.items()})
+    k6["paths"] = cov_paths
+    print(json.dumps({"kernels": [k1, k3, k4, k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

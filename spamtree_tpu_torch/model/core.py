@@ -59,6 +59,7 @@ from spamtree_tpu_torch.ops import level as level_ops
 from spamtree_tpu_torch.ops.chol import max_s
 from spamtree_tpu_torch.ops.covariance import (
     CovModel,
+    cov_block,
     pairwise_cov,
     pairwise_cov_diag,
     unpack_theta,
@@ -67,7 +68,6 @@ from spamtree_tpu_torch.ops.linalg import (
     chol_inv_masked,
     chol_masked,
     chol_nan,
-    identity_pad,
     tri_solve,
 )
 
@@ -710,9 +710,15 @@ def level_coords(ms: ModelStatic):
     return tuple(lvls), tuple(pred)
 
 
-def _bcov(ms: ModelStatic, params, cx1, mv1, cx2, mv2):
-    """Pairwise covariance over a leading block-batch axis."""
-    return pairwise_cov(cx1, mv1, cx2, mv2, params, ms.spec)
+def _bcov(ms: ModelStatic, params, cx1, mv1, cx2, mv2, m1=None, m2=None,
+          eye=False):
+    """Pairwise covariance over a leading block-batch axis, masked by
+    ``m1`` x ``m2`` or identity-padded by ``m1`` (``eye``): kernel K6 on
+    the card (``ops.covariance.cov_block``).  The formula is this module's
+    ``pairwise_cov``, looked up at each call, so a fault control that
+    rebinds it reaches every block."""
+    return cov_block(cx1, mv1, cx2, mv2, params, ms.spec, m1, m2, eye,
+                     pairwise_cov)
 
 
 def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
@@ -816,8 +822,8 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
             if kernel_ok or parts:
                 lvl = lvl_full
                 cxr, mvr, cxp, mvp = cx
-                Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr)
-                Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
+                Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr, lvl.pmask,
+                            lvl.rmask)
                 kdiag = pairwise_cov_diag(cxr, mvr, params, ms.spec)
                 if parts:
                     # composed parts: thin-level decision without the joint
@@ -860,8 +866,8 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
             B, S = lvl.rows.shape
             need_H = (not decision_only) or emit_joint
             if P > 0:
-                Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr)
-                Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
+                Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr, lvl.pmask,
+                            lvl.rmask)
                 M, H, LAi = _apply_parent_factor(parent_joint, lvl.lp_pos,
                                                  Kxc, gc, al, need_H)
                 hw = hw_prev = None
@@ -877,10 +883,14 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
                 hw = hw_prev = 0.0
 
             if is_ref:
-                Kcc = _bcov(ms, params, cxr, mvr, cxr, mvr)
-                Rcc = identity_pad(Kcc, lvl.rmask)
+                # identity-padded; chol_inv_masked pads what it takes
+                # again, so the limited tree's factor of Kcc below gets
+                # the raw block's bits
+                Kcc = _bcov(ms, params, cxr, mvr, cxr, mvr, lvl.rmask,
+                            eye=True)
+                Rcc = Kcc
                 if P > 0:
-                    Rcc = Rcc - torch.einsum("...bps,...bpt->...bst", M, M)
+                    Rcc = Kcc - torch.einsum("...bps,...bpt->...bst", M, M)
                 use_k = ms.use_kernel and S <= max_s(ms.dtype)
                 _, Rinv, okl = chol_inv_masked(Rcc, lvl.rmask, use_k)
                 logdet = logdet + _csum(
@@ -897,7 +907,7 @@ def sweep(ms: ModelStatic, theta, w, build_pred: bool = True,
                     if ms.limited_tree:
                         # limited tree: children condition on this block's
                         # rows alone, so the factor is the inverse Cholesky
-                        # factor of the raw Kcc (reference: .cpp:901-903)
+                        # factor of Kcc (reference: .cpp:901-903)
                         _, J, okp = chol_inv_masked(Kcc, lvl.rmask, use_k)
                         ok = ok & _call(okp, cb)
                     else:
@@ -1001,8 +1011,7 @@ def _pred_operators(ms: ModelStatic, params, parent_joint,
 
     def pred_body(carry, args, al=False, loc=True):
         lvl, cxr, mvr, cxp, mvp = args
-        Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr)
-        Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
+        Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr, lvl.pmask, lvl.rmask)
         _, H, _ = _apply_parent_factor(
             _parent_factor(ms, gathered, ms.pred_lp, parent_joint, loc, cb),
             lvl.lp_pos, Kxc, 1, al)
@@ -1341,15 +1350,15 @@ def _joints_upto(ms: ModelStatic, params, upto: int, coords_cache=None):
             lvl, cxr, mvr, cxp, mvp = args
             S = lvl.rows.shape[1]
             k = use_k and S <= max_s(ms.dtype)
-            Kcc = _bcov(ms, params, cxr, mvr, cxr, mvr)
+            Kcc = _bcov(ms, params, cxr, mvr, cxr, mvr, lvl.rmask, eye=True)
             if ms.limited_tree:
                 _, J, _ = chol_inv_masked(Kcc, lvl.rmask, k)
                 return carry, (J,)
-            Rcc = identity_pad(Kcc, lvl.rmask)
+            Rcc = Kcc
             LAi = H = None
             if P > 0:
-                Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr)
-                Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
+                Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr, lvl.pmask,
+                            lvl.rmask)
                 M, H, LAi = _apply_parent_factor(parent_joint, lvl.lp_pos,
                                                  Kxc, gc, al)
                 Rcc = Rcc - torch.einsum("...bps,...bpt->...bst", M, M)
@@ -1383,8 +1392,7 @@ def predict_recompute(ms: ModelStatic, theta, w, z, coords_cache=None):
 
     def body(carry, args, bi, al=False):
         lvl, cxr, mvr, cxp, mvp = args
-        Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr)
-        Kxc = Kxc * (lvl.pmask[:, :, None] & lvl.rmask[:, None, :])
+        Kxc = _bcov(ms, params, cxp, mvp, cxr, mvr, lvl.pmask, lvl.rmask)
         _, H, _ = _apply_parent_factor(
             _parent_factor(ms, gathered, ms.pred_lp, parent_joint,
                            ms.pred_local[bi], cb), lvl.lp_pos, Kxc, 1, al)

@@ -14,13 +14,28 @@ unpacked from a (C, n_theta) theta carry a chain axis, which leads the
 result.  Per-row
 parameter lookups are plain gathers by margin id; the JAX package writes
 them as one-hot contractions, which give exactly the same values.
+
+``cov_block`` is what the model's sweeps call: a level's covariance blocks
+with the caller's mask applied (or identity-padded).  On a CUDA tensor of
+model 0, every q, in float32 or float64, it launches kernel K6
+(``csrc/ag10_cov.cu``), which writes each masked block once where the
+plain version runs ~20 elementwise passes over it; anything it does not
+take there raises.  ``cov_block_plain`` -- ``pairwise_cov`` and the mask --
+is the same function in plain PyTorch: it serves CPU tensors, and models 1
+and 2 on either device (no benchmark cell runs them), and the tests and
+``chip_smoke.py`` hold the kernel against it.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
+
+from spamtree_tpu_torch.ops import kernel_counts
+from spamtree_tpu_torch.ops.linalg import identity_pad
+from spamtree_tpu_torch.utils.cost import counted
 
 
 class CovModel(NamedTuple):
@@ -205,6 +220,162 @@ def pairwise_cov_diag(cx, mv, params: CovParams, spec: CovModel):
     ai1 = params.ai1[..., mv]
     ai2 = params.ai2[..., mv]
     return ai1 * ai1 * _c_base(zero, zero, params.thetamv, spec.q) + ai2 * ai2
+
+
+MAX_Q = 16  # K6 keeps a chain's q^2 margin-pair constants in shared memory
+
+_FNS = {torch.float32: "st_ag10_cov_f32", torch.float64: "st_ag10_cov_f64"}
+_bound: dict = {}
+
+
+class _CovArgs(ctypes.Structure):
+    """K6's arguments (``CovArgs`` in ``csrc/ag10_cov.cu``, field by field):
+    pointers, strides in elements, sizes."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "cx1", "cx2", "mv1", "mv2", "m1", "m2", "out",
+        "ai1", "ai2", "phi", "tmv", "dmat")]
+                + [(n, ctypes.c_longlong * 2) for n in (
+                    "s_ai1", "s_ai2", "s_phi", "s_tmv")]
+                + [("s_dmat", ctypes.c_longlong * 3)]
+                + [(n, ctypes.c_longlong) for n in ("C", "B", "n1", "n2")]
+                + [(n, ctypes.c_int) for n in ("dd", "q", "eye")])
+
+
+def _kernel(dtype):
+    """The ctypes entry point of K6 for ``dtype``; builds the library at
+    first use."""
+    if dtype not in _bound:
+        from spamtree_tpu_torch.ops import _build
+
+        fn = getattr(_build.load("ag10_cov"), _FNS[dtype])
+        fn.argtypes = [ctypes.POINTER(_CovArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bound[dtype] = fn
+    return _bound[dtype]
+
+
+def cov_block_plain(cx1, mv1, cx2, mv2, params: CovParams, spec: CovModel,
+                    m1, m2=None, eye: bool = False, cov=pairwise_cov):
+    """``cov`` (``pairwise_cov``) with the caller's mask: ``K * (m1[:,
+    None] & m2[None, :])``, or with ``eye`` ``identity_pad(K, m1)``
+    (padded rows and columns set to the identity's; n1 == n2, no
+    ``m2``)."""
+    K = cov(cx1, mv1, cx2, mv2, params, spec)
+    if eye:
+        return identity_pad(K, m1)
+    return K * (m1[..., :, None] & m2[..., None, :])
+
+
+def cov_block_cost(C: int, B: int, n1: int, n2: int, q: int, dd: int,
+                   masks: int, dtype) -> tuple:
+    """(flops, bytes) of one K6 call writing C x B blocks of (n1, n2):
+    the rows' and columns' coordinates (dd each) and int64 ids read once,
+    ``masks`` bool masks of n1 and n2 entries (2; the identity pad reads
+    one mask for both: 1), the block written once.  Operations an
+    entry: the two differences, their squares and sum, the square root,
+    the distance's product and quotient, an exp, the base's quotient, the
+    coefficient's product, the nugget's product, exp and sum, and the
+    mask's product: 15 (q = 1: no quotients, no nugget: 10)."""
+    it = dtype.itemsize
+    per_entry = 10 if q == 1 else 15
+    rows = B * (n1 + n2)
+    return (C * B * n1 * n2 * per_entry,
+            rows * (dd * it + 8) + masks * rows + C * B * n1 * n2 * it)
+
+
+def _cost(cx1, mv1, cx2, mv2, params, spec, m1, m2, eye, cov):
+    """``cov_block_cost`` of a ``cov_block`` call."""
+    return cov_block_cost(params.ai1.shape[:-1].numel(),
+                          cx1.shape[:-2].numel(), cx1.shape[-2],
+                          cx2.shape[-2], spec.q, cx1.shape[-1],
+                          1 if eye else 2, cx1.dtype)
+
+
+def _strides(x: torch.Tensor, nd: int):
+    """(chain stride, then the last ``nd`` dims' strides) of a parameter
+    with or without a chain axis; 0 for the chain without one."""
+    st = x.stride()
+    return ((st[0] if x.dim() > nd else 0),) + tuple(st[-nd:])
+
+
+@counted(_cost)
+def cov_block(cx1, mv1, cx2, mv2, params: CovParams, spec: CovModel,
+              m1, m2=None, eye: bool = False, cov=pairwise_cov):
+    """A level's masked covariance blocks: what ``cov_block_plain``
+    returns, (C, B, n1, n2) with a chain axis in ``params`` (C leads) or
+    (B, n1, n2), contiguous.  cx* (B, n*, dd), mv* (B, n*) int64, m* (B,
+    n*) bool; ``eye`` identity-pads with ``m1`` (n1 == n2) and takes no
+    ``m2``, which every other call needs.
+
+    A CUDA tensor of model 0 launches kernel K6 (one launch for every
+    chain and block, counted as ``cov_launches``) or raises; any other
+    call runs ``cov_block_plain`` (``cov_plain_calls``).  The route
+    follows the device, the model and the dtype alone.  K6 computes
+    ``pairwise_cov``'s formula; a caller that hands another function as
+    ``cov`` (the benchmark's ``margins_swapped`` control rebinds the one
+    ``model.core`` hands) gets it on the plain route, on any device."""
+    if eye == (m2 is not None):
+        raise ValueError("cov_block: an m2 mask with eye=False and none "
+                         "with eye=True")
+    if cx1.device.type != "cuda" or spec.model != 0 or cov is not pairwise_cov:
+        kernel_counts.add("cov_plain_calls")
+        return cov_block_plain(cx1, mv1, cx2, mv2, params, spec, m1, m2, eye,
+                               cov)
+    dtype = cx1.dtype
+    if dtype not in _FNS:
+        raise TypeError(f"cov_block: dtype {dtype} not in (float32, float64)")
+    if not 1 <= spec.q <= MAX_Q:
+        raise ValueError(f"cov_block: q={spec.q} outside 1..{MAX_Q}")
+    lead, n1, n2, dd = cx1.shape[:-2], cx1.shape[-2], cx2.shape[-2], \
+        cx1.shape[-1]
+    if eye and n1 != n2:
+        raise ValueError("cov_block: eye needs n1 == n2")
+    masks = {"m1": m1} if eye else {"m1": m1, "m2": m2}
+    want = {"cx2": (cx2, lead + (n2, dd)), "mv1": (mv1, lead + (n1,)),
+            "mv2": (mv2, lead + (n2,))}
+    want.update({k: (v, lead + ((n1,) if k == "m1" else (n2,)))
+                 for k, v in masks.items()})
+    for name, (x, shape) in want.items():
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"cov_block: {name} {tuple(x.shape)}, expected "
+                             f"{tuple(shape)}")
+    if dd < 2 or mv1.dtype != torch.int64 or mv2.dtype != torch.int64 or any(
+            v.dtype != torch.bool for v in masks.values()):
+        raise TypeError("cov_block: coordinates need dd >= 2, margin ids "
+                        "int64 and masks bool")
+    tensors = [cx1, cx2, mv1, mv2, *params[:5], *masks.values()]
+    if any(t.device != cx1.device for t in tensors) or any(
+            p.dtype != dtype for p in params[:5]):
+        raise ValueError("cov_block: every tensor on one device, the "
+                         "parameters in the coordinates' dtype")
+    chains = params.ai1.shape[:-1]  # (C,), or () without a chain axis
+    out = torch.empty(chains + lead + (n1, n2), dtype=dtype,
+                      device=cx1.device)
+    if out.numel() == 0:
+        return out
+    cx1, cx2, mv1, mv2 = (t.contiguous() for t in (cx1, cx2, mv1, mv2))
+    m1 = m1.contiguous()
+    m2 = None if eye else m2.contiguous()
+    p = params
+    a = _CovArgs(
+        cx1=cx1.data_ptr(), cx2=cx2.data_ptr(), mv1=mv1.data_ptr(),
+        mv2=mv2.data_ptr(), m1=m1.data_ptr(),
+        m2=None if eye else m2.data_ptr(), out=out.data_ptr(),
+        ai1=p.ai1.data_ptr(), ai2=p.ai2.data_ptr(), phi=p.phi_i.data_ptr(),
+        tmv=p.thetamv.data_ptr(), dmat=p.Dmat.data_ptr(),
+        s_ai1=_strides(p.ai1, 1), s_ai2=_strides(p.ai2, 1),
+        s_phi=_strides(p.phi_i, 1), s_tmv=_strides(p.thetamv, 1),
+        s_dmat=_strides(p.Dmat, 2), C=chains.numel(), B=lead.numel(), n1=n1,
+        n2=n2, dd=dd, q=spec.q, eye=int(eye))
+    fn = _kernel(dtype)
+    with torch.cuda.device(cx1.device):
+        stream = torch.cuda.current_stream(cx1.device).cuda_stream
+        err = fn(ctypes.byref(a), stream)
+    if err != 0:
+        raise RuntimeError(f"cov_block kernel launch failed: CUDA error {err}")
+    kernel_counts.add("cov_launches")
+    return out
 
 
 def cross_covariance_ag10(coords1, mv1, coords2, mv2, ai1, ai2, phi_i,

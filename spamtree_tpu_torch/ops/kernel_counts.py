@@ -7,7 +7,10 @@ kernels K1 (``chol.inv_chol``), K3 (``level.thin_gibbs_level``) and K4
 ``ops.linalg`` by route: K1 on a CUDA tensor, else the plain route
 (``cholesky_ex``, and every CPU tensor); ``k1_wide_blocks`` counts those of
 K1's blocks that its 128-thread form factorised (96 < S <= 128), which
-``k1_blocks`` counts too.
+``k1_blocks`` counts too.  ``cov_launches`` counts the launches of
+kernel K6 (``covariance.cov_block``), ``cov_plain_calls`` that wrapper's
+calls on its plain route (every CPU tensor; models 1 and 2; a
+substituted formula).
 
 A wrapper adds to its own names where it launches (``add``).  A reader
 takes a ``snapshot`` and later the ``diff`` since it.  A captured CUDA
@@ -26,12 +29,16 @@ import contextlib
 from spamtree_tpu_torch.utils import trace
 
 _counts = dict.fromkeys(("k1_launches", "k3_launches", "k4_launches",
-                         "k1_blocks", "k1_wide_blocks", "plain_blocks"), 0)
+                         "k1_blocks", "k1_wide_blocks", "plain_blocks",
+                         "cov_launches", "cov_plain_calls"), 0)
 # the names ``trace_blocks`` adds to the trace record, under these names
-# (``benchmark/metrics/k1_block_share.py`` reads two of them)
+# (``benchmark/metrics/k1_block_share.py`` reads two of the first three,
+# ``benchmark/metrics/cov_kernel_share.py`` the last two)
 _TRACED = {"k1_blocks": "ops.chol.k1_blocks",
            "k1_wide_blocks": "ops.chol.k1_wide_blocks",
-           "plain_blocks": "ops.chol.plain_blocks"}
+           "plain_blocks": "ops.chol.plain_blocks",
+           "cov_launches": "ops.cov.launches",
+           "cov_plain_calls": "ops.cov.plain_calls"}
 
 
 def add(name: str, n: int = 1) -> None:
@@ -58,8 +65,9 @@ def diff(before: dict) -> dict:
 def trace_blocks():
     """Add the blocks factorised inside the with-block to the current trace
     record, by route: ``ops.chol.k1_blocks`` (of which
-    ``ops.chol.k1_wide_blocks``) and ``ops.chol.plain_blocks`` (zero
-    included)."""
+    ``ops.chol.k1_wide_blocks``) and ``ops.chol.plain_blocks``; and the
+    covariance blocks' calls by route: ``ops.cov.launches`` (K6) and
+    ``ops.cov.plain_calls`` (zero included)."""
     before = snapshot()
     try:
         yield

@@ -14,6 +14,7 @@ from spamtree_tpu import spamtree as spamtree_jax
 from spamtree_tpu_torch.api import prepare_fit
 from spamtree_tpu_torch.model import mcmc
 from spamtree_tpu_torch.ops import chol, kernel_counts, level
+from spamtree_tpu_torch.ops import covariance as cv
 from spamtree_tpu_torch.utils import cost
 
 
@@ -91,6 +92,10 @@ def test_kernel_cost_functions_at_config3_shapes(dtype):
     assert level.thin_decision_cost(B, S, P, dtype, slabs=7,
                                     aligned=False)[1] == it * (
         2 * B * P * S + 7 * P * P + B * P + 4 * B * S + 4 * B) + 8 * B
+    # K6 at the thin level's Kxc (P x S, both masks) and four chains
+    assert cv.cov_block_cost(4, B, P, S, 2, 2, 2, dtype) == (
+        15 * 4 * B * P * S,
+        B * (P + S) * (2 * it + 8) + 2 * B * (P + S) + 4 * B * P * S * it)
 
 
 def _level_args(C=None, B=5, S=6, P=4, Bp=3, seed=0):
@@ -109,11 +114,13 @@ def _level_args(C=None, B=5, S=6, P=4, Bp=3, seed=0):
 
 @pytest.mark.parametrize("case", ["k1", "k1_write_l", "k3", "k4_partials",
                                   "k4_level", "k4_level_aligned",
-                                  "k4_chains"])
+                                  "k4_chains", "k6", "k6_eye",
+                                  "k6_chains_q1"])
 def test_kernel_wrappers_count_their_own_work_alone(case, monkeypatch):
     """Under a counter each kernel wrapper on the CPU's plain path records
     its cost function's work as "kernel" work and nothing else: the plain
-    version's ops (and K4's reduction and chain fold) count nothing, so
+    version's ops (and K4's reduction and chain fold, K6's mask or identity
+    pad) count nothing, so
     the CPU counts what the kernel would record on the card.  The level
     kernels' gate does not change what they count."""
     monkeypatch.setenv("SPAMTREE_LEVEL_KERNELS", "1")
@@ -132,6 +139,26 @@ def test_kernel_wrappers_count_their_own_work_alone(case, monkeypatch):
         wpar = torch.randn(B, P, generator=g, dtype=f64)
         call = lambda: level.thin_gibbs_level(H, vs[0], wpar, *vs[1:])
         want = level.thin_gibbs_cost(B, S, P, f64)
+    elif case.startswith("k6"):
+        g = torch.Generator().manual_seed(2)
+        q, C = (1, 3) if case == "k6_chains_q1" else (2, None)
+        spec = cv.make_cov_model(2, q)
+        nt = spec.npars + spec.k
+        theta = torch.rand((nt,) if C is None else (C, nt), generator=g,
+                           dtype=f64) + 0.5
+        params = cv.unpack_theta(theta, spec)
+        B, n1, n2 = 5, 7, 7 if case == "k6_eye" else 4
+        c1, c2 = (torch.rand(B, n, 2, generator=g, dtype=f64)
+                  for n in (n1, n2))
+        m1, m2 = (torch.randint(0, q, (B, n), generator=g) for n in (n1, n2))
+        k1, k2 = (torch.rand(B, n, generator=g) < 0.7 for n in (n1, n2))
+        if case == "k6_eye":
+            call = lambda: cv.cov_block(c1, m1, c1, m1, params, spec, k1,
+                                        eye=True)
+            want = cv.cov_block_cost(1, B, n1, n1, q, 2, 1, f64)
+        else:
+            call = lambda: cv.cov_block(c1, m1, c2, m2, params, spec, k1, k2)
+            want = cv.cov_block_cost(C or 1, B, n1, n2, q, 2, 2, f64)
     elif case == "k4_chains":
         d = _level_args(C=2)  # lp_pos (B,) and rmask_f (B, S) shared
         call = lambda: level.thin_decision_chains(**d)

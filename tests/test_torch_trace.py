@@ -425,6 +425,31 @@ def test_reader_picks_its_record(fit_history, name, ctx, want):
     assert mod.read(dict(config=None, traffic=None)) is None
 
 
+@pytest.mark.parametrize("launches,plain,want", [
+    (24, 0, 100.0), (0, 30, 0.0), (6, 18, 25.0), (0, 0, None),
+    (None, None, None)])
+def test_cov_kernel_share_reads_the_chain_record(monkeypatch, launches,
+                                                 plain, want):
+    """``cov_kernel_share`` reads the newest chain record's K6 launches
+    over all covariance-block calls, in %; nothing where the counters are
+    missing (a program without them) or zero, or outside a traced run."""
+    old = _record("run_mcmc", True, 5, 1)
+    old.counters.update({"ops.cov.launches": 1, "ops.cov.plain_calls": 1})
+    new = _record("run_mcmc_chains", True, 5, 1)
+    if launches is not None:
+        new.counters.update({"ops.cov.launches": launches,
+                             "ops.cov.plain_calls": plain})
+    monkeypatch.setattr(trace, "_history", collections.deque(
+        [old, new, _record("spamtree_predict", True)],
+        maxlen=trace.HISTORY))
+    mod = _reader("cov_kernel_share")
+    got = mod.read(dict(profile={"busy_s": 1.0}))
+    assert got == (None if want is None else pytest.approx(want))
+    assert mod.read(dict(profile=None)) is None
+    assert (mod.SOURCE, mod.LAYER, mod.MOVES) == (
+        "program_counter", "model.core", "chain_iters_per_s")
+
+
 def test_readers_read_nothing_without_records(monkeypatch):
     monkeypatch.setattr(trace, "_history",
                         collections.deque(maxlen=trace.HISTORY))
